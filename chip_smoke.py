@@ -14,13 +14,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    2-chunk batch in f32 against the same port on the CPU;
 4. one song at ``chunking="song"`` (a 30 s window, the streaming kernel);
 5. time each kernel, its plain version and its library yardstick at the
-   main-path shapes, beside its bound.
+   main-path shapes, beside its bound;
+6. train ``AudioAMT`` on lv60 at full width and depth with the recipe's
+   hyperparameters (f32, all dropouts 0.1), batch 8 of 30 s rows: one
+   linear-probe step, a warm-up and 3 timed full-finetune steps, counting
+   kernel launches per step, and one step at ``precision="bf16"``; then the
+   recipe's own 5 s rows (batch 8, 2 steps), which reach no kernel;
+7. one f32 training step of a 2-layer lv60-width model (batch 2, 30 s,
+   attention dropout 0.1) on the card against the same step on the CPU.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line and the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
+import functools
 import json
 import os
 import subprocess
@@ -33,10 +41,18 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from svt_speechbrain_tpu_torch import ops  # noqa: E402
+from svt_speechbrain_tpu_torch.core import Stage  # noqa: E402
+from svt_speechbrain_tpu_torch.dataio.batch import PaddedData  # noqa: E402
 from svt_speechbrain_tpu_torch.flagship import (HEAD_OUTPUTS,  # noqa: E402
                                                 build_modules)
 from svt_speechbrain_tpu_torch.convert_jax import (  # noqa: E402
     init_params, load_jax_params)
+from svt_speechbrain_tpu_torch.models.wav2vec2 import (  # noqa: E402
+    HuggingFaceWav2Vec2, Wav2Vec2Config)
+from svt_speechbrain_tpu_torch.nnet import losses  # noqa: E402
+from svt_speechbrain_tpu_torch.nnet.activations import Softmax  # noqa: E402
+from svt_speechbrain_tpu_torch.nnet.linear import Linear  # noqa: E402
+from svt_speechbrain_tpu_torch.tasks.amt import AudioAMT  # noqa: E402
 from svt_speechbrain_tpu_torch.inference import (  # noqa: E402
     BatchedAMTTranscriber)
 from svt_speechbrain_tpu_torch.ops import _build  # noqa: E402
@@ -45,8 +61,10 @@ from svt_speechbrain_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
 SEED = 0
 SR = 16000
-# H100 SXM published peaks (dense): bf16 tensor-core FLOP/s, HBM bytes/s
+# H100 SXM published peaks (dense): bf16 tensor-core FLOP/s, f32 FLOP/s
+# outside the tensor cores, HBM bytes/s
 PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 # kernel vs plain tolerances (max abs error), with their reasons:
 #  f32 frontend: sums over K = 1536 in another order, erff vs exact erf,
@@ -62,21 +80,57 @@ TOL = {("conv_frontend", "f32"): 1e-3, ("conv_frontend", "bf16"): 6.25e-2,
        ("flash_attention_short", "f32"): 1e-4,
        ("flash_attention_short", "bf16"): 2e-2,
        ("flash_attention", "f32"): 1e-4, ("flash_attention", "bf16"): 2e-2}
+# the training kernels, against their plain versions: the forward's output
+# by max abs error (f32 as above; bf16 2.5x the 1.953e-3 measured at
+# (8, 16, 1499, 64), where |out| peaks near 0.24); L by max abs error (f32
+# sums of the same products in another order, values about 7); the
+# gradients by max abs error over the plain version's peak magnitude (their
+# scale varies with the shape): f32 summation order; bf16 dS rounded to
+# bf16 at other f32 values, and bf16 outputs
+TRAIN_TOL = {("flash_attention_lse", "f32"): 1e-4,
+             ("flash_attention_lse", "bf16"): 5e-3,
+             ("lse", "f32"): 1e-3, ("lse", "bf16"): 1e-3,
+             ("grad", "f32"): 1e-4, ("grad", "bf16"): 2e-2}
 # logits of the f32 serving batch, card vs CPU: 24 layers of f32 products in
 # other summation orders (cuBLAS, cuDNN and the kernels vs CPU kernels)
 TOL_E2E_F32 = 2e-3
+# one f32 training step of 2 lv60-width layers, card vs CPU, by summation
+# order only: the loss and the gradient norm relative; each parameter's
+# clipped gradient and its update (after minus before), |card - CPU| over
+# |CPU| per leaf. Adam's first step moves a parameter by about lr * sign(g),
+# so the updates see the gradients' signs and the gradients their sizes. A
+# leaf whose CPU gradient is under ZERO_GRAD_SHARE of the norm (the
+# attention's key bias: 0 in exact arithmetic, float noise on each side) is
+# exempt from both. Measured on an H100 (chip_smoke.py phase 7): gradient
+# norm 0, worst gradient 4.870e-06, worst update 1.627e-04, both on a
+# frontend conv's weight; each tolerance is about 6x its reading.
+TOL_STEP = {"loss_rel": 1e-4, "gnorm_rel": 2e-5, "grad_rel": 3e-5,
+            "update_rel": 1e-3}
+ZERO_GRAD_SHARE = 1e-6
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
-SOURCES = {"conv_frontend": "svt_speechbrain_tpu_torch/csrc/conv_frontend.cu",
-           "flash_attention_short":
-               "svt_speechbrain_tpu_torch/csrc/flash_attention.cu",
-           "flash_attention":
-               "svt_speechbrain_tpu_torch/csrc/flash_attention.cu"}
+_CSRC = "svt_speechbrain_tpu_torch/csrc/"
+SOURCES = {"conv_frontend": _CSRC + "conv_frontend.cu",
+           "flash_attention_short": _CSRC + "flash_attention.cu",
+           "flash_attention": _CSRC + "flash_attention.cu",
+           "flash_attention_lse": _CSRC + "flash_attention.cu",
+           "flash_attention_bwd_dq": _CSRC + "flash_attention_bwd.cu",
+           "flash_attention_bwd_dkv": _CSRC + "flash_attention_bwd.cu"}
+_FA = "svt_speechbrain_tpu/ops/flash_attention.py:"
 REPLACES = {"conv_frontend": "svt_speechbrain_tpu/ops/conv_frontend.py:172",
-            "flash_attention_short":
-                "svt_speechbrain_tpu/ops/flash_attention.py:635",
-            "flash_attention": "svt_speechbrain_tpu/ops/flash_attention.py:342"}
+            "flash_attention_short": _FA + "635",
+            "flash_attention": _FA + "342",
+            "flash_attention_lse": _FA + "437",
+            "flash_attention_bwd_dq": _FA + "502",
+            "flash_attention_bwd_dkv": _FA + "514"}
+TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
 SHORT_LENGTHS = [249, 0, 1, 100, 249, 200, 17, 248]     # B = 8 rows
 LONG_LENGTHS = [1499, 700, 0]                          # B = 3 rows
+DROPOUT_SEED = 1234567
+TRAIN_RATE = 0.1
+TRAIN_SECONDS = 30.0
+TRAIN_BATCH = 8
+FRAME_RATE = 49.8
 
 
 def log(msg):
@@ -173,6 +227,69 @@ def check_frontend(extractor, gen, errs):
         errs[("conv_frontend", tag)] = err
 
 
+def _max_abs(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def check_training_kernels(gen, errs):
+    """3b (forward + L + dropout), 4a (dQ) and 4b (dK, dV) against their
+    plain versions, rate 0.1, at the 30 s training shape without lengths
+    and with lengths [1499, 700, 0]. The gradients are held to their error
+    over the plain version's peak magnitude; ``errs`` keeps each kernel's
+    largest max abs error per dtype."""
+    for shape, lengths in (((8, 16, 1499, 64), None),
+                           ((3, 16, 1499, 64), LONG_LENGTHS)):
+        for tag, dtype in DTYPES.items():
+            q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
+                             .to(dtype) for _ in range(4))
+            lens = (None if lengths is None else
+                    torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+            args = (q, k, v, lens, None, DROPOUT_SEED, TRAIN_RATE)
+            out, lse = fa.flash_attention_fwd_lse(*args)
+            delta = (dout.float() * out.float()).sum(-1).contiguous()
+            bargs = (q, k, v, dout, lse, delta, lens, None, DROPOUT_SEED,
+                     TRAIN_RATE)
+            dq = fa.flash_attention_bwd_dq(*bargs)
+            dk, dv = fa.flash_attention_bwd_dkv(*bargs)
+            torch.cuda.synchronize()
+            want_out, want_lse = fa.attention_lse_reference(*args)
+            want_dq = fa.attention_bwd_dq_reference(*bargs)
+            want_dk, want_dv = fa.attention_bwd_dkv_reference(*bargs)
+            live = want_lse > fa.NEG_INF / 2
+            e_lse = _max_abs(lse[live], want_lse[live])
+            e_abs = {"flash_attention_lse": _max_abs(out, want_out),
+                     "flash_attention_bwd_dq": _max_abs(dq, want_dq),
+                     "flash_attention_bwd_dkv": max(_max_abs(dk, want_dk),
+                                                    _max_abs(dv, want_dv))}
+            e_dq = e_abs["flash_attention_bwd_dq"] / want_dq.abs().max().item()
+            e_dkv = max(_max_abs(t, w) / w.abs().max().item()
+                        for t, w in ((dk, want_dk), (dv, want_dv)))
+            finite = all(torch.isfinite(t).all().item()
+                         for t in (out, dq, dk, dv))
+            zero_rows = (lens is None or all(
+                (t[lens.cpu() == 0] == 0).all().item()
+                for t in (out, dq, dk, dv)))
+            ok = (finite and zero_rows
+                  and torch.equal(lse > fa.NEG_INF / 2, live)
+                  and e_abs["flash_attention_lse"]
+                  <= TRAIN_TOL[("flash_attention_lse", tag)]
+                  and e_lse <= TRAIN_TOL[("lse", tag)]
+                  and max(e_dq, e_dkv) <= TRAIN_TOL[("grad", tag)])
+            log(f"  training kernels {tag} {shape} lengths={lengths} rate="
+                f"{TRAIN_RATE}: out max_abs_err="
+                f"{e_abs['flash_attention_lse']:.3e} L max_abs_err="
+                f"{e_lse:.3e} dQ peak-relative err={e_dq:.3e} dK/dV "
+                f"peak-relative err={e_dkv:.3e} zero_rows_exact={zero_rows} "
+                f"-> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"training kernels {tag} disagree with "
+                                     f"their plain versions")
+            for name, err in e_abs.items():
+                errs[(name, tag)] = max(err, errs.get((name, tag), 0.0))
+            del q, k, v, dout, out, lse, dq, dk, dv
+            del want_out, want_dq, want_dk, want_dv
+
+
 # ---------------------------------------------------------------- phase 3/4
 def run_path(tr, songs, repeats=3):
     """Counts set to 0 just before, read just after each transcribe; the
@@ -195,25 +312,29 @@ def _kernel_group(name):
     if "conv_ln_gelu" in low:
         return "conv_frontend kernel"
     if "flash_fwd" in low:
-        return "attention kernel"
-    if "conv" in low:
+        return "attention forward kernel"
+    if "flash_bwd" in low:
+        return "attention backward kernels"
+    if any(w in low for w in ("conv", "cudnn", "implicit_gemm", "dgrad",
+                              "wgrad")):
         return "conv (cuDNN)"
     if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")):
         return "matmul (cuBLAS)"
     return "elementwise/reduce (PyTorch)"
 
 
-def profile_run(tr, songs, top=10):
-    """Device kernels over one ``predict_frames``, from torch.profiler: the
+def profile_run(fn, top=10):
+    """Device kernels over one call of ``fn``, from torch.profiler: the
     device's busy share of the window (the union of kernel intervals, since
     cuDNN's grouped conv runs kernels that overlap), and kernel time by
-    group and by kernel (sums, which count overlapping kernels in full)."""
+    group and by kernel (sums, which count overlapping kernels in full).
+    Returns the idle share of the window (None if no kernel was seen)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        tr.predict_frames(songs)
+        fn()
         torch.cuda.synchronize()
     events = list(prof.events())
     kernels = [ev for ev in events
@@ -221,7 +342,7 @@ def profile_run(tr, songs, top=10):
                and ev.time_range.end > ev.time_range.start]
     if not kernels:
         log("  profiler saw no device kernels: breakdown not measured")
-        return
+        return None
     spans = sorted((ev.time_range.start, ev.time_range.end) for ev in kernels)
     busy, (lo, hi) = 0.0, spans[0]
     for start, end in spans[1:]:
@@ -248,6 +369,7 @@ def profile_run(tr, songs, top=10):
     for name, (n, dur) in sorted(by_name.items(),
                                  key=lambda kv: -kv[1][1])[:top]:
         log(f"    {dur / 1e3:8.3f} ms x{n:<5d} {name[:90]}")
+    return 1 - busy / window
 
 
 def check_frames(tr, songs):
@@ -317,6 +439,20 @@ def attention_cost(shape, lengths, itemsize):
     return flops, nbytes
 
 
+def training_cost(name, shape, itemsize):
+    """3b, 4a, 4b without lengths: 4, 6 and 8 B·H·Tq·Tk·D flops; bytes of
+    each input read once and each output written once (L and Δ are f32
+    per query row)."""
+    b, h, t, d = shape
+    tile, rows = b * h * t * d * itemsize, b * h * t * 4
+    flops = {"flash_attention_lse": 4, "flash_attention_bwd_dq": 6,
+             "flash_attention_bwd_dkv": 8}[name] * b * h * t * t * d
+    nbytes = {"flash_attention_lse": 4 * tile + rows,     # q k v -> out, L
+              "flash_attention_bwd_dq": 5 * tile + 2 * rows,  # +dO,L,Δ -> dQ
+              "flash_attention_bwd_dkv": 6 * tile + 2 * rows}[name]
+    return flops, nbytes
+
+
 def bound(flops, nbytes, peak):
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -352,6 +488,8 @@ def timings(bridge, gen):
                                .scaled_dot_product_attention(
                                    q, k, v, attn_mask=keep)),
             shape=f"{shape} bf16 lengths={lengths}")
+    for tag, dtype in DTYPES.items():
+        rows.update(training_timings(tag, dtype, gen))
     # context: the largest piece of the batch that is not a ported kernel
     pos_conv = bridge.encoder.pos_conv.to("cuda", torch.bfloat16)
     x = torch.randn(8, 249, 1024, generator=gen, device="cuda").bfloat16()
@@ -360,11 +498,252 @@ def timings(bridge, gen):
     log(f"  context: positional conv (F.conv1d, k=128, groups=16) on "
         f"(8, 249, 1024) bf16: {pos_ms:.4f} ms")
     for name, r in rows.items():
+        if isinstance(name, tuple):
+            name = " ".join(name)
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {name} {r['shape']}: ms={r['ms']:.4f} plain_ms="
             f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']}) library_ms={lib}")
+    for tag in DTYPES:
+        dq, dkv = (rows[(name, tag)] for name in TRAIN_KERNELS[1:])
+        log(f"  backward {tag}, like for like: 4a + 4b = "
+            f"{dq['ms'] + dkv['ms']:.4f} ms against one SDPA backward (dQ, "
+            f"dK and dV in one call; the library_ms of both rows) "
+            f"{dq['library_ms']:.4f} ms")
     return rows
+
+
+def training_timings(tag, dtype, gen):
+    """3b, 4a and 4b at the 30 s training shape, rate 0.1, no lengths; the
+    yardstick is SDPA with dropout_p=0.1 (another mask, the same work):
+    its forward for 3b; its backward, which computes dQ, dK and dV in one
+    call, is the library_ms of both 4a and 4b and compares with their
+    sum."""
+    shape = (TRAIN_BATCH, 16, 1499, 64)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
+                     .to(dtype) for _ in range(4))
+    fwd = (q, k, v, None, None, DROPOUT_SEED, TRAIN_RATE)
+    out, lse = fa.flash_attention_fwd_lse(*fwd)
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    bwd = (q, k, v, dout, lse, delta, None, None, DROPOUT_SEED, TRAIN_RATE)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_out = sdpa(*leaves, dropout_p=TRAIN_RATE)
+    lib_fwd = time_ms(lambda: sdpa(q, k, v, dropout_p=TRAIN_RATE), iters=10)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaves, dout,
+                                                  retain_graph=True), iters=10)
+    rows = {}
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+    for name, kernel, plain, args, lib in (
+            ("flash_attention_lse", fa.flash_attention_fwd_lse,
+             fa.attention_lse_reference, fwd, lib_fwd),
+            ("flash_attention_bwd_dq", fa.flash_attention_bwd_dq,
+             fa.attention_bwd_dq_reference, bwd, lib_bwd),
+            ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv,
+             fa.attention_bwd_dkv_reference, bwd, lib_bwd)):
+        b_ms, b_by = bound(*training_cost(name, shape, q.element_size()),
+                           peak)
+        rows[(name, tag)] = dict(
+            ms=time_ms(functools.partial(kernel, *args), iters=10, warmup=2),
+            plain_ms=time_ms(functools.partial(plain, *args), iters=2,
+                             warmup=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+            shape=f"{shape} {tag} rate={TRAIN_RATE} no lengths")
+    return rows
+
+
+# ---------------------------------------------------------------- phase 6/7
+def amt_hparams():
+    """The MIR-ST500 recipe's training hyperparameters
+    (``recipes/MIR_ST500/hparams/train_audio_ssl.yaml``)."""
+    crit = dict(reduction="mean", allowed_len_diff=60, label_smoothing=0.0)
+    return dict(
+        seed=1986, pitch_octave_num=4, onset_positive_weight=15.0,
+        offset_positive_weight=1.0, lr=3e-4, lr_wav2vec=5e-5,
+        linear_prob_epochs=2,
+        onset_criterion=functools.partial(losses.bce_loss, **crit),
+        offset_criterion=functools.partial(losses.bce_loss, **crit),
+        octave_criterion=functools.partial(losses.nll_loss, **crit),
+        pitch_criterion=functools.partial(losses.nll_loss, **crit),
+        log_softmax=Softmax(apply_log=True))
+
+
+def amt_brain(tree, arch, device, precision="fp32"):
+    """``AudioAMT`` over lv60 (with ``arch`` overrides) holding ``tree``."""
+    bridge = HuggingFaceWav2Vec2(source="facebook/wav2vec2-large-lv60",
+                                 output_norm=True, arch_overrides=arch)
+    head = Linear(HEAD_OUTPUTS, bridge.config.hidden_size)
+    load_jax_params(tree, bridge, head)
+    brain = AudioAMT({"wav2vec2": bridge, "model": head},
+                     hparams=amt_hparams(),
+                     run_opts={"device": device, "precision": precision})
+    brain.init_optimizers()
+    return brain
+
+
+def train_batch(rng, batch, seconds):
+    """Synthetic rows of noise and annotations at 49.8 frames a second:
+    onset/offset in {0, 1}, octave in 0..4, pitch class in 0..12."""
+    n, frames = int(seconds * SR), int(round(seconds * FRAME_RATE))
+    wav = (0.1 * rng.standard_normal((batch, n))).astype(np.float32)
+    anno = np.stack([rng.random((batch, frames)) < 0.05,
+                     rng.random((batch, frames)) < 0.05,
+                     rng.integers(0, 5, (batch, frames)),
+                     rng.integers(0, 13, (batch, frames))],
+                    axis=-1).astype(np.float32)
+    ones = np.ones(batch, np.float32)
+    return {"sig": PaddedData(torch.from_numpy(wav).pin_memory(), ones),
+            "anno": PaddedData(torch.from_numpy(anno).pin_memory(), ones)}
+
+
+def train_steps(brain, batch, n):
+    """``n`` steps, the counts set to 0 just before and read just after
+    each; returns [(loss, gradient norm, wall s, counts)]."""
+    out = []
+    for _ in range(n):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = brain.fit_batch(batch)
+        torch.cuda.synchronize()
+        out.append((loss, brain.last_grad_norm, time.perf_counter() - t0,
+                    ops.launch_counts()))
+        if not np.isfinite(loss):
+            raise AssertionError(f"nonfinite training loss {loss}")
+    return out
+
+
+def expect_counts(counts, want, what):
+    got = {name: counts[name] for name in counts}
+    full = {name: want.get(name, 0) for name in counts}
+    if got != full:
+        raise AssertionError(f"{what}: launches {got}, want {full}")
+
+
+def training_phase(rng):
+    """Phase 6; returns (counts of a full-finetune step, summary)."""
+    arch = {}                                   # lv60, all dropouts 0.1
+    tree = init_params(Wav2Vec2Config(**arch),
+                       torch.Generator().manual_seed(SEED), HEAD_OUTPUTS)
+    brain = amt_brain(tree, arch, "cuda")
+    n_layers = brain.modules.wav2vec2.config.num_layers
+    batch = train_batch(rng, TRAIN_BATCH, TRAIN_SECONDS)
+    log(f"  batch {TRAIN_BATCH} x {TRAIN_SECONDS:.0f} s "
+        f"({int(TRAIN_SECONDS * SR)} samples), annotations of "
+        f"{batch['anno'].data.shape[1]} frames; {n_layers} layers, "
+        f"recipe hyperparameters, f32, dropouts 0.1")
+    brain.on_stage_start(Stage.TRAIN, 1)
+    (loss, gnorm, wall, counts), = train_steps(brain, batch, 1)
+    log(f"  linear-probe step: loss={loss:.6f} gnorm={gnorm:.6f} "
+        f"{wall * 1e3:.1f} ms launches={counts}")
+    expect_counts(counts, {"flash_attention_lse": n_layers},
+                  "linear-probe step")
+    brain.on_stage_start(Stage.TRAIN, 3)
+    train_steps(brain, batch, 1)                # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    steps = train_steps(brain, batch, 3)
+    per_layer = {name: n_layers for name in TRAIN_KERNELS}
+    for i, (loss, gnorm, wall, counts) in enumerate(steps):
+        log(f"  full-finetune step {i + 1}: loss={loss:.6f} gnorm="
+            f"{gnorm:.6f} {wall * 1e3:.1f} ms launches={counts}")
+        expect_counts(counts, per_layer, "full-finetune step")
+    step_s = float(np.median([w for _, _, w, _ in steps]))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    audio_rate = TRAIN_BATCH * TRAIN_SECONDS / step_s
+    log(f"  median full-finetune step {step_s * 1e3:.1f} ms: "
+        f"{audio_rate:.1f} s of audio trained per second; peak memory "
+        f"{peak_gb:.2f} GiB (torch.cuda.max_memory_allocated)")
+    log("  where the device time goes (torch.profiler, one full-finetune "
+        "step):")
+    idle = profile_run(lambda: brain.fit_batch(batch))
+    brain.precision = "bf16"
+    (loss, gnorm, wall, counts), = train_steps(brain, batch, 1)
+    log(f"  precision=bf16 step (bf16 parameters, f32 batch): loss="
+        f"{loss:.6f} gnorm={gnorm:.6f} {wall * 1e3:.1f} ms "
+        f"launches={counts}")
+    expect_counts(counts, per_layer, "bf16 step")
+    brain.precision = "fp32"
+
+    log(f"  the recipe's own 5 s rows: batch {TRAIN_BATCH}, f32, full "
+        f"finetune, 2 steps")
+    short = train_batch(rng, TRAIN_BATCH, 5.0)
+    for i, (loss, _, wall, counts) in enumerate(train_steps(brain, short, 2)):
+        log(f"  5 s step {i + 1}: loss={loss:.6f} {wall * 1e3:.1f} ms "
+            f"launches={counts} (eager attention under dropout, unfused "
+            f"frontend)")
+        expect_counts(counts, {}, "5 s step")
+    del brain
+    torch.cuda.empty_cache()
+    return steps[-1][3], dict(step_ms=step_s * 1e3, audio_rate=audio_rate,
+                              peak_gb=peak_gb, idle=idle)
+
+
+def card_vs_cpu_step(rng):
+    """Phase 7: one f32 full-finetune step of 2 lv60-width layers with the
+    full frontend, batch 2 x 30 s, attention dropout 0.1 (the hash mask is
+    the same on both sides) and the other dropouts 0."""
+    arch = dict(num_layers=2, hidden_dropout=0.0, activation_dropout=0.0,
+                feat_proj_dropout=0.0, attention_dropout=TRAIN_RATE)
+    tree = init_params(Wav2Vec2Config(**arch),
+                       torch.Generator().manual_seed(SEED + 1), HEAD_OUTPUTS)
+    batch = train_batch(rng, 2, TRAIN_SECONDS)
+    result = {}
+    for dev in ("cuda", "cpu"):
+        brain = amt_brain(tree, arch, dev)
+        brain.on_stage_start(Stage.TRAIN, 3)
+        params = dict(brain.modules.named_parameters())
+        before = {n: p.detach().cpu().clone() for n, p in params.items()}
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = brain.fit_batch(batch)
+        wall = time.perf_counter() - t0
+        result[dev] = dict(
+            loss=loss, gnorm=brain.last_grad_norm, counts=ops.launch_counts(),
+            grads={n: p.grad.cpu() for n, p in params.items()},
+            updates={n: p.detach().cpu() - before[n]
+                     for n, p in params.items()})
+        log(f"  {dev}: loss={loss:.6f} gnorm={brain.last_grad_norm:.6f} "
+            f"{wall:.1f} s launches={result[dev]['counts']}")
+        del brain, params
+    expect_counts(result["cuda"]["counts"],
+                  {name: 2 for name in TRAIN_KERNELS}, "card step")
+
+    got, want = result["cuda"], result["cpu"]
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in want["grads"].values()]))
+    errs = {"grad_rel": {}, "update_rel": {}}
+    exempt = []
+    for name, g in want["grads"].items():
+        if torch.linalg.vector_norm(g) <= ZERO_GRAD_SHARE * norm:
+            exempt.append(name)
+            continue
+        for key, part in (("grad_rel", "grads"), ("update_rel", "updates")):
+            ref = want[part][name]
+            errs[key][name] = (torch.linalg.vector_norm(got[part][name] - ref)
+                               / torch.linalg.vector_norm(ref)).item()
+    worst = {key: max(e, key=e.get) for key, e in errs.items()}
+    loss_rel = abs(got["loss"] / want["loss"] - 1)
+    gnorm_rel = abs(got["gnorm"] / want["gnorm"] - 1)
+    ok = (loss_rel <= TOL_STEP["loss_rel"]
+          and gnorm_rel <= TOL_STEP["gnorm_rel"]
+          and all(errs[key][worst[key]] <= TOL_STEP[key] for key in errs)
+          and all(name.endswith("attn.bk") for name in exempt))
+    log(f"  card vs CPU: loss rel err={loss_rel:.3e} (tol "
+        f"{TOL_STEP['loss_rel']:.0e}), gnorm rel err={gnorm_rel:.3e} (tol "
+        f"{TOL_STEP['gnorm_rel']:.0e}); per parameter, worst of "
+        f"{len(errs['grad_rel'])}: gradient rel err "
+        f"{errs['grad_rel'][worst['grad_rel']]:.3e} ({worst['grad_rel']}, "
+        f"tol {TOL_STEP['grad_rel']:.0e}), update rel err "
+        f"{errs['update_rel'][worst['update_rel']]:.3e} "
+        f"({worst['update_rel']}, tol {TOL_STEP['update_rel']:.0e}); "
+        f"exempt (zero gradient) {exempt} -> {'ok' if ok else 'FAIL'}")
+    for key, e in errs.items():
+        top = sorted(e.items(), key=lambda kv: -kv[1])[:5]
+        log(f"    largest {key}: " + ", ".join(f"{n} {v:.3e}" for n, v in top))
+    if not ok:
+        raise AssertionError("the training step on the card disagrees with "
+                             "the CPU")
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -398,7 +777,9 @@ def main():
                     (8, 16, 249, 64), SHORT_LENGTHS, gen, errs)
     check_attention("flash_attention", fa.flash_attention,
                     (3, 16, 1499, 64), LONG_LENGTHS, gen, errs)
+    check_training_kernels(gen, errs)
     extractor.cpu()
+    torch.cuda.empty_cache()
 
     log("phase 3: lv60 AMT serving, 5 s chunks, batch 8, bf16")
     rng = np.random.default_rng(SEED)
@@ -420,7 +801,7 @@ def main():
                              "frontend and short-attention kernels")
     chunked_counts = counts
     log("  where the device time goes (torch.profiler, one predict_frames):")
-    profile_run(tr, songs)
+    profile_run(lambda: tr.predict_frames(songs))
     del tr
     f32_batch_check(bridge, head, rng)
 
@@ -434,24 +815,41 @@ def main():
     check_frames(tr, song)
     log(f"  notes: {len(notes['whole_song'])}, {wall * 1e3:.1f} ms wall, "
         f"launches on this path: {counts}")
-    profile_run(tr, song)
+    profile_run(lambda: tr.predict_frames(song))
     if counts["flash_attention"] <= 0 or counts["conv_frontend"] <= 0:
         raise AssertionError("song mode did not launch the streaming "
                              "attention and frontend kernels")
     song_counts = counts
     del tr
 
-    log("phase 5: timings at main-path shapes (bf16)")
+    log("phase 5: timings at main-path shapes (serving kernels in bf16, "
+        "training kernels in f32 and bf16)")
     rows = timings(bridge, gen)
+    del bridge, head
+    torch.cuda.empty_cache()
+
+    log("phase 6: AudioAMT training, lv60 full width and depth, 30 s rows")
+    train_counts, summary = training_phase(rng)
+    log(f"  training summary: {json.dumps(summary)}")
+
+    log("phase 7: one f32 training step, 2 lv60-width layers, card vs CPU")
+    card_vs_cpu_step(rng)
 
     kernels = []
-    for name, r in rows.items():
-        launches = (song_counts if name == "flash_attention"
-                    else chunked_counts)[name]
+    for key, r in rows.items():
+        if isinstance(key, tuple):          # training kernels: f32 rows
+            name, tag = key
+            if tag != "f32":
+                continue
+            launches = train_counts[name]
+        else:
+            name, tag = key, "bf16"
+            launches = (song_counts if name == "flash_attention"
+                        else chunked_counts)[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches,
-            "max_abs_err": errs[(name, "bf16")], "ms": r["ms"],
+            "max_abs_err": errs[(name, tag)], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(f"# total {time.perf_counter() - t_start:.1f} s")

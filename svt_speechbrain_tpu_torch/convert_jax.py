@@ -127,3 +127,54 @@ def init_params(config, generator, head_outputs=20):
                "pos_conv": pos_conv, "encoder_ln": _ln(d), "layers": layers}
     return {"wav2vec2": {"encoder": encoder},
             "model": _linear(generator, d, head_outputs)}
+
+
+def _unconvert(name, tensor):
+    """(port parameter name, tensor) → (JAX key path, numpy array): the
+    inverse of ``_convert``; the array is a copy."""
+    t = tensor.detach().to("cpu", torch.float32, copy=True)
+    path = name.replace(".", "/")
+    path = re.sub(r"feature_extractor/layers/(\d+)/", r"feature_extractor/\1/",
+                  path)
+    if re.search(r"feature_extractor/\d+/conv/weight$", path):
+        path, t = path[:-len("weight")] + "w", t.permute(2, 1, 0)
+    elif re.search(r"feature_extractor/\d+/conv/bias$", path):
+        path = path[:-len("bias")] + "b"
+    elif path.endswith("pos_conv/v"):
+        t = t.permute(2, 1, 0)
+    elif path.endswith("pos_conv/g"):
+        t = t.reshape(-1, 1, 1)                # (1, 1, k) → (k, 1, 1)
+    return path, t.contiguous().numpy()
+
+
+def module_tree(module):
+    """A module's parameters as its JAX-shaped tree of numpy arrays: the
+    inverse of ``load_module_tree``."""
+    tree = {}
+    for name, tensor in module.state_dict().items():
+        path, value = _unconvert(name, tensor)
+        node = tree
+        *parents, leaf = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def export_jax_params(bridge, head=None):
+    """The inverse of ``load_jax_params``: {"wav2vec2": ..., "model": ...}
+    in the JAX layouts, so parameters can be compared with the JAX
+    package's after training steps.
+
+    Example
+    -------
+    >>> import torch
+    >>> from svt_speechbrain_tpu_torch.nnet.linear import Linear
+    >>> head = Linear(3, 2)
+    >>> sorted(export_jax_params(head)["wav2vec2"])
+    ['b', 'w']
+    """
+    tree = {"wav2vec2": module_tree(bridge)}
+    if head is not None:
+        tree["model"] = module_tree(head)
+    return tree

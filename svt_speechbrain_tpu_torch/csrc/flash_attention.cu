@@ -1,14 +1,18 @@
 // Attention forward with per-row key lengths (online softmax over K/V
-// panels), one body behind two wrappers.
+// panels), one body behind three wrappers.
 //
-// Replaces two TPU kernels of svt_speechbrain_tpu/ops/flash_attention.py:
+// Replaces three TPU kernels of svt_speechbrain_tpu/ops/flash_attention.py:
 //   * `flash_attention_short` (`_flash_short_kernel`): Tk <= 512, the whole
 //     score tile of GROUP rows per program in VMEM;
-//   * `flash_attention` forward (`_flash_kernel` / `_fwd_recurrence`):
-//     FlashAttention-2 streaming over K/V panels, panels past a row's
-//     length skipped (serving form: no dropout, no logsumexp).
-// On the TPU the two differ only to amortise grid overhead; on Hopper one
-// body serves both.
+//   * `flash_attention` forward, serving form (`_flash_kernel` /
+//     `_fwd_recurrence`): FlashAttention-2 streaming over K/V panels, panels
+//     past a row's length skipped;
+//   * `flash_attention` forward, training form (`_flash_kernel_lse`): the
+//     same recurrence, plus the per-row logsumexp L = m + log l (or -1e30
+//     where l = 0) that the backward programs rebuild P from, plus the
+//     in-kernel attention dropout (`kDropout`).
+// On the TPU the short and streaming kernels differ only to amortise grid
+// overhead; on Hopper one body serves both.
 //
 // Design: one block per (batch*head row, 64-query tile), 4 warps, each
 // owning 16 query rows. Q is staged once; K and V^T panels of 64 keys are
@@ -19,88 +23,81 @@
 // running max and sum, writes P (in the input dtype, as the TPU kernel's
 // `p.astype(v.dtype)`) to its own shared slab and accumulates O += P V.
 // Only ceil(length / 64) panels run, so a row of length 0 runs none and
-// writes zeros (l = 0), never NaN and never a uniform mix.
+// writes zeros (l = 0, L = -1e30), never NaN and never a uniform mix.
 //
-// What bounds it on the H100: at the serving shapes (T = 249 or 1499,
+// Dropout (after normalisation, as on the TPU): each thread knows the global
+// (q, k) of every element of its accumulator fragment (rows g and g + 8 of
+// its warp's 16, columns 2t and 2t + 1 of each 8-wide n-tile), hashes them
+// (flash_common.cuh) and multiplies the un-normalised P by the keep scale
+// before writing the P slab; the running sum l keeps the un-dropped P, so
+// out = (softmax(S) o M / (1 - p)) V exactly, panel by panel.
+//
+// What bounds it on the H100: at the main-path shapes (T = 249 or 1499,
 // D = 64) the products are small (4 T^2 D flops per row) and so are the
 // bytes (q, k, v, out once each); this simple kernel is limited by its
-// shared-memory fragment reads and by exp throughput, not by HBM. Using
-// P straight from registers and wgmma are the later improvements.
+// shared-memory fragment reads and by exp throughput (and, with dropout,
+// by the three fmix32 of each score), not by HBM. Using P straight from
+// registers and wgmma are the later improvements.
 //
 // Requirements: D = 64 (wav2vec2-large) or 16 (the CI-sized TINY_ARCH);
-// q/k/v/out with unit stride on D and arbitrary
-// (batch, head, time) strides; lengths int32 per batch (row r = b*H + h),
-// clamped to Tk; f32 or bf16 (f32 accumulation for bf16, full f32 for f32).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "tile_mma.cuh"
+// q/k/v/out with unit stride on D and arbitrary (batch, head, time)
+// strides; lengths int32 per batch (row r = b*H + h), clamped to Tk;
+// lse (if given) f32 (B*H, Tq) contiguous; f32 or bf16 (f32 accumulation
+// for bf16, full f32 for f32).
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBKV = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;
-
-struct Strides {
-  long long b, h, t;
-};
-
-// padded shared-memory row widths: rows of D (Q, K) and rows of keys
-// (V^T, P); the padding keeps the fragment reads bank-conflict free
-template <typename T, int D>
-__host__ __device__ constexpr int ld_d() {
-  return D + svt::Num<T>::kPad;
-}
-
-template <typename T>
-__host__ __device__ constexpr int ld_k() {
-  return kBKV + svt::Num<T>::kPad;
-}
+using svt::Dropout;
+using svt::kNegInf;
+using svt::kThreads;
+using svt::kTile;
+using svt::Strides;
 
 template <typename T, int D>
-__host__ __device__ constexpr size_t smem_bytes() {
-  // Q (BQ x LDD) + K (BKV x LDD) + V^T (D x LDK) + P (BQ x LDK)
-  return sizeof(T) * ((size_t)ld_d<T, D>() * (kBQ + kBKV) +
-                      (size_t)ld_k<T>() * (D + kBQ));
+constexpr size_t fwd_smem_bytes() {
+  // Q (64 x LDD) + K (64 x LDD) + V^T (D x LDT) + P (64 x LDT)
+  return sizeof(T) * ((size_t)svt::ld_d<T, D>() * 2 * kTile +
+                      (size_t)svt::ld_t<T>() * (D + kTile));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ lengths,
-                     T* __restrict__ out, int heads, int tq, int tk,
-                     Strides qs, Strides ks, Strides vs, Strides os,
-                     float scale) {
-  constexpr int LDD = ld_d<T, D>();
-  constexpr int LDK = ld_k<T>();
+                     T* __restrict__ out, float* __restrict__ lse, int heads,
+                     int tq, int tk, Strides qs, Strides ks, Strides vs,
+                     Strides os, float scale, Dropout dr) {
+  constexpr int LDD = svt::ld_d<T, D>();
+  constexpr int LDT = svt::ld_t<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sq = reinterpret_cast<T*>(smem_raw);
-  T* sk = sq + kBQ * LDD;
-  T* s_vt = sk + kBKV * LDD;
-  T* sp = s_vt + D * LDK;
+  T* sk = sq + kTile * LDD;
+  T* s_vt = sk + kTile * LDD;
+  T* sp = s_vt + D * LDT;
 
   const int row = blockIdx.y;
   const int b = row / heads, h = row % heads;
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * kTile;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq4 = lane & 3;
-  const T zero = svt::Num<T>::from_f32(0.0f);
 
   int len = lengths == nullptr ? tk : lengths[b];
   len = len < 0 ? 0 : (len > tk ? tk : len);
 
-  const T* qb = q + b * qs.b + h * qs.h;
   const T* kb = k + b * ks.b + h * ks.h;
   const T* vb = v + b * vs.b + h * vs.h;
+  svt::stage<T, D>(q + b * qs.b + h * qs.h, qs.t, q0, tq, sq, LDD, nullptr,
+                   0);
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    sq[r * LDD + d] = (q0 + r < tq) ? qb[(q0 + r) * qs.t + d] : zero;
+  // this thread's two query rows: g and g + 8 of the warp's 16
+  uint32_t hq[2] = {0u, 0u};
+  if constexpr (kDropout) {
+    const uint32_t h0 = svt::row_hash(dr, (uint32_t)row);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      hq[i] = svt::query_hash(h0, (uint32_t)(q0 + warp * 16 + i * 8 + g));
   }
 
   float m[2] = {kNegInf, kNegInf};
@@ -111,24 +108,20 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nt][e] = 0.0f;
 
-  T* sp_w = sp + warp * 16 * LDK;
+  T* sp_w = sp + warp * 16 * LDT;
   const T* sq_w = sq + warp * 16 * LDD;
-  const int n_panels = (len + kBKV - 1) / kBKV;
+  const int n_panels = (len + kTile - 1) / kTile;
 
   for (int pb = 0; pb < n_panels; ++pb) {
-    const int k0 = pb * kBKV;
+    const int k0 = pb * kTile;
     __syncthreads();  // Q staged / previous panel fully consumed
-    for (int i = tid; i < kBKV * D; i += kThreads) {
-      const int j = i / D, d = i % D;
-      const bool in = k0 + j < tk;
-      sk[j * LDD + d] = in ? kb[(k0 + j) * ks.t + d] : zero;
-      s_vt[d * LDK + j] = in ? vb[(k0 + j) * vs.t + d] : zero;
-    }
+    svt::stage<T, D>(kb, ks.t, k0, tk, sk, LDD, nullptr, 0);
+    svt::stage<T, D>(vb, vs.t, k0, tk, nullptr, 0, s_vt, LDT);
     __syncthreads();
 
-    float s[kBKV / 8][4];
+    float s[kTile / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < kBKV / 8; ++nt) {
+    for (int nt = 0; nt < kTile / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
 #pragma unroll
@@ -140,7 +133,7 @@ __global__ void __launch_bounds__(kThreads)
     // scale, mask, running max (row 0 = g, row 1 = g + 8)
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int nt = 0; nt < kBKV / 8; ++nt)
+    for (int nt = 0; nt < kTile / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + nt * 8 + 2 * tq4 + (e & 1);
@@ -157,13 +150,16 @@ __global__ void __launch_bounds__(kThreads)
       alpha[i] = expf(m[i] - m_new[i]);
     }
 #pragma unroll
-    for (int nt = 0; nt < kBKV / 8; ++nt)
+    for (int nt = 0; nt < kTile / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        const int c = nt * 8 + 2 * tq4 + (e & 1);
         const float p = expf(s[nt][e] - m_new[e >> 1]);
         rs[e >> 1] += p;
-        sp_w[((e >> 1) * 8 + g) * LDK + nt * 8 + 2 * tq4 + (e & 1)] =
-            svt::Num<T>::from_f32(p);
+        float pv = p;
+        if constexpr (kDropout)
+          pv *= svt::keep(dr, hq[e >> 1], (uint32_t)(k0 + c));
+        sp_w[((e >> 1) * 8 + g) * LDT + c] = svt::Num<T>::from_f32(pv);
       }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -183,9 +179,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
-      for (int kt = 0; kt < kBKV / 16; ++kt)
-        svt::Tile<T>::mma(o[nt], sp_w + kt * 16, LDK,
-                          s_vt + nt * 8 * LDK + kt * 16, LDK, lane);
+      for (int kt = 0; kt < kTile / 16; ++kt)
+        svt::Tile<T>::mma(o[nt], sp_w + kt * 16, LDT,
+                          s_vt + nt * 8 * LDT + kt * 16, LDT, lane);
     __syncwarp();
   }
 
@@ -201,71 +197,49 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 2; ++e)
         ob[r * os.t + nt * 8 + 2 * tq4 + e] =
             svt::Num<T>::from_f32(o[nt][i * 2 + e] * inv);
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* lengths, void* out, int batch, int heads, int tq,
-                   int tk, Strides qs, Strides ks, Strides vs, Strides os,
-                   float scale, cudaStream_t stream) {
-  static bool configured = false;
-  const size_t smem = smem_bytes<T, D>();
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  const dim3 grid((tq + kBQ - 1) / kBQ, batch * heads);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), heads, tq, tk,
-      qs, ks, vs, os, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
-                       const int* lengths, void* out, int batch, int heads,
-                       int tq, int tk, Strides qs, Strides ks, Strides vs,
-                       Strides os, float scale, cudaStream_t stream) {
-  switch (d) {
-    case 16:
-      return launch<T, 16>(q, k, v, lengths, out, batch, heads, tq, tk, qs, ks,
-                           vs, os, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, lengths, out, batch, heads, tq, tk, qs, ks,
-                           vs, os, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+    if (lse != nullptr && tq4 == 0)
+      lse[(long long)row * tq + r] =
+          l[i] > 0.0f ? m[i] + logf(fmaxf(l[i], 1e-30f)) : kNegInf;
   }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, for the
-// (batch, head, time) axes; D (16 or 64) has unit stride.
-// `lengths` may be null (every key valid). Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for an unsupported dtype or D.
+// (batch, head, time) axes; D (16 or 64) has unit stride. `lengths` may be
+// null (every key valid); `lse` may be null (serving form: no logsumexp).
+// dropout != 0 applies the hash mask of (seed, thresh, keep_scale).
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// an unsupported dtype or D.
 extern "C" int svt_flash_attention_fwd(
     int dtype, const void* q, const void* k, const void* v,
-    const void* lengths, void* out, int batch, int heads, int tq, int tk,
-    int d, long long qsb, long long qsh, long long qst, long long ksb,
+    const void* lengths, void* out, void* lse, int batch, int heads, int tq,
+    int tk, int d, long long qsb, long long qsh, long long qst, long long ksb,
     long long ksh, long long kst, long long vsb, long long vsh, long long vst,
-    long long osb, long long osh, long long ost, float scale, void* stream) {
+    long long osb, long long osh, long long ost, float scale, int dropout,
+    unsigned int seed, unsigned int thresh, float keep_scale, void* stream) {
   if (batch <= 0 || heads <= 0 || tq <= 0 || tk <= 0)
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsh, qst}, ks{ksb, ksh, kst}, vs{vsb, vsh, vst},
       os{osb, osh, ost};
-  const auto* lens = static_cast<const int*>(lengths);
+  const Dropout dr{seed, thresh, keep_scale};
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_d<float>(d, q, k, v, lens, out, batch, heads, tq, tk,
-                                  qs, ks, vs, os, scale, st);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(d, q, k, v, lens, out, batch, heads,
-                                          tq, tk, qs, ks, vs, os, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)svt::dispatch(dtype, d, dropout, [&](auto t, auto dd,
+                                                   auto drop) -> cudaError_t {
+    using T = typename decltype(t)::type;
+    constexpr int D = decltype(dd)::value;
+    constexpr bool kDrop = decltype(drop)::value;
+    static bool configured = false;
+    const size_t smem = fwd_smem_bytes<T, D>();
+    const cudaError_t err =
+        svt::allow_smem(flash_fwd_kernel<T, D, kDrop>, smem, configured);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((tq + kTile - 1) / kTile, batch * heads);
+    flash_fwd_kernel<T, D, kDrop><<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const int*>(lengths),
+        static_cast<T*>(out), static_cast<float*>(lse), heads, tq, tk, qs, ks,
+        vs, os, scale, dr);
+    return cudaGetLastError();
+  });
 }

@@ -1,0 +1,130 @@
+// Pieces shared by the attention kernels (flash_attention.cu: forward;
+// flash_attention_bwd.cu: the two backward programs).
+//
+// * Tile geometry: blocks of 4 warps over 64-row tiles of queries or keys,
+//   head dim D = 16 (TINY_ARCH) or 64 (wav2vec2-large).
+// * The in-kernel dropout hash, bit-identical to the JAX package's
+//   `_dropout_bits` / `_keep_scale` (svt_speechbrain_tpu/ops/
+//   flash_attention.py:65-95): chained murmur3 fmix32 finalizers over the
+//   GLOBAL score coordinates (seed, row = b*H + h, q, k), uint32 wraparound
+//   arithmetic. Every kernel regenerates the identical mask from those
+//   coordinates, whatever its tiling.
+// * Staging of a 64-row (T, D) panel into shared memory, row-major and/or
+//   transposed, zero past the array's end.
+// * `dispatch`: (dtype, D, dropout) at run time -> a template instantiation.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "tile_mma.cuh"
+
+namespace svt {
+
+constexpr int kTile = 64;  // queries or keys per block tile and per panel
+constexpr int kWarps = 4;  // each warp owns 16 rows of the block's tile
+constexpr int kThreads = kWarps * 32;
+constexpr float kNegInf = -1e30f;
+
+struct Strides {
+  long long b, h, t;
+};
+
+struct Dropout {
+  uint32_t seed;    // the call's seed, as uint32
+  uint32_t thresh;  // keep where bits >= thresh: min(int(rate * 2^32), 2^32 - 1)
+  float scale;      // f32(1 / (1 - rate))
+};
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+// h0 = fmix32(seed ^ row * GOLDEN); hq = fmix32(q * C2 ^ h0);
+// bits = fmix32(k * C1 ^ hq)
+__device__ __forceinline__ uint32_t row_hash(const Dropout& dr, uint32_t row) {
+  return fmix32(dr.seed ^ (row * 0x9E3779B9u));
+}
+
+__device__ __forceinline__ uint32_t query_hash(uint32_t h0, uint32_t q) {
+  return fmix32((q * 0xC2B2AE35u) ^ h0);
+}
+
+// the multiplier of score (q, k): 0 where dropped, 1 / (1 - rate) where kept
+__device__ __forceinline__ float keep(const Dropout& dr, uint32_t hq,
+                                      uint32_t k) {
+  return fmix32((k * 0x85EBCA6Bu) ^ hq) >= dr.thresh ? dr.scale : 0.0f;
+}
+
+// padded shared-memory row widths: rows of D (row-major tiles) and rows of
+// 64 (transposed tiles, P/dS slabs); the padding keeps the fragment reads
+// of tile_mma.cuh bank-conflict free
+template <typename T, int D>
+__host__ __device__ constexpr int ld_d() {
+  return D + Num<T>::kPad;
+}
+
+template <typename T>
+__host__ __device__ constexpr int ld_t() {
+  return kTile + Num<T>::kPad;
+}
+
+// rows [r0, r0 + 64) of a (T, D) panel (row stride `st`, unit stride on D)
+// into `dst` (row-major, row width `ld`) and/or `dst_t` (transposed: d rows
+// of width `ldt`); rows >= t are zero
+template <typename T, int D>
+__device__ __forceinline__ void stage(const T* __restrict__ src, long long st,
+                                      int r0, int t, T* dst, int ld, T* dst_t,
+                                      int ldt) {
+  const T zero = Num<T>::from_f32(0.0f);
+  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    const T x = r0 + r < t ? src[(long long)(r0 + r) * st + d] : zero;
+    if (dst != nullptr) dst[r * ld + d] = x;
+    if (dst_t != nullptr) dst_t[d * ldt + r] = x;
+  }
+}
+
+template <typename T>
+struct TypeTag {
+  using type = T;
+};
+
+// Calls f(TypeTag<T>, integral_constant<int, D>, bool_constant<dropout>)
+// for dtype 0 = float32, 1 = bfloat16 and D in {16, 64}; anything else is
+// cudaErrorInvalidValue.
+template <typename F>
+cudaError_t dispatch(int dtype, int d, int dropout, F&& f) {
+  auto by_d = [&](auto t, auto drop) -> cudaError_t {
+    if (d == 16) return f(t, std::integral_constant<int, 16>{}, drop);
+    if (d == 64) return f(t, std::integral_constant<int, 64>{}, drop);
+    return cudaErrorInvalidValue;
+  };
+  auto by_drop = [&](auto t) -> cudaError_t {
+    return dropout ? by_d(t, std::true_type{}) : by_d(t, std::false_type{});
+  };
+  if (dtype == 0) return by_drop(TypeTag<float>{});
+  if (dtype == 1) return by_drop(TypeTag<__nv_bfloat16>{});
+  return cudaErrorInvalidValue;
+}
+
+// Opt a kernel into more than 48 KB of dynamic shared memory (once per
+// kernel instantiation: `configured` is the caller's static flag).
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem, bool& configured) {
+  if (configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) configured = true;
+  return err;
+}
+
+}  // namespace svt

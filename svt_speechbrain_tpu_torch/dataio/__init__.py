@@ -1,0 +1,1 @@
+"""Batch containers of the port (counterpart of ``svt_speechbrain_tpu.dataio``)."""

@@ -1,15 +1,20 @@
 """wav2vec 2.0 encoder (port of ``svt_speechbrain_tpu/models/wav2vec2.py``).
 
-This slice ports the wav2vec2-large-lv60 path, eval only:
+The port covers the wav2vec2-large-lv60 path, for serving and training:
 
 - the "layer"-norm conv extractor (``ConvFeatureExtractor``), dispatched to
-  the CUDA conv-frontend kernel when ``ops.conv_frontend.can_fuse`` holds;
+  the CUDA conv-frontend kernel when ``ops.conv_frontend.can_fuse`` holds
+  and the frontend is fused (not training, or a frozen extractor);
 - feature projection (LayerNorm → Linear);
 - the weight-normed grouped positional conv (k=128, groups=16) + GELU;
 - pre-LN transformer layers whose attention core dispatches to the CUDA
-  attention kernels by key length;
+  attention kernels by key length and dropout;
+- in training, the feat-proj, hidden, activation and attention dropouts
+  (``wav2vec2.py:464-489``, ``:568-577``), drawn from a ``StepRNG``;
 - exact-lengths masking from relative ``wav_lens`` and the per-row
-  input/output layer norms of the SB bridge (``HuggingFaceWav2Vec2``).
+  input/output layer norms of the SB bridge (``HuggingFaceWav2Vec2``), or
+  in training the whole-batch norms over the real rows (``row_mask``), and
+  the bridge's ``freeze`` / ``freeze_feature_extractor``.
 
 "group" extractors, post-LN encoders, data2vec's stacked positional convs,
 WavLM's relative position bias, remat and activation sharding are not
@@ -26,6 +31,7 @@ from torch import nn
 from svt_speechbrain_tpu_torch.nnet.activations import fast_gelu
 from svt_speechbrain_tpu_torch.nnet.attention import MultiheadAttention
 from svt_speechbrain_tpu_torch.nnet.cnn import Conv1d, conv_output_length
+from svt_speechbrain_tpu_torch.nnet.dropout import dropout
 from svt_speechbrain_tpu_torch.nnet.linear import Linear
 from svt_speechbrain_tpu_torch.nnet.normalization import (
     LayerNorm, global_layer_norm, per_item_masked_layer_norm)
@@ -56,6 +62,10 @@ class Wav2Vec2Config:
     num_conv_pos_embedding_groups: int = 16
     do_stable_layer_norm: bool = True
     layer_norm_eps: float = 1e-5
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.1
+    feat_proj_dropout: float = 0.1
     feat_proj_layer_norm: bool = True
     pos_conv_type: str = "weight_norm"
     rel_pos_bias: bool = False
@@ -124,15 +134,14 @@ class ConvFeatureExtractor(nn.Module):
 
     def packed(self, dtype):
         """The kernel's packed weights for ``dtype``, packed once and
-        repacked only when the weights move or change."""
-        params = [p for layer in self.layers for p in layer.parameters()]
-        key = (dtype, tuple((p.data_ptr(), p._version) for p in params))
+        repacked only when the weights move or change (or are swapped for
+        other tensors, as a cast for bf16 compute does)."""
+        sources = [(l.conv.weight, l.conv.bias, l.layer_norm.scale,
+                    l.layer_norm.bias) for l in self.layers]
+        key = (dtype, tuple((id(t), t.data_ptr(), t._version)
+                            for src in sources for t in src if t is not None))
         if key != self._packed_key:
-            self._packed = cf.pack_weights(
-                [l.conv.weight for l in self.layers],
-                [l.conv.bias for l in self.layers],
-                [l.layer_norm.scale for l in self.layers],
-                [l.layer_norm.bias for l in self.layers], dtype)
+            self._packed = cf.pack_weights(*zip(*sources), dtype)
             self._packed_key = key
         return self._packed
 
@@ -176,24 +185,35 @@ class ConvPositionalEmbedding(nn.Module):
         return fast_gelu(y)
 
 
+def _drop(x, rate, rng, train):
+    return dropout(x, rate, None if rng is None else rng.device, train)
+
+
 class TransformerLayer(nn.Module):
-    """One pre-LN wav2vec2 encoder layer, eval (``wav2vec2.py:430``)."""
+    """One pre-LN wav2vec2 encoder layer (``wav2vec2.py:430``): attention
+    dropout inside the attention core, hidden dropout after the attention
+    and FFN outputs, activation dropout after the GELU."""
 
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
         c = config
         self.config = c
-        self.attn = MultiheadAttention(c.num_heads, c.hidden_size)
+        self.attn = MultiheadAttention(c.num_heads, c.hidden_size,
+                                       dropout=c.attention_dropout)
         self.ffn1 = Linear(c.ffn_size, c.hidden_size)
         self.ffn2 = Linear(c.hidden_size, c.ffn_size)
         self.ln1 = LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
         self.ln2 = LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
 
-    def forward(self, x, key_lengths=None):
+    def forward(self, x, key_lengths=None, rng=None, train=False):
+        c = self.config
         h = self.ln1(x)
-        x = x + self.attn(h, h, h, key_lengths=key_lengths,
-                          impl=self.config.attention_impl)
-        return x + self.ffn2(fast_gelu(self.ffn1(self.ln2(x))))
+        h = self.attn(h, h, h, key_lengths=key_lengths,
+                      impl=c.attention_impl, rng=rng, train=train)
+        x = x + _drop(h, c.hidden_dropout, rng, train)
+        h = _drop(fast_gelu(self.ffn1(self.ln2(x))), c.activation_dropout,
+                  rng, train)
+        return x + _drop(self.ffn2(h), c.hidden_dropout, rng, train)
 
 
 class Wav2Vec2Encoder(nn.Module):
@@ -212,12 +232,16 @@ class Wav2Vec2Encoder(nn.Module):
         self.layers = nn.ModuleList(TransformerLayer(c)
                                     for _ in range(c.num_layers))
 
-    def forward(self, wav, num_frames=None):
-        """``num_frames`` (B,) enables exact-lengths masking: junk frames
+    def forward(self, wav, fused_frontend, num_frames=None, rng=None,
+                train=False):
+        """``fused_frontend`` picks the frontend kernel; the bridge decides
+        it. ``num_frames`` (B,) enables exact-lengths masking: junk frames
         are zeroed before ``feat_proj_ln`` and again before the positional
         conv, and attention sees ``key_lengths = num_frames``
-        (``wav2vec2.py:552-567``)."""
-        x = self.feature_extractor(wav)
+        (``wav2vec2.py:552-567``). ``train`` with a ``StepRNG`` turns on
+        the dropouts."""
+        c = self.config
+        x = self.feature_extractor(wav, fused=fused_frontend)
         valid = key_lengths = None
         if num_frames is not None:
             valid = (torch.arange(x.shape[1], device=x.device)[None, :]
@@ -227,9 +251,10 @@ class Wav2Vec2Encoder(nn.Module):
         x = self.feat_proj(self.feat_proj_ln(x))
         if valid is not None:
             x = x * valid
-        x = x + self.pos_conv(x)
+        x = _drop(x, c.feat_proj_dropout, rng, train)
+        x = _drop(x + self.pos_conv(x), c.hidden_dropout, rng, train)
         for layer in self.layers:
-            x = layer(x, key_lengths=key_lengths)
+            x = layer(x, key_lengths=key_lengths, rng=rng, train=train)
         return self.encoder_ln(x)
 
 
@@ -250,7 +275,8 @@ class HuggingFaceWav2Vec2(nn.Module):
     """
 
     def __init__(self, source=None, config: Wav2Vec2Config | None = None,
-                 output_norm=True, normalize_wav=True, arch_overrides=None):
+                 output_norm=True, normalize_wav=True, freeze=False,
+                 freeze_feature_extractor=False, arch_overrides=None):
         super().__init__()
         if config is None:
             name = (source or "wav2vec2-large-lv60").lower()
@@ -269,14 +295,29 @@ class HuggingFaceWav2Vec2(nn.Module):
         # the HF processor's do_normalize: True for lv60 (the "base" models,
         # which set it False, are not ported)
         self.normalize_wav = normalize_wav
+        # ``freeze`` runs the whole bridge without gradients or dropout
+        # (the reference detaches); ``freeze_feature_extractor`` takes the
+        # conv extractor's parameters out of autograd (``wav2vec2.py:715-722``)
+        self.freeze = freeze
+        self.freeze_feature_extractor = freeze_feature_extractor
         self.encoder = Wav2Vec2Encoder(config)
+        if freeze_feature_extractor:
+            self.encoder.feature_extractor.requires_grad_(False)
 
-    def forward(self, wav, wav_lens=None):
+    def forward(self, wav, wav_lens=None, rng=None, train=False,
+                row_mask=None):
         """Without ``wav_lens`` the input and output norms run over the
-        whole batch (the bridge's ``F.layer_norm(x, x.shape)``). With
-        ``wav_lens`` (relative, (B,)) they run per row over its real
-        content only and padded frames are masked through the encoder;
-        rows of length 0 are batch padding."""
+        whole batch (the bridge's ``F.layer_norm(x, x.shape)``), over the
+        rows where ``row_mask`` (B,) is 1 if it is given. With ``wav_lens``
+        (relative, (B,)) they run per row over its real content only and
+        padded frames are masked through the encoder; rows of length 0 are
+        batch padding. ``train`` with a ``StepRNG`` turns on dropout."""
+        if self.freeze:
+            with torch.no_grad():
+                return self._forward(wav, wav_lens, None, False, row_mask)
+        return self._forward(wav, wav_lens, rng, train, row_mask)
+
+    def _forward(self, wav, wav_lens, rng, train, row_mask):
         num_frames = sample_valid = None
         if wav_lens is not None:
             t = wav.shape[1]
@@ -287,14 +328,18 @@ class HuggingFaceWav2Vec2(nn.Module):
                             < true_samples[:, None])
         if self.normalize_wav:
             if wav_lens is None:
-                wav = global_layer_norm(wav)
+                wav = global_layer_norm(wav, row_mask=row_mask)
             else:
                 wav = per_item_masked_layer_norm(wav, sample_valid)
                 wav = wav * sample_valid.to(wav.dtype)
-        out = self.encoder(wav, num_frames=num_frames)
+        # a frozen extractor takes no gradient, so the fused frontend
+        # kernel serves training steps too (``wav2vec2.py:741-742``)
+        out = self.encoder(
+            wav, (not train) or self.freeze_feature_extractor,
+            num_frames=num_frames, rng=rng, train=train)
         if self.output_norm:
             if wav_lens is None:
-                out = global_layer_norm(out)
+                out = global_layer_norm(out, row_mask=row_mask)
             else:
                 frame_valid = (torch.arange(out.shape[1], device=out.device)
                                [None, :] < num_frames[:, None])

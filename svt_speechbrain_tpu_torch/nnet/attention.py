@@ -6,30 +6,42 @@ import math
 import torch
 from torch import nn
 
+from svt_speechbrain_tpu_torch.nnet.dropout import dropout
 from svt_speechbrain_tpu_torch.ops import flash_attention as fa
 
 NEG_INF = fa.NEG_INF
 
 
 def scaled_dot_product_attention(q, k, v, bias=None, mask=None,
+                                 dropout_rate=0.0, rng=None, train=False,
                                  return_weights=False, impl="auto",
                                  key_lengths=None):
     """q, k, v: (B, H, T, Dh). ``bias`` is added to the scores, ``mask``
-    True = masked out, ``key_lengths`` (B,) is each row's valid key count.
+    True = masked out, ``key_lengths`` (B,) is each row's valid key count;
+    ``rng`` (a ``StepRNG``) and ``train`` turn on attention dropout at
+    ``dropout_rate``.
 
-    Dispatch (``attention.py:39-75``; eval only, so never dropout): with no
-    bias, boolean mask or returned weights, ``impl="auto"`` sends Tk ≥ 1024
-    to the streaming kernel and Tk ≤ ``SHORT_T_MAX`` to the short kernel;
-    ``impl="flash"`` forces the streaming kernel. Everything else, and Tk
-    between 513 and 1023, runs the eager path below, as in the JAX package.
-    The eager path zeroes rows whose key length is 0, like the kernels.
+    Dispatch (``attention.py:39-91``): with no bias, boolean mask or
+    returned weights, ``impl="auto"`` sends Tk ≥ 1024 to the streaming
+    kernel (dropout inside it, seeded per call from the step's host
+    generator) and Tk ≤ ``SHORT_T_MAX`` without dropout to the short
+    kernel; ``impl="flash"`` forces the streaming kernel. Everything else,
+    Tk between 513 and 1023, and short rows under dropout, runs the eager
+    path below, with dropout on the materialised weights, as in the JAX
+    package. The eager path zeroes rows whose key length is 0, like the
+    kernels.
     """
+    dropout_active = train and rng is not None and dropout_rate > 0.0
     flashable = bias is None and mask is None and not return_weights
     if flashable and impl != "eager":
         tk = k.shape[2]
         if impl == "flash" or (impl == "auto" and tk >= 1024):
+            if dropout_active:
+                return fa.flash_attention(q, k, v, key_lengths,
+                                          dropout_seed=rng.attention_seed(),
+                                          dropout_rate=float(dropout_rate))
             return fa.flash_attention(q, k, v, key_lengths)
-        if impl == "auto" and tk <= fa.SHORT_T_MAX:
+        if impl == "auto" and tk <= fa.SHORT_T_MAX and not dropout_active:
             return fa.flash_attention_short(q, k, v, key_lengths)
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     scores = scores / math.sqrt(q.shape[-1])
@@ -45,6 +57,8 @@ def scaled_dot_product_attention(q, k, v, bias=None, mask=None,
     if key_lengths is not None:
         alive = (key_lengths.to(q.device) > 0)[:, None, None, None]
         weights = torch.where(alive, weights, torch.zeros_like(weights))
+    if dropout_active:
+        weights = dropout(weights, dropout_rate, rng.device, train=True)
     out = torch.einsum("bhqk,bhkd->bhqd", weights.to(v.dtype).float(),
                        v.float()).to(v.dtype)
     if return_weights:
@@ -55,7 +69,8 @@ def scaled_dot_product_attention(q, k, v, bias=None, mask=None,
 class MultiheadAttention(nn.Module):
     """Batch-first multi-head attention with separate ``wq/wk/wv/wo``
     (in, out) projections and biases (``attention.py:97``); the attention
-    core goes through ``scaled_dot_product_attention`` with ``key_lengths``.
+    core goes through ``scaled_dot_product_attention`` with ``key_lengths``
+    and, in training, attention dropout at rate ``dropout``.
 
     Example
     -------
@@ -66,10 +81,11 @@ class MultiheadAttention(nn.Module):
     torch.Size([2, 6, 16])
     """
 
-    def __init__(self, nhead, d_model):
+    def __init__(self, nhead, d_model, dropout=0.0):
         super().__init__()
         if d_model % nhead:
             raise ValueError("d_model must be divisible by nhead")
+        self.dropout = dropout
         self.nhead = nhead
         self.d_model = d_model
         self.head_dim = d_model // nhead
@@ -78,7 +94,8 @@ class MultiheadAttention(nn.Module):
                     nn.Parameter(torch.zeros(d_model, d_model)))
             setattr(self, f"b{name}", nn.Parameter(torch.zeros(d_model)))
 
-    def forward(self, query, key, value, key_lengths=None, impl="auto"):
+    def forward(self, query, key, value, key_lengths=None, impl="auto",
+                rng=None, train=False):
         b, tq, _ = query.shape
         h, dh = self.nhead, self.head_dim
 
@@ -89,7 +106,8 @@ class MultiheadAttention(nn.Module):
         q = proj(query, self.wq, self.bq)
         k = proj(key, self.wk, self.bk)
         v = proj(value, self.wv, self.bv)
-        out = scaled_dot_product_attention(q, k, v, impl=impl,
-                                           key_lengths=key_lengths)
+        out = scaled_dot_product_attention(
+            q, k, v, dropout_rate=self.dropout, rng=rng, train=train,
+            impl=impl, key_lengths=key_lengths)
         out = out.transpose(1, 2).reshape(b, tq, self.d_model)
         return torch.matmul(out, self.wo.to(out.dtype)) + self.bo.to(out.dtype)

@@ -13,6 +13,13 @@ Both compute each layer from the same packed weights (``pack_weights``):
 the conv as a product over k * C_in window elements accumulated in f32,
 plus bias, LayerNorm and GELU in f32, one cast to the working dtype. In
 f32 this equals the JAX package's XLA conv path (exact-erf GELU).
+
+Gradients: each packed layer keeps the tensors it was packed from
+(``FrontendLayer.source``). The kernel path is an autograd Function whose
+backward recomputes the plain version from those tensors and takes its VJP
+w.r.t. the wav and the weights (the JAX package's recompute VJP,
+``ops/conv_frontend.py:278-304``); the CPU path repacks from them, so both
+send gradients to the module's own conv and LayerNorm parameters.
 """
 from __future__ import annotations
 
@@ -43,25 +50,42 @@ class FrontendLayer:
     beta: torch.Tensor    # (C,) f32
     kernel: int
     stride: int
+    # (conv weight, conv bias or None, LN scale, LN bias) as packed: the
+    # tensors the backward sends gradients to
+    source: tuple
+
+
+def _layers(conv_weights, conv_biases, ln_scales, ln_biases, dtype, grad):
+    layers = []
+    for w, b, g, be, k, s in zip(conv_weights, conv_biases, ln_scales,
+                                 ln_biases, KERNELS, STRIDES):
+        source = (w, b, g, be)
+        if not grad:
+            w, b, g, be = (None if t is None else t.detach() for t in source)
+        c = w.shape[0]
+        wt = w.permute(0, 2, 1).reshape(c, -1)
+        bias = (torch.zeros(c, device=w.device) if b is None else b.float())
+        layers.append(FrontendLayer(
+            wt=wt.to(dtype).contiguous(), bias=bias.contiguous(),
+            gamma=g.float().contiguous(), beta=be.float().contiguous(),
+            kernel=k, stride=s, source=source))
+    return tuple(layers)
 
 
 def pack_weights(conv_weights, conv_biases, ln_scales, ln_biases, dtype):
     """Per-layer kernel operands from torch-layout conv weights
     (C, C_in, k) (``ops/conv_frontend.py:136`` on the TPU): W^T with the
     K axis ordered (tap, c_in) so an output frame's window is one
-    contiguous channel-last span; f32 bias and LayerNorm affine."""
-    layers = []
-    for w, b, g, be, k, s in zip(conv_weights, conv_biases, ln_scales,
-                                 ln_biases, KERNELS, STRIDES):
-        c = w.shape[0]
-        wt = w.detach().permute(0, 2, 1).reshape(c, -1)
-        bias = (torch.zeros(c, device=w.device) if b is None
-                else b.detach().float())
-        layers.append(FrontendLayer(
-            wt=wt.to(dtype).contiguous(), bias=bias.contiguous(),
-            gamma=g.detach().float().contiguous(),
-            beta=be.detach().float().contiguous(), kernel=k, stride=s))
-    return tuple(layers)
+    contiguous channel-last span; f32 bias and LayerNorm affine. The
+    operands are detached; each layer keeps its source tensors."""
+    return _layers(conv_weights, conv_biases, ln_scales, ln_biases, dtype,
+                   grad=False)
+
+
+def _repack(packed, dtype):
+    """``packed`` packed again from its source tensors, with autograd."""
+    return _layers(*zip(*(layer.source for layer in packed)), dtype,
+                   grad=True)
 
 
 def output_frames(num_samples):
@@ -107,30 +131,8 @@ def _check(wav, packed):
                              "device (pack_weights with that dtype)")
 
 
-def fused_conv_frontend(wav, packed, eps=1e-5):
-    """wav (B, T) → frames (B, F, C), F = (T - 400) // 320 + 1.
-
-    CUDA tensor: seven kernel launches (the launch counter
-    ``fused_conv_frontend.launches`` counts each). CPU tensor: the plain
-    version.
-
-    Example
-    -------
-    >>> import torch
-    >>> gen = torch.Generator().manual_seed(0)
-    >>> c = 64
-    >>> ws = [0.1 * torch.randn(c, 1 if i == 0 else c, k, generator=gen)
-    ...       for i, k in enumerate(KERNELS)]
-    >>> ones, zeros = [torch.ones(c)] * 7, [torch.zeros(c)] * 7
-    >>> packed = pack_weights(ws, zeros, ones, zeros, torch.float32)
-    >>> fused_conv_frontend(torch.randn(2, 1600, generator=gen), packed).shape
-    torch.Size([2, 4, 64])
-    """
-    _check(wav, packed)
-    if wav.device.type == "cpu":
-        return conv_frontend_reference(wav, packed, eps)
-    if wav.device.type != "cuda":
-        raise ValueError(f"unsupported device {wav.device}")
+def _launch(wav, packed, eps):
+    """Seven kernel launches, one per layer."""
     if wav.dtype not in _DTYPE_CODES:
         raise ValueError(f"the CUDA frontend takes f32 or bf16, not {wav.dtype}")
     c = packed[0].wt.shape[0]
@@ -154,6 +156,64 @@ def fused_conv_frontend(wav, packed, eps=1e-5):
         fused_conv_frontend.launches += 1
         x, tin, cin = out, tout, c
     return x
+
+
+class _FusedFrontend(torch.autograd.Function):
+    """The kernel forward; the backward recomputes the plain version from
+    the source tensors and takes its VJP (``_fused_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, wav, packed, eps, *sources):
+        ctx.save_for_backward(wav, *sources)
+        ctx.eps = eps
+        return _launch(wav, packed, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        wav, *sources = ctx.saved_tensors
+        wanted = ctx.needs_input_grad
+        with torch.enable_grad():
+            wav_ = wav.detach().requires_grad_(wanted[0])
+            src = [None if t is None else t.detach().requires_grad_(w)
+                   for t, w in zip(sources, wanted[3:])]
+            layers = _layers(src[0::4], src[1::4], src[2::4], src[3::4],
+                             wav.dtype, grad=True)
+            out = conv_frontend_reference(wav_, layers, ctx.eps)
+            inputs = [t for t in [wav_, *src]
+                      if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(out, inputs, grad))
+        return (next(grads) if wanted[0] else None, None, None,
+                *(next(grads) if t is not None and w else None
+                  for t, w in zip(src, wanted[3:])))
+
+
+def fused_conv_frontend(wav, packed, eps=1e-5):
+    """wav (B, T) → frames (B, F, C), F = (T - 400) // 320 + 1.
+
+    CUDA tensor: seven kernel launches (the launch counter
+    ``fused_conv_frontend.launches`` counts each), differentiable through
+    the recompute backward. CPU tensor: the plain version, repacked from
+    the source tensors so that gradients reach them.
+
+    Example
+    -------
+    >>> import torch
+    >>> gen = torch.Generator().manual_seed(0)
+    >>> c = 64
+    >>> ws = [0.1 * torch.randn(c, 1 if i == 0 else c, k, generator=gen)
+    ...       for i, k in enumerate(KERNELS)]
+    >>> ones, zeros = [torch.ones(c)] * 7, [torch.zeros(c)] * 7
+    >>> packed = pack_weights(ws, zeros, ones, zeros, torch.float32)
+    >>> fused_conv_frontend(torch.randn(2, 1600, generator=gen), packed).shape
+    torch.Size([2, 4, 64])
+    """
+    _check(wav, packed)
+    if wav.device.type == "cpu":
+        return conv_frontend_reference(wav, _repack(packed, wav.dtype), eps)
+    if wav.device.type != "cuda":
+        raise ValueError(f"unsupported device {wav.device}")
+    sources = [t for layer in packed for t in layer.source]
+    return _FusedFrontend.apply(wav, packed, eps, *sources)
 
 
 fused_conv_frontend.launches = 0

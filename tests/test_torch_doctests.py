@@ -1,0 +1,34 @@
+"""The port's runnable docstring examples: every module of
+``svt_speechbrain_tpu_torch`` that carries ``>>>`` examples runs them on
+the CPU, and all must pass."""
+import doctest
+import importlib
+
+import pytest
+
+MODULES = [
+    "svt_speechbrain_tpu_torch",
+    "svt_speechbrain_tpu_torch.core",
+    "svt_speechbrain_tpu_torch.convert_jax",
+    "svt_speechbrain_tpu_torch.flagship",
+    "svt_speechbrain_tpu_torch.inference",
+    "svt_speechbrain_tpu_torch.models.wav2vec2",
+    "svt_speechbrain_tpu_torch.nnet.activations",
+    "svt_speechbrain_tpu_torch.nnet.attention",
+    "svt_speechbrain_tpu_torch.nnet.cnn",
+    "svt_speechbrain_tpu_torch.nnet.dropout",
+    "svt_speechbrain_tpu_torch.nnet.linear",
+    "svt_speechbrain_tpu_torch.nnet.losses",
+    "svt_speechbrain_tpu_torch.nnet.normalization",
+    "svt_speechbrain_tpu_torch.ops.conv_frontend",
+    "svt_speechbrain_tpu_torch.ops.flash_attention",
+    "svt_speechbrain_tpu_torch.utils.amt",
+]
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_module_examples_pass(name):
+    result = doctest.testmod(importlib.import_module(name),
+                             optionflags=doctest.ELLIPSIS)
+    assert result.attempted > 0, f"{name} has no examples"
+    assert result.failed == 0

@@ -17,6 +17,7 @@ import sys
 import torch
 from svt_speechbrain_tpu_torch.flagship import build_flagship
 from svt_speechbrain_tpu_torch.inference import BatchedAMTTranscriber
+from svt_speechbrain_tpu_torch.tasks.amt import AudioAMT
 model = build_flagship(tiny=True, device="cpu")
 with torch.no_grad():
     outs = model(torch.zeros(1, 8000))
@@ -67,3 +68,19 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_named():
     with pytest.raises(RuntimeError):
         build_flagship(tiny=True)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_brain_raises_without_cuda_unless_cpu_is_named():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from svt_speechbrain_tpu_torch.core import Brain
+    from svt_speechbrain_tpu_torch.nnet.linear import Linear
+    from svt_speechbrain_tpu_torch.tasks.amt import AudioAMT
+
+    for cls in (Brain, AudioAMT):
+        with pytest.raises(RuntimeError):
+            cls({"model": Linear(2, 2)})
+        with pytest.raises(RuntimeError):
+            cls({"model": Linear(2, 2)}, run_opts={"precision": "bf16"})
+        assert cls({"model": Linear(2, 2)},
+                   run_opts={"device": "cpu"}).device == torch.device("cpu")
