@@ -21,13 +21,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel launches per step, and one step at ``precision="bf16"``; then the
    recipe's own 5 s rows (batch 8, 2 steps), which reach no kernel;
 7. one f32 training step of a 2-layer lv60-width model (batch 2, 30 s,
-   attention dropout 0.1) on the card against the same step on the CPU.
+   attention dropout 0.1) on the card against the same step on the CPU;
+8. int8 (a8w8) serving of lv60 at full width and depth through
+   ``SingingTranscriber(quantize="int8")``, bf16, 5 s chunks, batch 8, on
+   the songs of phase 3, in turns with the float interface (float, int8,
+   int8, float): launches of the int8 kernel per batch (49; 145 with
+   ``quantize_attn``; 0 on the float path), RTFx and ms a batch of both,
+   how far the int8 decisions keep to the float ones, and one f32 int8
+   batch on the card against the CPU's plain path;
+9. streaming, int8 and float: a ``StreamingServer`` (batch 8) with 3
+   sessions, one of them int16 PCM, fed in uneven pieces, against the
+   offline exact decode at batch 8, and a dedicated
+   ``StreamingAMTTranscriber`` per song against the offline exact decode at
+   batch 1 (exact equality within one batch width; server against dedicated
+   stream is reported); and one song at ``chunking="song"`` with int8.
+
+Phase 2 also holds the int8 kernel's integers bit for bit against the plain
+quantizer; phase 5 also times it beside ``torch._int_mm`` with an eager
+quantize pass and beside the bf16 ``torch.matmul`` of the same shape.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line and the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
+import copy
 import functools
 import json
 import os
@@ -55,9 +73,14 @@ from svt_speechbrain_tpu_torch.nnet.linear import Linear  # noqa: E402
 from svt_speechbrain_tpu_torch.tasks.amt import AudioAMT  # noqa: E402
 from svt_speechbrain_tpu_torch.inference import (  # noqa: E402
     BatchedAMTTranscriber)
+from svt_speechbrain_tpu_torch.models.quantize import (  # noqa: E402
+    quantize_wav2vec2)
 from svt_speechbrain_tpu_torch.ops import _build  # noqa: E402
 from svt_speechbrain_tpu_torch.ops import conv_frontend as cf  # noqa: E402
 from svt_speechbrain_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from svt_speechbrain_tpu_torch.ops import quant  # noqa: E402
+from svt_speechbrain_tpu_torch.pretrained.interfaces import (  # noqa: E402
+    SingingTranscriber)
 
 SEED = 0
 SR = 16000
@@ -65,6 +88,7 @@ SR = 16000
 # outside the tensor cores, HBM bytes/s
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 # kernel vs plain tolerances (max abs error), with their reasons:
 #  f32 frontend: sums over K = 1536 in another order, erff vs exact erf,
@@ -107,6 +131,31 @@ TOL_E2E_F32 = 2e-3
 TOL_STEP = {"loss_rel": 1e-4, "gnorm_rel": 2e-5, "grad_rel": 3e-5,
             "update_rel": 1e-3}
 ZERO_GRAD_SHARE = 1e-6
+# the int8 kernel against its plain version: the quantized integers and
+# the row scales bit for bit; the output relative to the plain one, element
+# by element: the products are exact integers and the f32 epilogue has the
+# plain version's order, so f32 may differ in a fused multiply's last bit
+# and bf16 by one rounding of the output
+INT8_RTOL = {"f32": 1e-6, "bf16": 2.0 ** -8}
+# (M, K, N): feat_proj, ffn1 and ffn2 of a chunked batch (8 x 249 frames),
+# ffn1 of a 30 s song window, ffn2 of one streamed 5 s window
+INT8_SHAPES = ((1992, 512, 1024), (1992, 1024, 4096), (1992, 4096, 1024),
+               (1499, 1024, 4096), (249, 4096, 1024))
+INT8_ROW = (1992, 1024, 4096)       # the shape of the kernels line
+# how far int8 serving may stray from float serving on random weights, per
+# frame: the onset and offset decisions, and the pitch class (an argmax
+# over an untrained head's near-uniform logits)
+INT8_DECISION_AGREE = 0.95
+INT8_PITCH_AGREE = 0.7
+# logits of one f32 int8 batch, card against the CPU's plain path: the
+# float inputs of each quantizer differ by summation order, so an
+# activation on a rounding boundary takes the other integer on the other
+# device and moves its row by one quantization step; after 24 layers that
+# is a noise floor well above f32 rounding, so the median and the worst
+# logit are held apart
+TOL_INT8_E2E = {"median": 2e-3, "max": 0.5}
+HPARAMS = {"frame_rate": 49.8, "onset_threshold": 0.4,
+           "offset_threshold": 0.5}
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 _CSRC = "svt_speechbrain_tpu_torch/csrc/"
 SOURCES = {"conv_frontend": _CSRC + "conv_frontend.cu",
@@ -114,14 +163,16 @@ SOURCES = {"conv_frontend": _CSRC + "conv_frontend.cu",
            "flash_attention": _CSRC + "flash_attention.cu",
            "flash_attention_lse": _CSRC + "flash_attention.cu",
            "flash_attention_bwd_dq": _CSRC + "flash_attention_bwd.cu",
-           "flash_attention_bwd_dkv": _CSRC + "flash_attention_bwd.cu"}
+           "flash_attention_bwd_dkv": _CSRC + "flash_attention_bwd.cu",
+           "int8_matmul": _CSRC + "quant_matmul.cu"}
 _FA = "svt_speechbrain_tpu/ops/flash_attention.py:"
 REPLACES = {"conv_frontend": "svt_speechbrain_tpu/ops/conv_frontend.py:172",
             "flash_attention_short": _FA + "635",
             "flash_attention": _FA + "342",
             "flash_attention_lse": _FA + "437",
             "flash_attention_bwd_dq": _FA + "502",
-            "flash_attention_bwd_dkv": _FA + "514"}
+            "flash_attention_bwd_dkv": _FA + "514",
+            "int8_matmul": "svt_speechbrain_tpu/ops/quant.py:121"}
 TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
 SHORT_LENGTHS = [249, 0, 1, 100, 249, 200, 17, 248]     # B = 8 rows
@@ -290,16 +341,58 @@ def check_training_kernels(gen, errs):
             del want_out, want_dq, want_dk, want_dv
 
 
+def int8_inputs(m, k, n, dtype, gen):
+    """x (M, K) with the rows that pin the quantizer — all zeros (scale
+    from the 1e-8 floor), the amax in the last column, exact .5 ties after
+    the division (multiples of amax/254 with amax 127) — and a quantized
+    normal weight."""
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    x[0] = torch.randint(-254, 255, (k,), generator=gen, device="cuda") / 2.0
+    x[0, 0] = 127.0
+    x[1] = 0.0
+    x[2, -1] = 9.0
+    w8, ws = quant.quantize_weight(
+        torch.randn(k, n, generator=gen, device="cuda"))
+    return x.to(dtype), w8, ws
+
+
+def check_int8(gen, errs):
+    for m, k, n in INT8_SHAPES:
+        for tag, dtype in DTYPES.items():
+            x, w8, ws = int8_inputs(m, k, n, dtype, gen)
+            out, x8, xs = quant.int8_matmul_quantized(x, w8, ws,
+                                                      quant.pack_weight(w8))
+            torch.cuda.synchronize()
+            want_x8, want_xs = quant.quantize_activation(x)
+            want = quant.int8_matmul_plain(x, w8, ws).float()
+            err = (out.float() - want).abs()
+            ties = ((x[0].float() * 2).abs() % 2 == 1).sum().item()
+            ints_ok = torch.equal(x8, want_x8) and torch.equal(xs, want_xs)
+            ok = (ints_ok and out.dtype == dtype and ties > k // 4
+                  and (err <= INT8_RTOL[tag] * want.abs()).all().item())
+            log(f"  int8_matmul {tag} M={m} K={k} N={n}: integers and scales "
+                f"bit for bit={ints_ok} ({ties} exact ties in row 0), "
+                f"max_abs_err={err.max().item():.3e} (rel tol "
+                f"{INT8_RTOL[tag]:.1e}) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"int8_matmul {tag} disagrees with its "
+                                     f"plain version")
+            if (m, k, n) == INT8_ROW:
+                errs[("int8_matmul", tag)] = err.max().item()
+
+
 # ---------------------------------------------------------------- phase 3/4
 def run_path(tr, songs, repeats=3):
     """Counts set to 0 just before, read just after each transcribe; the
-    median wall time of ``repeats`` runs (each launches the same kernels)."""
+    median wall time of ``repeats`` runs (each launches the same kernels).
+    ``tr`` is a transcriber or a ``SingingTranscriber``."""
+    transcribe = getattr(tr, "transcribe", None) or tr.transcribe_batch
     walls, counts = [], []
     for _ in range(repeats):
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        notes = tr.transcribe(songs)
+        notes = transcribe(songs)
         walls.append(time.perf_counter() - t0)
         counts.append(ops.launch_counts())
     if any(c != counts[0] for c in counts):
@@ -315,6 +408,8 @@ def _kernel_group(name):
         return "attention forward kernel"
     if "flash_bwd" in low:
         return "attention backward kernels"
+    if "int8_matmul" in low:
+        return "int8 matmul kernel"
     if any(w in low for w in ("conv", "cudnn", "implicit_gemm", "dgrad",
                               "wgrad")):
         return "conv (cuDNN)"
@@ -490,8 +585,10 @@ def timings(bridge, gen):
             shape=f"{shape} bf16 lengths={lengths}")
     for tag, dtype in DTYPES.items():
         rows.update(training_timings(tag, dtype, gen))
+    rows.update(int8_timings(gen))
     # context: the largest piece of the batch that is not a ported kernel
-    pos_conv = bridge.encoder.pos_conv.to("cuda", torch.bfloat16)
+    pos_conv = copy.deepcopy(bridge.encoder.pos_conv).to("cuda",
+                                                         torch.bfloat16)
     x = torch.randn(8, 249, 1024, generator=gen, device="cuda").bfloat16()
     with torch.inference_mode():
         pos_ms = time_ms(lambda: pos_conv(x), iters=5)
@@ -510,6 +607,57 @@ def timings(bridge, gen):
             f"{dq['ms'] + dkv['ms']:.4f} ms against one SDPA backward (dQ, "
             f"dK and dV in one call; the library_ms of both rows) "
             f"{dq['library_ms']:.4f} ms")
+    return rows
+
+
+def eager_int8_matmul(x, w8, w_scale):
+    """The same function from library calls: an eager quantize pass and
+    ``torch._int_mm``. A yardstick only; the port never calls it."""
+    x8, x_scale = quant.quantize_activation(x)
+    acc = torch._int_mm(x8, w8)
+    return ((acc.float() * x_scale) * w_scale).to(x.dtype)
+
+
+def int8_timings(gen):
+    """Kernel 5 in bf16 at the three shapes of a chunked batch: beside its
+    bound (x, w8, w_scale read once, the output written once; 2·M·K·N
+    operations against the int8 tensor-core peak), its plain version, the
+    library's int8 route and the bf16 ``torch.matmul`` it has to beat. The
+    kernels line takes the ffn1 shape."""
+    rows = {}
+    for m, k, n in INT8_SHAPES[:3]:
+        x, w8, ws = int8_inputs(m, k, n, torch.bfloat16, gen)
+        w8t = quant.pack_weight(w8)
+        w = (w8.float() * ws).bfloat16()
+        b_ms, b_by = bound(2 * m * k * n, m * k * 2 + k * n + n * 4
+                           + m * n * 2, PEAK_INT8)
+        lib = None
+        if hasattr(torch, "_int_mm"):
+            try:
+                same = torch.equal(eager_int8_matmul(x, w8, ws),
+                                   quant.int8_matmul_plain(x, w8, ws))
+                lib = time_ms(lambda: eager_int8_matmul(x, w8, ws))
+            except RuntimeError as exc:
+                log(f"  torch._int_mm refuses M={m} K={k} N={n}: {exc}")
+        else:
+            log("  this PyTorch has no torch._int_mm: library_ms is null")
+        row = dict(
+            ms=time_ms(lambda: quant.int8_matmul(x, w8, ws, w8t)),
+            plain_ms=time_ms(lambda: quant.int8_matmul_plain(x, w8, ws),
+                             iters=5, warmup=2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+            shape=f"x ({m}, {k}) bf16, w8 ({k}, {n})")
+        bf16_ms = time_ms(lambda: torch.matmul(x, w))
+        x8 = quant.quantize_activation(x)[0]
+        product_ms = (time_ms(lambda: torch._int_mm(x8, w8))
+                      if lib is not None else float("nan"))
+        log(f"  int8_matmul M={m} K={k} N={n}: bf16 torch.matmul "
+            f"{bf16_ms:.4f} ms; torch._int_mm alone {product_ms:.4f} ms "
+            f"(library_ms adds the eager quantize pass and epilogue"
+            + ("" if lib is None else f"; equal to the plain version: {same}")
+            + f"); kernel at {2 * m * k * n / row['ms'] / 1e9:.1f} TOP/s")
+        rows["int8_matmul" if (m, k, n) == INT8_ROW
+             else f"int8_matmul K={k} N={n}"] = row
     return rows
 
 
@@ -746,6 +894,246 @@ def card_vs_cpu_step(rng):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 8/9
+def decisions(frames):
+    """Per frame: onset and offset decisions at the serving thresholds, and
+    the pitch class."""
+    return (frames[:, 0] > HPARAMS["onset_threshold"],
+            frames[:, 1] > HPARAMS["offset_threshold"], frames[:, 3])
+
+
+def int8_against_float(float_tr, int8_tr, songs, notes_f, notes_q):
+    ff, fq = float_tr.predict_frames(songs), int8_tr.predict_frames(songs)
+    dec_f = [decisions(ff[n]) for n in songs]
+    dec_q = [decisions(fq[n]) for n in songs]
+    agree = [np.concatenate([f[i] == q[i] for f, q in zip(dec_f, dec_q)])
+             .mean() for i in range(3)]
+    prob_err = max(np.abs(ff[n][:, :2] - fq[n][:, :2]).max() for n in songs)
+
+    def times(ns):
+        return [(round(n[0], 4), round(n[1], 4)) for n in ns]
+    same_times = {n: times(notes_f[n]) == times(notes_q[n]) for n in songs}
+    pitch = [a[2] == b[2] for n in songs if same_times[n]
+             for a, b in zip(notes_f[n], notes_q[n])]
+    ok = (agree[0] >= INT8_DECISION_AGREE and agree[1] >= INT8_DECISION_AGREE
+          and agree[2] > INT8_PITCH_AGREE)
+    log(f"  int8 against float, per frame: onset decisions agree "
+        f"{agree[0]:.4f}, offset decisions {agree[1]:.4f} (bar "
+        f"{INT8_DECISION_AGREE}), pitch class {agree[2]:.4f} (bar "
+        f"{INT8_PITCH_AGREE}); largest probability difference "
+        f"{prob_err:.4f} -> {'ok' if ok else 'FAIL'}")
+    log(f"  int8 against float, per note (the JAX test's bar at TINY size: "
+        f"equal note times, pitch agreeing on more than 0.7): equal times "
+        f"per song {same_times}; notes float/int8 "
+        f"{ {n: (len(notes_f[n]), len(notes_q[n])) for n in songs} }; pitch "
+        f"agreement on songs with equal times "
+        f"{np.mean(pitch) if pitch else float('nan'):.4f}")
+    if not ok:
+        raise AssertionError("int8 serving strays from float serving")
+
+
+def int8_f32_batch_check(qbridge, head, rng):
+    """One int8 batch of 2 chunks (one ragged) in f32: the card (the
+    kernel) against the CPU (the plain version), logits on valid frames."""
+    song = {"f32_check": rng.standard_normal(int(8.3 * SR)).astype(np.float32)}
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        tr = BatchedAMTTranscriber(qbridge, head, chunk_seconds=5.0,
+                                   batch_size=2, compute_dtype=torch.float32,
+                                   device=dev)
+        (wavs, lens, order), = tr._jobs(song)
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            w = torch.from_numpy(wavs).to(dev)
+            out = tr.head(tr.bridge(w, wav_lens=torch.from_numpy(lens).to(dev)))
+        logits[dev] = out.float().cpu()
+        launches = ops.launch_counts()["int8_matmul"]
+        if launches != (49 if dev == "cuda" else 0):
+            raise AssertionError(f"{dev}: {launches} int8 launches")
+        valid = [f for _, _, f in order]
+    err = torch.cat([(logits["cuda"][j, :f] - logits["cpu"][j, :f]).abs()
+                     .flatten() for j, f in enumerate(valid)])
+    median, worst = err.median().item(), err.max().item()
+    ok = (median <= TOL_INT8_E2E["median"] and worst <= TOL_INT8_E2E["max"]
+          and all(torch.isfinite(l).all() for l in logits.values()))
+    log(f"  f32 int8 batch of 2 chunks, card (kernel) vs CPU (plain) logits "
+        f"on valid frames {valid}: median abs err={median:.3e} (tol "
+        f"{TOL_INT8_E2E['median']:.0e}), max={worst:.3e} (tol "
+        f"{TOL_INT8_E2E['max']}), logits std "
+        f"{logits['cpu'].std().item():.3f} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("f32 int8 serving on the card disagrees with "
+                             "the CPU's plain path")
+
+
+def batch_ms(tr, rng):
+    """Device-and-launch time of one full batch of 8 five-second chunks
+    through ``tr`` (no upload, no copy back), and its int8 launches."""
+    wavs = torch.from_numpy(rng.standard_normal((8, tr.chunk_samples))
+                            .astype(np.float32)).cuda()
+    lens = torch.ones(8, device="cuda")
+    ops.reset_launch_counts()
+    tr._forward(wavs, lens)
+    launches = ops.launch_counts()["int8_matmul"]
+    return time_ms(lambda: tr._forward(wavs, lens), iters=10, warmup=2), \
+        launches
+
+
+def int8_serving_phase(bridge, head, songs, rng):
+    """Phase 8; returns (launch counts of the int8 path, the float and int8
+    interfaces, summary)."""
+    modules = {"wav2vec2": bridge, "model": head}
+    faces = {mode: SingingTranscriber(modules=modules, hparams=HPARAMS,
+                                      batch_size=8, chunk_seconds=5.0,
+                                      quantize=mode)
+             for mode in (None, "int8")}
+    n_batches = len(faces[None]._get_transcriber()._jobs(songs))
+    audio_s = sum(len(w) for w in songs.values()) / SR
+    for face in faces.values():
+        face.transcribe_batch(songs)            # warm-up, packs the weights
+    walls, notes, counts = {None: [], "int8": []}, {}, {}
+    for mode in (None, "int8", "int8", None):   # in turns on one card
+        notes[mode], wall, counts[mode] = run_path(faces[mode], songs)
+        walls[mode].append(wall)
+    for mode, name in ((None, "float"), ("int8", "int8")):
+        wall = float(np.mean(walls[mode]))
+        log(f"  {name}: {audio_s:.1f} s of audio in {wall * 1e3:.1f} ms wall "
+            f"(runs {[round(w * 1e3, 1) for w in walls[mode]]}): RTFx="
+            f"{audio_s / wall:.1f}, {wall * 1e3 / n_batches:.2f} ms per batch; "
+            f"launches {counts[mode]}")
+    want = {None: 0, "int8": 49 * n_batches}
+    for mode in want:
+        if counts[mode]["int8_matmul"] != want[mode]:
+            raise AssertionError(
+                f"quantize={mode}: {counts[mode]['int8_matmul']} int8 "
+                f"launches over {n_batches} batches, want {want[mode]}")
+    check_frames(faces["int8"]._get_transcriber(), songs)
+    int8_against_float(faces[None]._get_transcriber(),
+                       faces["int8"]._get_transcriber(), songs, notes[None],
+                       notes["int8"])
+
+    trs = {"float": faces[None]._get_transcriber(),
+           "int8": faces["int8"]._get_transcriber(),
+           "int8 + quantize_attn": BatchedAMTTranscriber(
+               quantize_wav2vec2(bridge, quantize_attn=True), head,
+               chunk_seconds=5.0, batch_size=8)}
+    per_batch = {}
+    for name in ("float", "int8", "int8 + quantize_attn",
+                 "int8 + quantize_attn", "int8", "float"):
+        ms, launches = batch_ms(trs[name], rng)
+        per_batch.setdefault(name, []).append(ms)
+        if launches != {"float": 0, "int8": 49}.get(name, 145):
+            raise AssertionError(f"{name}: {launches} int8 launches a batch")
+    log("  one full batch on the device (forward only, in turns): "
+        + "; ".join(f"{name} {np.mean(v):.3f} ms {[round(x, 3) for x in v]}"
+                    for name, v in per_batch.items())
+        + "; launches a batch 0 / 49 / 145")
+    log("  where the device time goes, int8 (torch.profiler, one "
+        "predict_frames):")
+    profile_run(lambda: trs["int8"].predict_frames(songs))
+    del trs["int8 + quantize_attn"]
+    int8_f32_batch_check(faces["int8"]._serving_bridge(), head, rng)
+    summary = {name: audio_s / float(np.mean(walls[mode]))
+               for mode, name in ((None, "rtfx_float"), ("int8", "rtfx_int8"))}
+    summary.update({f"batch_ms {k}": float(np.mean(v))
+                    for k, v in per_batch.items()})
+    return counts["int8"], faces, summary
+
+
+def feed_unevenly(sessions, songs, rng):
+    """Round-robin feeds in uneven pieces until every song is exhausted,
+    then flush; returns name → notes."""
+    got = {name: [] for name in songs}
+    pos = {name: 0 for name in songs}
+    while any(pos[n] < len(songs[n]) for n in songs):
+        for name, wav in songs.items():
+            if pos[name] < len(wav):
+                step = int(rng.integers(8000, 130000))
+                got[name] += sessions[name].feed(wav[pos[name]:pos[name] + step])
+                pos[name] += step
+    for name in songs:
+        got[name] += sessions[name].flush()
+    return got
+
+
+def streamed_against_offline(face, head, songs, rng, int8):
+    """A ``StreamingServer`` (batch 8) of ``face`` with one session per song
+    fed in uneven pieces, and a dedicated ``StreamingAMTTranscriber`` (batch
+    1) per song, each against the offline exact decode.
+
+    Exact equality is held between programs of one batch width: the server
+    against the offline decode at batch 8, a dedicated stream against the
+    offline decode at batch 1. Rows of a batch do not depend on each other,
+    but the library's bf16 products and convolutions choose their kernels
+    (and summation orders) by the batch's size, so across widths the logits
+    differ in their last bits and an untrained head's decisions near a
+    threshold may flip: server against dedicated stream is reported."""
+    tag = "int8" if int8 else "float"
+    server = face.serve(batch_size=8)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = feed_unevenly({name: server.open(name) for name in songs}, songs,
+                        rng)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    windows = sum(-(-len(w) // (5 * SR)) for w in songs.values())
+    log(f"  {tag} server: {len(songs)} sessions (one int16), {windows} "
+        f"windows, {wall * 1e3:.1f} ms wall, launches {counts}")
+    batches = counts["flash_attention_short"] // 24
+    if counts["int8_matmul"] != (49 * batches if int8 else 0) \
+            or not batches or server.open_sessions or server.pending:
+        raise AssertionError(f"the {tag} server left work undone or "
+                             f"launched the int8 kernel another number of "
+                             f"times than 49 a batch (int8) or 0 (float)")
+    # each song is decoded offline on its own: a set of songs of both PCM
+    # types would put int16 and float chunks into one batch, where the
+    # offline transcriber (like the JAX one) stacks them without the int16
+    # rows' 1/32768 scaling
+    offline = {8: face._get_transcriber(),
+               1: BatchedAMTTranscriber(face._serving_bridge(), head,
+                                        chunk_seconds=5.0, batch_size=1)}
+    exact = {width: {name: tr.transcribe({name: wav}, fast=False)[name]
+                     for name, wav in songs.items()}
+             for width, tr in offline.items()}
+    for name, wav in songs.items():
+        stream = face.stream()
+        dedicated = stream.feed(wav) + stream.flush()
+        same = (got[name] == exact[8][name], dedicated == exact[1][name])
+        across = len({tuple(n) for n in got[name]}
+                     & {tuple(n) for n in dedicated})
+        log(f"  {tag} {name}: server {len(got[name])} notes, equal to the "
+            f"offline exact decode at batch 8: {same[0]}; dedicated stream "
+            f"{len(dedicated)} notes, equal to the offline exact decode at "
+            f"batch 1: {same[1]}; server against dedicated stream (batch 8 "
+            f"against batch 1, reported): equal={got[name] == dedicated}, "
+            f"{across} notes in both")
+        if not all(same) or not got[name] or not dedicated:
+            raise AssertionError(f"{tag} {name}: streamed notes differ from "
+                                 f"the offline exact decode at the same "
+                                 f"batch width")
+
+
+def int8_streaming_phase(faces, head, songs, rng):
+    """Phase 9: ``faces`` are the interfaces of phase 8 (None → float,
+    "int8" → int8)."""
+    streamed_against_offline(faces["int8"], head, songs, rng, int8=True)
+    streamed_against_offline(faces[None], head, songs, rng, int8=False)
+    face = faces["int8"]
+    tr = BatchedAMTTranscriber(face._serving_bridge(), head,
+                               chunk_seconds=5.0, batch_size=1,
+                               chunking="song")
+    song = {"whole_song": songs_for(rng, (23,))["song0_23s"]}
+    tr.transcribe(song)
+    notes, wall, counts = run_path(tr, song)
+    check_frames(tr, song)
+    log(f"  int8 song mode (30 s window, M = 1499): "
+        f"{len(notes['whole_song'])} notes, {wall * 1e3:.1f} ms wall, "
+        f"launches {counts}")
+    if counts["int8_matmul"] != 49 or counts["flash_attention"] <= 0:
+        raise AssertionError("int8 song mode did not launch the int8 and "
+                             "streaming attention kernels")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -760,7 +1148,8 @@ def main():
     log("phase 1: build the CUDA kernels (one nvcc per source, in parallel)")
     t0 = time.perf_counter()
     report = _build.build_all()
-    log(f"  built {sorted(report) or 'nothing (cached)'} in "
+    log(f"  built { {n: round(sec, 1) for n, (sec, _) in sorted(report.items())} or 'nothing (cached)'} "
+        f"(seconds of each nvcc, started together) in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, (_, text) in sorted(report.items()):
         for line in text.splitlines():
@@ -778,6 +1167,7 @@ def main():
     check_attention("flash_attention", fa.flash_attention,
                     (3, 16, 1499, 64), LONG_LENGTHS, gen, errs)
     check_training_kernels(gen, errs)
+    check_int8(gen, errs)
     extractor.cpu()
     torch.cuda.empty_cache()
 
@@ -825,7 +1215,17 @@ def main():
     log("phase 5: timings at main-path shapes (serving kernels in bf16, "
         "training kernels in f32 and bf16)")
     rows = timings(bridge, gen)
-    del bridge, head
+
+    log("phase 8: int8 (a8w8) lv60 serving, 5 s chunks, batch 8, bf16, in "
+        "turns with float serving")
+    int8_counts, int8_faces, int8_summary = int8_serving_phase(
+        bridge.cpu(), head.cpu(), songs, rng)
+    log(f"  int8 serving summary: {json.dumps(int8_summary)}")
+
+    log("phase 9: streaming server and dedicated streams against the offline "
+        "exact decode, int8 and float; int8 song mode")
+    int8_streaming_phase(int8_faces, head, songs, rng)
+    del bridge, head, int8_faces
     torch.cuda.empty_cache()
 
     log("phase 6: AudioAMT training, lv60 full width and depth, 30 s rows")
@@ -837,6 +1237,8 @@ def main():
 
     kernels = []
     for key, r in rows.items():
+        if not isinstance(key, tuple) and key not in SOURCES:
+            continue                        # the int8 kernel's other shapes
         if isinstance(key, tuple):          # training kernels: f32 rows
             name, tag = key
             if tag != "f32":
@@ -844,8 +1246,9 @@ def main():
             launches = train_counts[name]
         else:
             name, tag = key, "bf16"
-            launches = (song_counts if name == "flash_attention"
-                        else chunked_counts)[name]
+            launches = {"flash_attention": song_counts,
+                        "int8_matmul": int8_counts}.get(
+                            name, chunked_counts)[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches,

@@ -13,6 +13,12 @@ modules, converting conv weights from the JAX (k, in/groups, out) layout to
 torch's (out, in/groups, k). Loading is strict: a missing, extra or
 misshapen entry raises.
 
+A tree quantized by the JAX package's ``models/quantize.py`` loads too:
+wherever it holds ``w_q8``/``w_scale`` (or ``wq_q8``/``wq_scale``, ...) in
+place of a float matrix, the module that owns the matrix is turned into its
+int8 form first; int8 leaves stay int8, so both packages run the same
+integers. ``export_jax_params`` gives such a tree back.
+
 ``init_params`` draws a tree of the same shapes and distributions as the
 JAX ``init``s from a ``torch.Generator`` (JAX's PRNG gives other numbers;
 the machine with the card has no JAX).
@@ -41,7 +47,10 @@ def _flatten(tree, prefix=""):
 
 def _convert(path, value):
     """(JAX key path, array) → (port parameter name, tensor)."""
-    t = torch.tensor(np.asarray(value, dtype=np.float32))
+    value = np.asarray(value)
+    if value.dtype != np.int8:           # quantized weights stay int8
+        value = value.astype(np.float32)
+    t = torch.tensor(value)
     name = re.sub(r"feature_extractor/(\d+)/", r"feature_extractor/layers/\1/",
                   path)
     if re.search(r"feature_extractor/layers/\d+/conv/w$", name):
@@ -58,6 +67,11 @@ def _convert(path, value):
 def load_module_tree(module, tree):
     """Fill ``module`` from its JAX sub-tree (strict)."""
     state = dict(_convert(p, v) for p, v in _flatten(tree).items())
+    for name, w_q8 in state.items():
+        if name.endswith("_q8"):
+            owner, _, leaf = name.rpartition(".")
+            module.get_submodule(owner).to_int8_(
+                leaf[:-len("_q8")], w_q8, state[name[:-len("q8")] + "scale"])
     module.load_state_dict(state, strict=True)
 
 
@@ -87,16 +101,18 @@ def _ln(n):
     return {"scale": np.ones(n, np.float32), "bias": np.zeros(n, np.float32)}
 
 
-def _linear(gen, n_in, n_out):
+def init_linear(gen, n_in, n_out):
+    """Seeded ``Linear`` tree {"w", "b"}: kaiming-uniform weight, torch-style
+    bias."""
     return {"w": _kaiming(gen, (n_in, n_out), n_in),
             "b": _bias(gen, (n_out,), n_in)}
 
 
-def init_params(config, generator, head_outputs=20):
-    """Seeded flagship tree {"wav2vec2": {"encoder": ...}, "model": ...} at
-    the JAX shapes: kaiming-uniform convs and linears with torch-style
-    biases, glorot-uniform attention projections with zero biases, unit
-    LayerNorms, and a weight-norm ``g`` equal to the norm of ``v``."""
+def init_wav2vec2(config, generator):
+    """Seeded bridge tree {"encoder": ...} at the JAX shapes: kaiming-uniform
+    convs and linears with torch-style biases, glorot-uniform attention
+    projections with zero biases, unit LayerNorms, and a weight-norm ``g``
+    equal to the norm of ``v``."""
     c = config
     fe, in_ch = {}, 1
     for i, (dim, k) in enumerate(zip(c.conv_dim, c.conv_kernel)):
@@ -119,20 +135,29 @@ def init_params(config, generator, head_outputs=20):
             attn[f"w{name}"] = _uniform(generator, (d, d), limit)
             attn[f"b{name}"] = np.zeros(d, np.float32)
         layers[str(i)] = {"attn": attn,
-                          "ffn1": _linear(generator, d, c.ffn_size),
-                          "ffn2": _linear(generator, c.ffn_size, d),
+                          "ffn1": init_linear(generator, d, c.ffn_size),
+                          "ffn2": init_linear(generator, c.ffn_size, d),
                           "ln1": _ln(d), "ln2": _ln(d)}
     encoder = {"feature_extractor": fe, "feat_proj_ln": _ln(c.conv_dim[-1]),
-               "feat_proj": _linear(generator, c.conv_dim[-1], d),
+               "feat_proj": init_linear(generator, c.conv_dim[-1], d),
                "pos_conv": pos_conv, "encoder_ln": _ln(d), "layers": layers}
-    return {"wav2vec2": {"encoder": encoder},
-            "model": _linear(generator, d, head_outputs)}
+    return {"encoder": encoder}
+
+
+def init_params(config, generator, head_outputs=20):
+    """Seeded flagship tree {"wav2vec2": {"encoder": ...}, "model": ...}:
+    ``init_wav2vec2``, then ``init_linear`` for the frame head."""
+    wav2vec2 = init_wav2vec2(config, generator)
+    return {"wav2vec2": wav2vec2,
+            "model": init_linear(generator, config.hidden_size, head_outputs)}
 
 
 def _unconvert(name, tensor):
     """(port parameter name, tensor) → (JAX key path, numpy array): the
     inverse of ``_convert``; the array is a copy."""
-    t = tensor.detach().to("cpu", torch.float32, copy=True)
+    t = tensor.detach().to(
+        "cpu", tensor.dtype if tensor.dtype == torch.int8 else torch.float32,
+        copy=True)
     path = name.replace(".", "/")
     path = re.sub(r"feature_extractor/layers/(\d+)/", r"feature_extractor/\1/",
                   path)

@@ -7,6 +7,12 @@
 //   B: 8 columns x 16 k, column n at B + n * ldb with k contiguous.
 // bf16 runs on the tensor cores (f32 accumulate). f32 runs the same product
 // in full f32 FMAs on the CUDA cores (no TF32), computing the same fragment.
+//
+// int8 is a 16x8x32 product (`mma.sync.m16n8k32`, s8 x s8 -> s32, exact):
+// the same C fragment with int accumulators, A 16 rows x 32 k and B 8
+// columns x 32 k, both with k contiguous (one byte per element), lda and ldb
+// in bytes and multiples of 4. Lane (g, t) reads the 4 consecutive k at
+// 4t (and at 16 + 4t) of rows g and g + 8 of A and of column g of B.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -77,6 +83,29 @@ template <> struct Tile<float> {
       c[2] = fmaf(x1, y0, c[2]);
       c[3] = fmaf(x1, y1, c[3]);
     }
+  }
+};
+
+template <> struct Tile<int8_t> {
+  static __device__ __forceinline__ void mma(int c[4], const int8_t* A,
+                                             int lda, const int8_t* B, int ldb,
+                                             int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t a0 = *reinterpret_cast<const uint32_t*>(A + g * lda + 4 * t);
+    const uint32_t a1 =
+        *reinterpret_cast<const uint32_t*>(A + (g + 8) * lda + 4 * t);
+    const uint32_t a2 =
+        *reinterpret_cast<const uint32_t*>(A + g * lda + 4 * t + 16);
+    const uint32_t a3 =
+        *reinterpret_cast<const uint32_t*>(A + (g + 8) * lda + 4 * t + 16);
+    const uint32_t b0 = *reinterpret_cast<const uint32_t*>(B + g * ldb + 4 * t);
+    const uint32_t b1 =
+        *reinterpret_cast<const uint32_t*>(B + g * ldb + 4 * t + 16);
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
   }
 };
 

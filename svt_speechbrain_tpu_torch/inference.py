@@ -1,5 +1,6 @@
-"""Batched long-form AMT inference (port of
-``svt_speechbrain_tpu/inference.py:33 BatchedAMTTranscriber``).
+"""Batched long-form and streaming AMT inference (port of
+``svt_speechbrain_tpu/inference.py``: ``BatchedAMTTranscriber``,
+``StreamSession``, ``StreamingServer``, ``StreamingAMTTranscriber``).
 
 Songs are cut host-side into fixed windows, chunks of all songs are batched
 together, and each batch runs encoder → head → sigmoid/argmax compaction on
@@ -7,6 +8,13 @@ the device into one (B, F, 4) array, copied back once per batch and
 stitched per song. The host pipeline uses pinned host buffers and the
 current CUDA stream: uploads and the copy back are asynchronous, and up to
 ``depth`` batches stay in flight before the oldest is stitched.
+
+The streaming classes run the same batch program whenever a window of
+samples is full: ``StreamingAMTTranscriber`` one stream at batch 1,
+``StreamingServer`` many sessions multiplexed into shared batches. Both
+decode incrementally and emit exactly the offline transcriber's notes. A
+bridge quantized by ``models.quantize.quantize_wav2vec2`` serves through
+every class here like a float one.
 """
 from __future__ import annotations
 
@@ -17,7 +25,8 @@ import numpy as np
 import torch
 
 from svt_speechbrain_tpu_torch import resolve_device
-from svt_speechbrain_tpu_torch.utils.amt import frame2note, frame2note_fast
+from svt_speechbrain_tpu_torch.utils.amt import (IncrementalFrame2Note,
+                                                 frame2note, frame2note_fast)
 
 
 class BatchedAMTTranscriber:
@@ -32,8 +41,10 @@ class BatchedAMTTranscriber:
     pitch_class_num, onset_threshold, offset_threshold :
         As in the JAX transcriber.
     compute_dtype : torch dtype
-        bf16 by default: every floating parameter is cast to it (on copies;
-        the caller's modules are left as they are).
+        bf16 by default: every floating parameter and buffer is cast to it
+        (on copies; the caller's modules are left as they are). Of an int8
+        bridge that rounds ``w_scale`` to bf16 and leaves ``w_q8`` as it is,
+        as the JAX transcriber's cast of every f32 leaf does.
     chunking : "ceil" | "reference" | "song"
         Equal zero-padded windows; the reference's utterance split with the
         last chunk padded to 1 s buckets; or one window per song padded to
@@ -187,15 +198,29 @@ class BatchedAMTTranscriber:
                                       for i in range(len(per_chunk))], axis=0)
                 for name, per_chunk in results.items()}
 
-    def _stitch(self, host, done, order, results):
-        if done is not None:
-            done.synchronize()
-        packed = host.numpy()
+    @staticmethod
+    def _unpack(packed):
+        """The device's packed output as float32 rows ("u16" codes back to
+        probabilities)."""
         if packed.dtype == np.int16:
             stacked = packed.astype(np.float32) + 32768.0
             stacked[:, :, :2] *= 1.0 / 65535.0
-        else:
-            stacked = packed
+            return stacked
+        return packed
+
+    def run_batch(self, wavs, lens):
+        """One batch, synchronously: (B, T) numpy wavs (int16 or float32)
+        and (B,) relative lengths → (B, F, 4) float32 rows on the host. The
+        streaming classes run their windows through this."""
+        out = self._forward(
+            torch.from_numpy(np.ascontiguousarray(wavs)).to(self.device),
+            torch.from_numpy(np.asarray(lens, np.float32)).to(self.device))
+        return self._unpack(out.cpu().numpy())
+
+    def _stitch(self, host, done, order, results):
+        if done is not None:
+            done.synchronize()
+        stacked = self._unpack(host.numpy())
         for j, (name, chunk_idx, frames) in enumerate(order):
             results[name][chunk_idx] = stacked[j, :frames]
 
@@ -222,3 +247,272 @@ class BatchedAMTTranscriber:
                              offset_thres=self.offset_threshold,
                              frame_size=1 / self.frame_rate)
                 for name, fi in frames.items()}
+
+
+def _append_pcm(buffer, samples):
+    """Append a 1-D PCM piece to a (possibly empty) buffered partial window.
+
+    Rejects a dtype switch mid-window: concatenating int16 PCM into a float
+    window (or the reverse) would promote silently and skip the device's
+    1/32768 scaling, making the int16 samples about 32768 times too loud.
+    """
+    samples = np.asarray(samples)
+    if samples.ndim != 1:
+        raise ValueError("feed() takes a 1-D sample array")
+    if not len(samples):
+        # an empty feed is a no-op: concatenating an empty float array
+        # would promote a buffered int16 window
+        return samples if buffer is None else buffer
+    if buffer is None or not len(buffer):
+        return samples
+    if samples.dtype != buffer.dtype:
+        raise ValueError(f"dtype switch mid-window: buffered "
+                         f"{buffer.dtype}, fed {samples.dtype}")
+    return np.concatenate([buffer, samples])
+
+
+class StreamSession:
+    """One live stream inside a ``StreamingServer`` (made by
+    ``server.open()``, never directly). ``feed()`` PCM as it arrives; notes
+    are final whenever the server runs a batch and are handed back, exactly
+    once, through this session's ``feed()``/``poll()``/``flush()``.
+
+    Example
+    -------
+    >>> import numpy as np, torch
+    >>> from svt_speechbrain_tpu_torch.flagship import build_flagship
+    >>> model = build_flagship(tiny=True, device="cpu")
+    >>> server = StreamingServer(model.bridge, model.head, batch_size=2,
+    ...                          chunk_seconds=0.5,
+    ...                          compute_dtype=torch.float32, device="cpu")
+    >>> a, b = server.open("alice"), server.open("bob")
+    >>> _ = a.feed(np.zeros(12000, np.float32))   # buffers and auto-pumps
+    >>> _ = b.feed(np.zeros(5000, np.float32))
+    >>> notes_a, notes_b = a.flush(), b.flush()   # forces a final pump
+    >>> all(len(ev) == 3 for ev in notes_a + notes_b)
+    True
+    """
+
+    def __init__(self, server, name, decoder):
+        self._server = server
+        self.name = name
+        self._decoder = decoder
+        self._buffer = None
+        self._done = False
+        self._notes = []  # final, not yet handed to the caller
+
+    def _take(self):
+        out, self._notes = self._notes, []
+        return out
+
+    def feed(self, samples):
+        """Append PCM samples (float32 or int16, (T,)). Full windows queue
+        up on the server, which runs a batch whenever one is full. Returns
+        the notes final for THIS session so far."""
+        if self._done:
+            raise RuntimeError("stream already flushed")
+        self._buffer = _append_pcm(self._buffer, samples)
+        cs = self._server._tr.chunk_samples
+        while len(self._buffer) >= cs:
+            self._server._enqueue(self, self._buffer[:cs], cs)
+            self._buffer = self._buffer[cs:]
+        self._server._auto_pump()
+        return self._take()
+
+    def poll(self):
+        """Notes final for this session since the last hand-over (by another
+        session's auto-pump, or an explicit ``server.pump()``)."""
+        return self._take()
+
+    def flush(self):
+        """End this stream: queue the last partial window (zero-padded, with
+        exact-lengths masking), force a server pump, and close any open
+        note. Idempotent; returns the remaining notes."""
+        if self._done:
+            return []
+        self._done = True
+        if self._buffer is not None and len(self._buffer):
+            tail = np.zeros(self._server._tr.chunk_samples,
+                            self._buffer.dtype)
+            tail[:len(self._buffer)] = self._buffer
+            self._server._enqueue(self, tail, len(self._buffer))
+        self._buffer = None
+        self._server.pump()
+        self._server._n_open -= 1
+        return self._take() + self._decoder.flush()
+
+
+class StreamingServer:
+    """Multiplexed low-latency serving: N concurrent PCM streams share one
+    batched chunk program (``inference.py:458``).
+
+    - each ``open()`` returns a ``StreamSession`` with its own buffer and
+      ``IncrementalFrame2Note`` decoder;
+    - full windows of all sessions queue up first in, first out; as soon as
+      ``batch_size`` of them are ready the server runs one batch (rows it
+      cannot fill are rows of length 0, masked like the offline path's
+      batch padding, so short batches stay exact);
+    - ``pump()`` forces the queue through, a partial last batch included:
+      call it on a latency deadline; ``flush()`` of any session calls it.
+
+    Per session the notes are exactly what a dedicated
+    ``StreamingAMTTranscriber`` emits for the same audio: rows of a batch
+    do not depend on each other. Drive one server from one thread: sessions
+    share its queue, so concurrent ``feed()`` calls need a lock outside.
+    Extra keyword arguments (``compute_dtype``, ``compact``, ``device``)
+    go to the ``BatchedAMTTranscriber`` inside.
+    """
+
+    def __init__(self, bridge, head, batch_size=8, chunk_seconds=5.0,
+                 sample_rate=16000, frame_rate=49.8, onset_threshold=0.4,
+                 offset_threshold=0.5, **kwargs):
+        self._tr = BatchedAMTTranscriber(
+            bridge, head, chunk_seconds=chunk_seconds,
+            batch_size=batch_size, sample_rate=sample_rate,
+            frame_rate=frame_rate, onset_threshold=onset_threshold,
+            offset_threshold=offset_threshold, chunking="ceil", **kwargs)
+        self._decoder_args = (onset_threshold, offset_threshold,
+                              1.0 / frame_rate)
+        self._queue = []  # FIFO of (session, (cs,) window, true samples)
+        self._n_open = 0
+        self._n_sessions = 0
+
+    @property
+    def pending(self):
+        """Windows queued but not yet run."""
+        return len(self._queue)
+
+    @property
+    def open_sessions(self):
+        """Sessions opened and not yet flushed."""
+        return self._n_open
+
+    def open(self, name=None):
+        """Start a new stream; ``name`` defaults to ``"stream<N>"``."""
+        on, off, fs = self._decoder_args
+        if name is None:
+            name = f"stream{self._n_sessions}"
+        self._n_sessions += 1
+        self._n_open += 1
+        return StreamSession(self, name,
+                             IncrementalFrame2Note(on, off, frame_size=fs))
+
+    def _enqueue(self, session, window, true_samples):
+        self._queue.append((session, window, true_samples))
+
+    def _auto_pump(self):
+        b = self._tr.batch_size
+        while len(self._queue) >= b:
+            self._run_batch(self._queue[:b])
+            del self._queue[:b]
+
+    def pump(self):
+        """Run every queued window now (the last batch may be partial).
+        Returns the number of windows run; final notes land in their
+        sessions (``poll()`` them)."""
+        n = len(self._queue)
+        b = self._tr.batch_size
+        while self._queue:
+            take = self._queue[:b]
+            del self._queue[:len(take)]
+            self._run_batch(take)
+        return n
+
+    def _run_batch(self, entries):
+        tr = self._tr
+        cs = tr.chunk_samples
+        rows, lens = [], []
+        # int16 rows go up as int16 only when the whole batch is int16 (the
+        # device scales by 1/32768 on dtype); a mixed batch converts its
+        # int16 rows to float32 on the host, which loses nothing
+        all_i16 = all(e[1].dtype == np.int16 for e in entries)
+        for _, window, true_samples in entries:
+            if not all_i16 and window.dtype == np.int16:
+                window = window.astype(np.float32) * (1.0 / 32768.0)
+            rows.append(window.astype(np.int16 if all_i16 else np.float32,
+                                      copy=False))
+            lens.append(true_samples / cs)
+        pad_dtype = np.int16 if all_i16 else np.float32
+        while len(rows) < tr.batch_size:
+            rows.append(np.zeros(cs, pad_dtype))
+            lens.append(0.0)
+        out = tr.run_batch(np.stack(rows), lens)
+        for j, (session, _, true_samples) in enumerate(entries):
+            f = tr.config.output_length(true_samples)
+            session._notes += session._decoder.feed(out[j, :f])
+
+
+class StreamingAMTTranscriber:
+    """Low-latency streaming transcription (``inference.py:575``):
+    ``feed()`` PCM as it arrives and receive note events as soon as they
+    are final; ``flush()`` at the end of the stream.
+
+    The same batch program as ``BatchedAMTTranscriber`` runs (at batch 1)
+    every time a full window of samples has arrived, and an
+    ``IncrementalFrame2Note`` decoder emits notes with bounded lookahead.
+    The whole emitted stream is exactly what the offline transcriber's
+    exact decode gives for the same audio. Latency is one chunk (5 s by
+    default) plus the decoder's 4-frame peak lookahead.
+
+    Example
+    -------
+    >>> import numpy as np, torch
+    >>> from svt_speechbrain_tpu_torch.flagship import build_flagship
+    >>> model = build_flagship(tiny=True, device="cpu")
+    >>> st = StreamingAMTTranscriber(model.bridge, model.head,
+    ...                              chunk_seconds=0.5,
+    ...                              compute_dtype=torch.float32,
+    ...                              device="cpu")
+    >>> notes = st.feed(np.zeros(12000, np.float32)) + st.flush()
+    >>> all(len(ev) == 3 for ev in notes), st.flush()
+    (True, [])
+    """
+
+    def __init__(self, bridge, head, chunk_seconds=5.0, sample_rate=16000,
+                 frame_rate=49.8, onset_threshold=0.4, offset_threshold=0.5,
+                 **kwargs):
+        self._tr = BatchedAMTTranscriber(
+            bridge, head, chunk_seconds=chunk_seconds, batch_size=1,
+            sample_rate=sample_rate, frame_rate=frame_rate,
+            onset_threshold=onset_threshold,
+            offset_threshold=offset_threshold, chunking="ceil", **kwargs)
+        self._decoder = IncrementalFrame2Note(
+            onset_threshold, offset_threshold, frame_size=1.0 / frame_rate)
+        self._buffer = None
+        self._done = False
+
+    def _run_chunk(self, chunk, true_samples):
+        tr = self._tr
+        if chunk.dtype != np.int16:
+            chunk = chunk.astype(np.float32, copy=False)
+        rows = tr.run_batch(chunk[None], [true_samples / len(chunk)])
+        return self._decoder.feed(
+            rows[0, :tr.config.output_length(true_samples)])
+
+    def feed(self, samples):
+        """Append PCM samples (float32 or int16, (T,)); returns the notes
+        made final by this piece as ``[[onset_s, offset_s, midi], ...]``."""
+        if self._done:
+            raise RuntimeError("stream already flushed")
+        self._buffer = _append_pcm(self._buffer, samples)
+        notes = []
+        cs = self._tr.chunk_samples
+        while len(self._buffer) >= cs:
+            notes += self._run_chunk(self._buffer[:cs], cs)
+            self._buffer = self._buffer[cs:]
+        return notes
+
+    def flush(self):
+        """End the stream: decode the last partial window (zero-padded, with
+        exact-lengths masking, like the offline ceil chunker) and close any
+        open note."""
+        if self._done:
+            return []
+        self._done = True
+        notes = []
+        if self._buffer is not None and len(self._buffer):
+            tail = np.zeros(self._tr.chunk_samples, self._buffer.dtype)
+            tail[:len(self._buffer)] = self._buffer
+            notes += self._run_chunk(tail, len(self._buffer))
+        self._buffer = None
+        return notes + self._decoder.flush()

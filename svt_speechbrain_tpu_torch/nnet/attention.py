@@ -8,6 +8,7 @@ from torch import nn
 
 from svt_speechbrain_tpu_torch.nnet.dropout import dropout
 from svt_speechbrain_tpu_torch.ops import flash_attention as fa
+from svt_speechbrain_tpu_torch.ops.quant import PackedWeight, int8_matmul
 
 NEG_INF = fa.NEG_INF
 
@@ -72,6 +73,11 @@ class MultiheadAttention(nn.Module):
     core goes through ``scaled_dot_product_attention`` with ``key_lengths``
     and, in training, attention dropout at rate ``dropout``.
 
+    ``to_int8_`` replaces one projection matrix by its int8 serving form
+    (``attention.py:153-158``): buffers ``{name}_q8`` and ``{name}_scale``
+    instead of the parameter, the product through ``ops.quant.int8_matmul``.
+    The attention core stays float.
+
     Example
     -------
     >>> import torch
@@ -93,21 +99,42 @@ class MultiheadAttention(nn.Module):
             setattr(self, f"w{name}",
                     nn.Parameter(torch.zeros(d_model, d_model)))
             setattr(self, f"b{name}", nn.Parameter(torch.zeros(d_model)))
+        self._packed = {}
+
+    def to_int8_(self, name, w_q8, w_scale):
+        """In place: replace the float matrix ``name`` ("wq", "wk", "wv" or
+        "wo") by the buffers ``{name}_q8`` / ``{name}_scale``."""
+        if name not in ("wq", "wk", "wv", "wo"):
+            raise KeyError(name)
+        if name in self._parameters:
+            delattr(self, name)
+        for key, value in ((name + "_q8", w_q8), (name + "_scale", w_scale)):
+            self._buffers.pop(key, None)
+            self.register_buffer(key, value)
+        self._packed[name] = PackedWeight()
+        return self
+
+    def _mm(self, x, name):
+        w8 = self._buffers.get(name + "_q8")
+        if w8 is not None:
+            return int8_matmul(x, w8, self._buffers[name + "_scale"],
+                               self._packed[name](w8))
+        return torch.matmul(x, getattr(self, name).to(x.dtype))
 
     def forward(self, query, key, value, key_lengths=None, impl="auto",
                 rng=None, train=False):
         b, tq, _ = query.shape
         h, dh = self.nhead, self.head_dim
 
-        def proj(x, w, bias):
-            y = torch.matmul(x, w.to(x.dtype)) + bias.to(x.dtype)
+        def proj(x, name, bias):
+            y = self._mm(x, name) + bias.to(x.dtype)
             return y.reshape(b, -1, h, dh).transpose(1, 2)   # (B, H, T, Dh)
 
-        q = proj(query, self.wq, self.bq)
-        k = proj(key, self.wk, self.bk)
-        v = proj(value, self.wv, self.bv)
+        q = proj(query, "wq", self.bq)
+        k = proj(key, "wk", self.bk)
+        v = proj(value, "wv", self.bv)
         out = scaled_dot_product_attention(
             q, k, v, dropout_rate=self.dropout, rng=rng, train=train,
             impl=impl, key_lengths=key_lengths)
         out = out.transpose(1, 2).reshape(b, tq, self.d_model)
-        return torch.matmul(out, self.wo.to(out.dtype)) + self.bo.to(out.dtype)
+        return self._mm(out, "wo") + self.bo.to(out.dtype)

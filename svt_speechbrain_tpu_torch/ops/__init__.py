@@ -12,13 +12,15 @@ def kernel_wrappers():
     """name → wrapper function, one per TPU kernel the port replaces."""
     from svt_speechbrain_tpu_torch.ops.conv_frontend import fused_conv_frontend
     from svt_speechbrain_tpu_torch.ops import flash_attention as fa
+    from svt_speechbrain_tpu_torch.ops.quant import int8_matmul
 
     return {"conv_frontend": fused_conv_frontend,
             "flash_attention_short": fa.flash_attention_short,
             "flash_attention": fa.flash_attention,
             "flash_attention_lse": fa.flash_attention_fwd_lse,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "int8_matmul": int8_matmul}
 
 
 def launch_counts():

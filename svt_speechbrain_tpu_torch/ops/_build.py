@@ -18,12 +18,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("conv_frontend", "flash_attention", "flash_attention_bwd")
+SOURCES = ("conv_frontend", "flash_attention", "flash_attention_bwd",
+           "quant_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -61,18 +63,27 @@ def build_all(names=SOURCES):
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        log = tempfile.TemporaryFile("w+", dir=BUILD_DIR)
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT), log, tmp,
+                       out)
     report = {}
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
-            continue
-        os.replace(tmp, out)
-        report[name] = (time.perf_counter() - t0, log)
+    while procs:                   # in order of completion: each source's
+        time.sleep(0.05)           # seconds are its own compiler's
+        for name, (proc, log, tmp, out) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            seconds = time.perf_counter() - t0
+            del procs[name]
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu:\n{text}")
+                continue
+            os.replace(tmp, out)
+            report[name] = (seconds, text)
     if failed:
         raise RuntimeError("\n".join(failed))
     return report

@@ -1,0 +1,195 @@
+"""Pretrained inference interfaces (port of
+``svt_speechbrain_tpu/pretrained/interfaces.py``): the ``Pretrained`` base
+and ``SingingTranscriber``, the AMT flagship interface over the batched
+chunked pipeline, its streaming session and its multiplexed server.
+
+The modules of the port own their parameters, so an interface holds
+modules only: ``init_params(seed)`` fills them with seeded draws, and
+``convert_jax.load_jax_params`` or ``models.convert_hf.load_wav2vec2``
+installs trained ones. ``from_hparams`` and ``transcribe_file`` need the
+hyperparameter loader, the checkpoint fetcher and the audio reader, which
+come with the engine (ROADMAP.md queue 1 item 10) and raise
+``NotImplementedError`` until then. The other interfaces of the JAX module
+(``EncoderClassifier``, the ASR ones, ``SpeakerRecognition``, ``VAD``,
+...) wait for their models.
+"""
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import torch
+
+from svt_speechbrain_tpu_torch import resolve_device
+from svt_speechbrain_tpu_torch.convert_jax import (init_linear,
+                                                   init_wav2vec2,
+                                                   load_module_tree)
+from svt_speechbrain_tpu_torch.inference import (BatchedAMTTranscriber,
+                                                 StreamingAMTTranscriber,
+                                                 StreamingServer)
+from svt_speechbrain_tpu_torch.models.quantize import quantize_wav2vec2
+from svt_speechbrain_tpu_torch.models.wav2vec2 import HuggingFaceWav2Vec2
+from svt_speechbrain_tpu_torch.nnet.linear import Linear
+
+_ENGINE_ITEM = ("the hyperparameter loader, the checkpoint fetcher and the "
+                "audio reader are not ported yet (ROADMAP.md queue 1 item "
+                "10, the engine)")
+
+
+def _seeded_tree(module, generator):
+    """The seeded JAX-shaped tree of one module, or None if it holds no
+    parameters."""
+    if isinstance(module, HuggingFaceWav2Vec2):
+        return init_wav2vec2(module.config, generator)
+    if isinstance(module, Linear):
+        return init_linear(generator, *module.w.shape)
+    if isinstance(module, torch.nn.Module) and any(module.parameters()):
+        raise NotImplementedError(
+            f"no seeded initialisation for {type(module).__name__}")
+    return None
+
+
+class Pretrained:
+    """Base inference interface (``interfaces.py:20``). Subclasses declare
+    ``HPARAMS_NEEDED``/``MODULES_NEEDED``; the hparams dict is exposed as a
+    namespace, as in the Brain.
+
+    Example
+    -------
+    >>> from svt_speechbrain_tpu_torch.nnet.linear import Linear
+    >>> pt = Pretrained(modules={"head": Linear(4, 8)}, hparams={"foo": 1})
+    >>> mods = pt.init_params()
+    >>> sorted(vars(mods)), tuple(mods.head.w.shape), pt.hparams.foo
+    (['head'], (8, 4), 1)
+    >>> bool(mods.head.w.abs().sum() > 0)
+    True
+    """
+
+    HPARAMS_NEEDED = []
+    MODULES_NEEDED = []
+
+    def __init__(self, modules=None, hparams=None):
+        self.mods = SimpleNamespace(**(modules or {}))
+        self.hparams = SimpleNamespace(**(hparams or {}))
+        for name in self.HPARAMS_NEEDED:
+            if not hasattr(self.hparams, name):
+                raise ValueError(f"Need hparams['{name}']")
+        for name in self.MODULES_NEEDED:
+            if not hasattr(self.mods, name):
+                raise ValueError(f"Need modules['{name}']")
+
+    def init_params(self, seed=1234):
+        """Fill every module with seeded random parameters (one
+        ``torch.Generator``, modules in their given order); returns the
+        modules' namespace."""
+        generator = torch.Generator().manual_seed(seed)
+        for module in vars(self.mods).values():
+            tree = _seeded_tree(module, generator)
+            if tree is not None:
+                load_module_tree(module, tree)
+        return self.mods
+
+    @classmethod
+    def from_hparams(cls, source, hparams_file="hyperparams.yaml",
+                     savedir=None, overrides=None, **kwargs):
+        """Load an inference config and pretrained parameters
+        (``interfaces.py:64``)."""
+        raise NotImplementedError(f"from_hparams: {_ENGINE_ITEM}")
+
+
+class SingingTranscriber(Pretrained):
+    """Whole-song AMT inference (the flagship deployment path): waveforms →
+    note events, batched and chunked on the device (``interfaces.py:85``).
+
+    Needs modules ``wav2vec2`` and ``model`` and the AMT decode hparams.
+    ``chunking`` is "ceil" (throughput), "reference" (equal to the recipes'
+    batch-1 eval) or "song" (whole-song attention windows; use a small
+    ``batch_size``). ``quantize="int8"`` serves the encoder's FFN and
+    feature-projection products in a8w8 (``models/quantize.py``); the float
+    path is the default. ``device`` is CUDA unless the caller names another.
+
+    Example
+    -------
+    >>> import numpy as np
+    >>> from svt_speechbrain_tpu_torch.flagship import build_modules
+    >>> bridge, head = build_modules(tiny=True)
+    >>> hp = {"frame_rate": 49.8, "onset_threshold": 0.4,
+    ...       "offset_threshold": 0.5}
+    >>> iface = SingingTranscriber(modules={"wav2vec2": bridge, "model": head},
+    ...                            hparams=hp, batch_size=2, chunk_seconds=1.0,
+    ...                            quantize="int8", device="cpu")
+    >>> _ = iface.init_params()
+    >>> notes = iface.transcribe_batch({"s": np.zeros(24000, np.float32)})
+    >>> sorted(notes), all(len(ev) == 3 for ev in notes["s"])
+    (['s'], True)
+    """
+
+    HPARAMS_NEEDED = ["frame_rate", "onset_threshold", "offset_threshold"]
+    MODULES_NEEDED = ["wav2vec2", "model"]
+
+    def __init__(self, *args, batch_size=32, chunk_seconds=5.0,
+                 chunking="ceil", quantize=None, device=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.batch_size = batch_size
+        self.chunk_seconds = chunk_seconds
+        self.chunking = chunking
+        if quantize not in (None, "int8"):
+            raise ValueError(f"Unknown quantize mode: {quantize!r}")
+        self.quantize = quantize
+        self.device = resolve_device(device)
+        self._transcriber = None
+        self._int8_w2v = None
+
+    def _serving_bridge(self):
+        """The bridge a new transcriber, stream or server is made from: the
+        float one, or with ``quantize="int8"`` one int8 copy shared by all
+        of them. Both are in full precision (the int8 copy is derived from
+        the float weights, never from a bf16 cast), so a later
+        ``compute_dtype`` acts on untruncated weights and scales; every
+        transcriber casts its own copy."""
+        if self.quantize != "int8":
+            return self.mods.wav2vec2
+        if self._int8_w2v is None:
+            self._int8_w2v = quantize_wav2vec2(self.mods.wav2vec2)
+        return self._int8_w2v
+
+    def _decode_args(self):
+        return dict(chunk_seconds=self.chunk_seconds,
+                    frame_rate=self.hparams.frame_rate,
+                    onset_threshold=self.hparams.onset_threshold,
+                    offset_threshold=self.hparams.offset_threshold,
+                    device=self.device)
+
+    def _get_transcriber(self):
+        if self._transcriber is None:
+            self._transcriber = BatchedAMTTranscriber(
+                self._serving_bridge(), self.mods.model,
+                batch_size=self.batch_size, chunking=self.chunking,
+                **self._decode_args())
+        return self._transcriber
+
+    def transcribe_file(self, path):
+        """Audio file → [[onset_s, offset_s, midi], ...]."""
+        raise NotImplementedError(f"transcribe_file: {_ENGINE_ITEM}")
+
+    def transcribe_batch(self, songs):
+        """dict name → waveform ⇒ dict name → note events."""
+        return self._get_transcriber().transcribe(songs)
+
+    def stream(self, **kwargs):
+        """Open a low-latency streaming session on this interface's model
+        and ``quantize`` mode (``inference.StreamingAMTTranscriber``):
+        ``feed()`` PCM as it arrives, ``flush()`` at the end. Each call
+        returns an independent session; extra keyword arguments
+        (``compact``, ``compute_dtype``, ...) pass through."""
+        return StreamingAMTTranscriber(
+            self._serving_bridge(), self.mods.model,
+            **{**self._decode_args(), **kwargs})
+
+    def serve(self, batch_size=8, **kwargs):
+        """Open a multiplexed streaming server on this interface's model
+        and ``quantize`` mode (``inference.StreamingServer``): the ready
+        windows of N concurrent ``server.open()`` sessions share one batch
+        program."""
+        return StreamingServer(
+            self._serving_bridge(), self.mods.model, batch_size=batch_size,
+            **{**self._decode_args(), **kwargs})

@@ -221,3 +221,181 @@ def frame2note_fast(frame_info, onset_thres, offset_thres, frame_size=1 / 49.8):
         close_time = (end if end is not None else n - 1) * frame_size
         result.append([start * frame_size, close_time, pitch + MIDI_BASE])
     return result
+
+
+def frame2note_finegrain(frame_info, onset_thres, offset_thres, octave_class_num=4,
+                         pitch_class_num=12, frame_size=1 / 49.8):
+    """Fine-grained variant (reference ``MIR_ST500/utils.py:152-219``): pitch
+    votes are floats ``octave*12 + class * 12/pitch_class_num``, allowing a
+    finer pitch grid."""
+    n = len(frame_info)
+    onset_seq = np.array([frame_info[i][0] for i in range(n)], dtype=np.float64)
+    peaks = onset_peaks(onset_seq, onset_thres)
+
+    result = []
+    current_onset = None
+    pitch_counter = []
+    current_time = 0.0
+
+    for i in range(n):
+        current_time = frame_size * i
+        info = frame_info[i]
+
+        if peaks[i]:
+            if current_onset is not None and len(pitch_counter) > 0:
+                result.append([current_onset, current_time,
+                               max(set(pitch_counter), key=pitch_counter.count) + MIDI_BASE])
+            current_onset = current_time
+            pitch_counter = []
+        elif info[1] >= offset_thres:
+            if current_onset is not None:
+                if len(pitch_counter) > 0:
+                    result.append([current_onset, current_time,
+                                   max(set(pitch_counter), key=pitch_counter.count) + MIDI_BASE])
+                current_onset = None
+                pitch_counter = []
+
+        if current_onset is not None:
+            final_pitch = float(info[2] * 12 + info[3] * 12 / pitch_class_num)
+            if info[2] != octave_class_num and info[3] != pitch_class_num:
+                pitch_counter.append(final_pitch)
+
+    if current_onset is not None and len(pitch_counter) > 0:
+        result.append([current_onset, current_time,
+                       max(set(pitch_counter), key=pitch_counter.count) + MIDI_BASE])
+
+    return result
+
+
+class AverageMeter:
+    """Running average (reference ``MIR_ST500/utils.py:222-238``)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0
+        self.avg = 0
+        self.sum = 0
+        self.count = 0
+
+    def update(self, val, n=1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / self.count
+
+
+class IncrementalFrame2Note:
+    """Streaming ``frame2note``: ``feed()`` frame predictions in arbitrary-size
+    pieces and receive notes as soon as they are final; ``flush()`` at
+    end-of-stream. The emitted note sequence is exactly
+    ``frame2note(all_frames)`` — including the reference's end-clamped peak
+    window quirk, which is why a frame's onset-peak decision only becomes
+    final once ``local_max_size + 1`` further frames have arrived (or the
+    stream ends). Memory is O(window), not O(song).
+    """
+
+    def __init__(self, onset_thres, offset_thres, frame_size=1 / 49.8,
+                 local_max_size=3):
+        self.onset_thres = float(onset_thres)
+        self.offset_thres = float(offset_thres)
+        self.frame_size = frame_size
+        self.k = local_max_size
+        self._pending = []     # frame tuples with global index _base + pos
+        self._probs = []       # onset probs aligned with _pending
+        self._hist = []        # up to k onset probs just before _base
+        self._base = 0
+        self._received = 0
+        self._current_onset = None
+        self._pitch_counter = []
+        self._last_time = 0.0
+
+    def _window_max(self, i, hi):
+        """max of onset probs over global [max(i-k, 0), hi) from hist+pending."""
+        lo = max(i - self.k, 0)
+        vals = []
+        for g in range(lo, hi):
+            if g < self._base:
+                vals.append(self._hist[g - self._base])  # negative index into hist
+            else:
+                vals.append(self._probs[g - self._base])
+        return max(vals) if vals else None
+
+    def _step(self, i, info, is_peak, out):
+        t = self.frame_size * i
+        self._last_time = t
+        if is_peak:
+            if self._current_onset is not None and len(self._pitch_counter) > 0:
+                out.append([self._current_onset, t,
+                            max(set(self._pitch_counter),
+                                key=self._pitch_counter.count) + MIDI_BASE])
+            self._current_onset = t
+            self._pitch_counter = []
+        elif info[1] >= self.offset_thres:
+            if self._current_onset is not None:
+                if len(self._pitch_counter) > 0:
+                    out.append([self._current_onset, t,
+                                max(set(self._pitch_counter),
+                                    key=self._pitch_counter.count) + MIDI_BASE])
+                self._current_onset = None
+                self._pitch_counter = []
+        if self._current_onset is not None:
+            if info[2] != OCTAVE_END + 1 and info[3] != PITCH_CLASS_NUM:
+                self._pitch_counter.append(int(info[2] * 12 + info[3]))
+
+    def _advance(self, i, out):
+        """Process the frame at global index ``i == self._base``."""
+        prob = self._probs[0]
+        info = self._pending[0]
+        hi = i + self.k + 1  # no end clamp: caller guarantees n_final > hi
+        wmax = self._window_max(i, hi)
+        is_peak = prob >= self.onset_thres and prob == wmax
+        self._step(i, info, is_peak, out)
+        self._hist.append(prob)
+        if len(self._hist) > self.k:
+            self._hist.pop(0)
+        self._pending.pop(0)
+        self._probs.pop(0)
+        self._base += 1
+
+    def feed(self, frames):
+        """Consume an iterable of (onset_prob, offset_prob, octave, class)
+        rows; returns the list of notes finalized by this piece."""
+        for row in np.asarray(frames, dtype=np.float64).reshape(-1, 4):
+            self._pending.append(row)
+            self._probs.append(float(row[0]))
+            self._received += 1
+        out = []
+        # frame i's peak window [i-k, i+k+1) is final once received >= i+k+2
+        while self._pending and self._received >= self._base + self.k + 2:
+            self._advance(self._base, out)
+        return out
+
+    def flush(self):
+        """End the stream: decode the tail with the final-length window clamp
+        and emit any open note, exactly like ``frame2note``'s epilogue."""
+        n = self._received
+        out = []
+        while self._pending:
+            i = self._base
+            prob = self._probs[0]
+            info = self._pending[0]
+            hi = min(i + self.k + 1, n - 1)
+            wmax = self._window_max(i, hi)
+            is_peak = (wmax is not None and prob >= self.onset_thres
+                       and prob == wmax)
+            self._step(i, info, is_peak, out)
+            self._hist.append(prob)
+            if len(self._hist) > self.k:
+                self._hist.pop(0)
+            self._pending.pop(0)
+            self._probs.pop(0)
+            self._base += 1
+        if self._current_onset is not None and len(self._pitch_counter) > 0:
+            out.append([self._current_onset, self._last_time,
+                        max(set(self._pitch_counter),
+                            key=self._pitch_counter.count) + MIDI_BASE])
+        self._current_onset = None
+        self._pitch_counter = []
+        return out

@@ -12,6 +12,8 @@ MODULES = [
     "svt_speechbrain_tpu_torch.convert_jax",
     "svt_speechbrain_tpu_torch.flagship",
     "svt_speechbrain_tpu_torch.inference",
+    "svt_speechbrain_tpu_torch.models.convert_hf",
+    "svt_speechbrain_tpu_torch.models.quantize",
     "svt_speechbrain_tpu_torch.models.wav2vec2",
     "svt_speechbrain_tpu_torch.nnet.activations",
     "svt_speechbrain_tpu_torch.nnet.attention",
@@ -22,7 +24,10 @@ MODULES = [
     "svt_speechbrain_tpu_torch.nnet.normalization",
     "svt_speechbrain_tpu_torch.ops.conv_frontend",
     "svt_speechbrain_tpu_torch.ops.flash_attention",
+    "svt_speechbrain_tpu_torch.ops.quant",
+    "svt_speechbrain_tpu_torch.pretrained.interfaces",
     "svt_speechbrain_tpu_torch.utils.amt",
+    "svt_speechbrain_tpu_torch.utils.transcription_eval",
 ]
 
 

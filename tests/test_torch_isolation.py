@@ -16,12 +16,25 @@ _PROBE = """
 import sys
 import torch
 from svt_speechbrain_tpu_torch.flagship import build_flagship
-from svt_speechbrain_tpu_torch.inference import BatchedAMTTranscriber
+from svt_speechbrain_tpu_torch.inference import (
+    BatchedAMTTranscriber, StreamingAMTTranscriber, StreamingServer)
 from svt_speechbrain_tpu_torch.tasks.amt import AudioAMT
+from svt_speechbrain_tpu_torch.models import convert_hf, quantize
+from svt_speechbrain_tpu_torch.ops import quant
+from svt_speechbrain_tpu_torch.pretrained.interfaces import SingingTranscriber
+from svt_speechbrain_tpu_torch.utils import transcription_eval
 model = build_flagship(tiny=True, device="cpu")
 with torch.no_grad():
     outs = model(torch.zeros(1, 8000))
 assert outs[2].shape == (1, 24, 5), outs[2].shape
+iface = SingingTranscriber(
+    modules={"wav2vec2": model.bridge, "model": model.head},
+    hparams={"frame_rate": 49.8, "onset_threshold": 0.4,
+             "offset_threshold": 0.5},
+    batch_size=2, chunk_seconds=0.5, quantize="int8", device="cpu")
+session = iface.serve(batch_size=2).open()
+notes = session.feed(torch.zeros(12000).numpy()) + session.flush()
+assert all(len(ev) == 3 for ev in notes)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "svt_speechbrain_tpu" or m.startswith("svt_speechbrain_tpu."))

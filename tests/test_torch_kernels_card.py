@@ -19,6 +19,7 @@ from svt_speechbrain_tpu_torch.models.wav2vec2 import (ConvFeatureExtractor,
                                                        Wav2Vec2Config)
 from svt_speechbrain_tpu_torch.ops import conv_frontend as cf
 from svt_speechbrain_tpu_torch.ops import flash_attention as fa
+from svt_speechbrain_tpu_torch.ops import quant
 
 pytestmark = pytest.mark.cuda
 
@@ -230,3 +231,129 @@ def test_tiny_transcriber_card_matches_cpu(cuda_device):
         np.testing.assert_allclose(got[:, :2], want[:, :2], atol=1e-4)
         np.testing.assert_array_equal(got[:, 2:], want[:, 2:])
     assert out["cuda"][1] == out["cpu"][1]
+
+
+def int8_case(m, k, n, dtype, device, seed=0):
+    """x (M, K) with the rows that pin the quantizer: all zeros (scale from
+    the 1e-8 floor), the amax in the last column, and exact .5 ties after
+    the division (multiples of amax/254, amax 127); w8 and w_scale from a
+    quantized normal matrix."""
+    rng = np.random.default_rng(seed + m + k + n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    x[0] = (rng.integers(-254, 255, size=k) / 2.0)
+    x[0, 0] = 127.0
+    if m > 1:
+        x[1] = 0.0
+    if m > 2:
+        x[2, -1] = 9.0
+    w8, ws = quant.quantize_weight(
+        torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)))
+    return (torch.from_numpy(x).to(device, dtype), w8.to(device),
+            ws.to(device))
+
+
+def assert_int8_kernel_matches_plain(x, w8, ws):
+    """The kernel's integers and scales bit for bit, and its output within
+    one rounding of the output dtype (the products are exact integers and
+    the f32 epilogue has the plain version's order, so f32 is held to 1e-6
+    relative: a fused multiply's last bit)."""
+    out, x8, xs = quant.int8_matmul_quantized(x, w8, ws,
+                                              quant.pack_weight(w8))
+    torch.cuda.synchronize()
+    want_x8, want_xs = quant.quantize_activation(x)
+    assert torch.equal(x8, want_x8)
+    assert torch.equal(xs, want_xs)
+    want = quant.int8_matmul_plain(x, w8, ws)
+    assert out.dtype == x.dtype and out.shape == want.shape
+    rtol = 1e-6 if x.dtype == torch.float32 else 2.0 ** -8
+    err = (out.float() - want.float()).abs()
+    assert (err <= rtol * want.float().abs()).all(), err.max().item()
+    return err.max().item()
+
+
+INT8_SHAPES = [  # (M, K, N): the serving shapes, then the edges
+    (1992, 512, 1024), (1992, 1024, 4096), (1992, 4096, 1024),
+    (1499, 1024, 1024), (249, 1024, 4096), (249, 4096, 1024),
+    (1, 128, 128), (33, 128, 128), (64, 2944, 256), (65, 3072, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_matmul_kernel_matches_plain(cuda_device, dtype, m, k, n):
+    x, w8, ws = int8_case(m, k, n, dtype, cuda_device)
+    before = quant.int8_matmul.launches
+    assert_int8_kernel_matches_plain(x, w8, ws)
+    assert quant.int8_matmul.launches == before + 1
+    # leading axes, a bf16 w_scale (a bf16 transcriber's), no packed copy
+    if m % 3 == 0:
+        ws16 = ws.bfloat16()
+        got = quant.int8_matmul(x.reshape(3, m // 3, k), w8, ws16)
+        torch.cuda.synchronize()
+        want = quant.int8_matmul_plain(x, w8, ws16).reshape(3, m // 3, n)
+        assert torch.allclose(got.float(), want.float(), atol=0,
+                              rtol=1e-6 if dtype == torch.float32 else 2.0 ** -8)
+
+
+def test_int8_matmul_kernel_refuses_what_it_does_not_take(cuda_device):
+    x, w8, ws = int8_case(8, 128, 128, torch.float32, cuda_device)
+    before = quant.int8_matmul.launches
+    for bad_k, bad_n in ((96, 128), (128, 192)):
+        bx, bw8, bws = int8_case(8, bad_k, bad_n, torch.float32, cuda_device)
+        with pytest.raises(ValueError, match="multiples of 128"):
+            quant.int8_matmul(bx, bw8, bws)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant.int8_matmul(x.t().contiguous().t(), w8, ws)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        quant.int8_matmul(x.half(), w8, ws)
+    with pytest.raises(ValueError, match="int8"):
+        quant.int8_matmul(x, w8.int(), ws)
+    with pytest.raises(ValueError, match="inference only"):
+        quant.int8_matmul(x.clone().requires_grad_(), w8, ws)
+    with pytest.raises(ValueError, match="one device"):
+        quant.int8_matmul(x, w8.cpu(), ws)
+    wx, ww8, wws = int8_case(8, 128, 256, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="pack_weight"):
+        quant.int8_matmul(wx, ww8, wws, ww8)      # (K, N), not packed
+    assert quant.int8_matmul.launches == before
+    assert quant.int8_matmul(x[:0], w8, ws).shape == (0, 128)
+    assert quant.int8_matmul.launches == before   # nothing to launch
+
+
+def test_tiny_int8_transcriber_card_matches_cpu(cuda_device):
+    """A 128-aligned small arch end to end in f32 with int8 FFNs, attention
+    projections and feature projection: the card (kernel 5) against the CPU
+    (the plain version). An activation that sits on a rounding boundary may
+    take the other integer on the other device (the float inputs of the
+    quantizer differ by summation order), so the probabilities are held to
+    a quantization step, not to f32 rounding."""
+    from svt_speechbrain_tpu_torch.models.quantize import quantize_wav2vec2
+
+    arch = dict(hidden_size=128, num_layers=2, num_heads=2, ffn_size=256,
+                conv_dim=(128,) * 7, num_conv_pos_embeddings=16,
+                num_conv_pos_embedding_groups=4)
+    from svt_speechbrain_tpu_torch.models.wav2vec2 import HuggingFaceWav2Vec2
+    from svt_speechbrain_tpu_torch.nnet.linear import Linear
+
+    bridge = HuggingFaceWav2Vec2(arch_overrides=arch)
+    head = Linear(20, 128)
+    load_jax_params(init_params(bridge.config,
+                                torch.Generator().manual_seed(5)),
+                    bridge, head)
+    qbridge = quantize_wav2vec2(bridge, quantize_attn=True)
+    rng = np.random.default_rng(6)
+    songs = {"a": rng.normal(size=40000).astype(np.float32),
+             "b": (rng.normal(size=19000) * 3000).astype(np.int16)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tr = BatchedAMTTranscriber(qbridge, head, chunk_seconds=1.0,
+                                   batch_size=2, compute_dtype=torch.float32,
+                                   device=dev)
+        before = quant.int8_matmul.launches
+        out[dev] = tr.predict_frames(songs)
+        # 3 batches of (1 feat_proj + 2 layers x 6) launches on the card
+        assert quant.int8_matmul.launches - before == (39 if dev == "cuda"
+                                                       else 0)
+    for name in songs:
+        got, want = out["cuda"][name], out["cpu"][name]
+        assert np.median(np.abs(got[:, :2] - want[:, :2])) < 1e-5
+        assert np.abs(got[:, :2] - want[:, :2]).max() < 2e-2
