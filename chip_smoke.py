@@ -34,11 +34,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    offline exact decode at batch 8, and a dedicated
    ``StreamingAMTTranscriber`` per song against the offline exact decode at
    batch 1 (exact equality within one batch width; server against dedicated
-   stream is reported); and one song at ``chunking="song"`` with int8.
+   stream is reported); and one song at ``chunking="song"`` with int8;
+10. RNN-T training: wav2vec2-large-lv60 at full width and depth as the
+   transcription network, ``Embedding(1000, 128)`` → ``GRU(1024)`` as the
+   prediction network, a sum joint with ``leaky_relu``, a 1000-way output
+   and ``TransducerLoss(fused=True)``, through ``Brain.fit_batch``: batch 8
+   of 15 s rows (T = 749 frames), U = 80 labels, ragged lengths with one
+   empty target, f32, dropouts 0.1; a warm-up and 3 timed steps, 2 launches
+   of the lattice kernel and 1 of the gradient kernel a step, a loss that
+   falls, peak memory, the device time by segment (CUDA events at the
+   segment boundaries of the forward and, through gradient hooks, of the
+   backward) and by kernel (torch.profiler);
+11. RNN-T decoding with ``TransducerBeamSearcher``, the GRU cell and the
+   joint on the card: greedy on the batch of 8, beam 4 on one 5 s row; and
+   greedy of a 2-layer f32 model on the card against the CPU;
+12. one f32 RNN-T training step of the 2-layer lv60-width model (batch 2 of
+   5 s rows, U = 20) on the card against the CPU: the loss, the gradient
+   w.r.t. the logits and every parameter's clipped gradient.
 
-Phase 2 also holds the int8 kernel's integers bit for bit against the plain
-quantizer; phase 5 also times it beside ``torch._int_mm`` with an eager
-quantize pass and beside the bf16 ``torch.matmul`` of the same shape.
+Phases run in the order 1-5, 8, 9, 6, 7, 10, 11, 12.
+
+Phases 2 and 5 also hold and time the two RNN-T kernels (the lattice on
+alpha and on beta panels, the gradient) against their plain versions at the
+training shape (8, 749, 81, 1000) and at (4, 64, 17, 32), and time autograd
+through the plain ``transducer_loss`` beside them. Phase 2 also holds the
+int8 kernel's integers bit for bit against the plain quantizer; phase 5
+also times it beside ``torch._int_mm`` with an eager quantize pass and
+beside the bf16 ``torch.matmul`` of the same shape.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line and the result line
@@ -59,17 +81,26 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from svt_speechbrain_tpu_torch import ops  # noqa: E402
-from svt_speechbrain_tpu_torch.core import Stage  # noqa: E402
+from svt_speechbrain_tpu_torch.core import Brain, Stage  # noqa: E402
 from svt_speechbrain_tpu_torch.dataio.batch import PaddedData  # noqa: E402
 from svt_speechbrain_tpu_torch.flagship import (HEAD_OUTPUTS,  # noqa: E402
                                                 build_modules)
 from svt_speechbrain_tpu_torch.convert_jax import (  # noqa: E402
-    init_params, load_jax_params)
+    init_embedding, init_linear, init_params, init_rnn, init_wav2vec2,
+    load_jax_params, load_module_tree)
+from svt_speechbrain_tpu_torch.decoders import (  # noqa: E402
+    TransducerBeamSearcher)
 from svt_speechbrain_tpu_torch.models.wav2vec2 import (  # noqa: E402
     HuggingFaceWav2Vec2, Wav2Vec2Config)
 from svt_speechbrain_tpu_torch.nnet import losses  # noqa: E402
 from svt_speechbrain_tpu_torch.nnet.activations import Softmax  # noqa: E402
+from svt_speechbrain_tpu_torch.nnet.embedding import Embedding  # noqa: E402
 from svt_speechbrain_tpu_torch.nnet.linear import Linear  # noqa: E402
+from svt_speechbrain_tpu_torch.nnet.loss.transducer_loss import (  # noqa: E402
+    TransducerLoss, transducer_loss)
+from svt_speechbrain_tpu_torch.nnet.rnn import GRU, GRUCell  # noqa: E402
+from svt_speechbrain_tpu_torch.nnet.transducer_joint import (  # noqa: E402
+    Transducer_joint)
 from svt_speechbrain_tpu_torch.tasks.amt import AudioAMT  # noqa: E402
 from svt_speechbrain_tpu_torch.inference import (  # noqa: E402
     BatchedAMTTranscriber)
@@ -79,6 +110,7 @@ from svt_speechbrain_tpu_torch.ops import _build  # noqa: E402
 from svt_speechbrain_tpu_torch.ops import conv_frontend as cf  # noqa: E402
 from svt_speechbrain_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from svt_speechbrain_tpu_torch.ops import quant  # noqa: E402
+from svt_speechbrain_tpu_torch.ops import transducer_lattice as tl  # noqa: E402
 from svt_speechbrain_tpu_torch.pretrained.interfaces import (  # noqa: E402
     SingingTranscriber)
 
@@ -164,7 +196,9 @@ SOURCES = {"conv_frontend": _CSRC + "conv_frontend.cu",
            "flash_attention_lse": _CSRC + "flash_attention.cu",
            "flash_attention_bwd_dq": _CSRC + "flash_attention_bwd.cu",
            "flash_attention_bwd_dkv": _CSRC + "flash_attention_bwd.cu",
-           "int8_matmul": _CSRC + "quant_matmul.cu"}
+           "int8_matmul": _CSRC + "quant_matmul.cu",
+           "rnnt_lattice": _CSRC + "transducer_lattice.cu",
+           "rnnt_grad": _CSRC + "transducer_lattice.cu"}
 _FA = "svt_speechbrain_tpu/ops/flash_attention.py:"
 REPLACES = {"conv_frontend": "svt_speechbrain_tpu/ops/conv_frontend.py:172",
             "flash_attention_short": _FA + "635",
@@ -172,9 +206,47 @@ REPLACES = {"conv_frontend": "svt_speechbrain_tpu/ops/conv_frontend.py:172",
             "flash_attention_lse": _FA + "437",
             "flash_attention_bwd_dq": _FA + "502",
             "flash_attention_bwd_dkv": _FA + "514",
-            "int8_matmul": "svt_speechbrain_tpu/ops/quant.py:121"}
+            "int8_matmul": "svt_speechbrain_tpu/ops/quant.py:121",
+            "rnnt_lattice": "svt_speechbrain_tpu/ops/transducer_lattice.py:67",
+            "rnnt_grad": "svt_speechbrain_tpu/ops/transducer_lattice.py:276"}
 TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
+# the RNN-T configuration: the widths of SpeechBrain's LibriSpeech transducer
+# recipe (joint and decoder 1024, embedding 128, 1000 units, beam 4) on the
+# lv60 transcription network; rows of 15 s, relative input lengths, target
+# lengths out of 80 (one empty target)
+RNNT = dict(vocab=1000, emb=128, joint=1024, labels=80, seconds=15.0,
+            beam=4)
+RNNT_BLANK = 0
+RNNT_T_REL = [1.0, 0.95, 0.9, 0.8, 0.7, 0.6, 0.5, 0.33]
+RNNT_U_LENS = [80, 76, 71, 64, 55, 47, 40, 0]
+# (B, T, U, V, relative input lengths, target lengths): the training shape
+# and the shape of the JAX package's own chip smoke
+RNNT_CASES = ((8, 749, 80, 1000, RNNT_T_REL, RNNT_U_LENS),
+              (4, 64, 16, 32, [1.0, 48 / 64, 1.0, 32 / 64], [16, 8, 12, 16]))
+# the RNN-T kernels against their plain versions, f32. The lattices: both
+# sides run the same recurrence, T + U dependent f32 logaddexp steps, with
+# the card's expf/log1pf in the kernel and PyTorch's in the plain version;
+# the values reach several thousand (about -7 a step at V = 1000), where an
+# f32 ulp is 4.9e-4, so they are held to atol + rtol * |value| on each row's
+# valid region, the row losses to rtol alone. The gradient: posteriors are at
+# most 1 and each output is a few f32 operations on them, so atol alone;
+# exactly 0 outside the valid region. Against autograd through the plain
+# ``transducer_loss`` at the small shape: another algorithm (a closed-form
+# row solve that subtracts running sums of log-probabilities), 1.7e-5 from
+# the plain version on a CPU at row weights up to 1.5.
+RNNT_TOL = {"lattice_atol": 1e-5, "lattice_rtol": 4e-6, "loss_rtol": 1e-5,
+            "grad_atol": 1e-6, "oracle_grad_atol": 1e-4}
+# one f32 RNN-T training step of 2 lv60-width layers, card against CPU
+# (phase 12), as TOL_STEP, plus the gradient w.r.t. the logits relative to its
+# size. The transition posteriors are exp(alpha + log p + beta - log Z) of
+# lattice values of about 1.7e3, where an f32 ulp is 1.2e-4, and the two
+# devices' logits differ by summation order, so d_logits and every gradient
+# behind it agree to about 1e-4 and no better. Measured on an H100: loss 0,
+# gradient norm 2.696e-05, d_logits 8.395e-05, worst parameter 8.219e-05 (the
+# GRU's input weights); each tolerance is about 6x its reading.
+TOL_RNNT_STEP = {"loss_rel": 1e-4, "gnorm_rel": 2e-4, "grad_rel": 5e-4,
+                 "d_logits_rel": 5e-4}
 SHORT_LENGTHS = [249, 0, 1, 100, 249, 200, 17, 248]     # B = 8 rows
 LONG_LENGTHS = [1499, 700, 0]                          # B = 3 rows
 DROPOUT_SEED = 1234567
@@ -410,6 +482,10 @@ def _kernel_group(name):
         return "attention backward kernels"
     if "int8_matmul" in low:
         return "int8 matmul kernel"
+    if "rnnt_lattice" in low:
+        return "RNN-T lattice kernel (6a)"
+    if "rnnt_grad" in low:
+        return "RNN-T gradient kernel (6b)"
     if any(w in low for w in ("conv", "cudnn", "implicit_gemm", "dgrad",
                               "wgrad")):
         return "conv (cuDNN)"
@@ -586,6 +662,7 @@ def timings(bridge, gen):
     for tag, dtype in DTYPES.items():
         rows.update(training_timings(tag, dtype, gen))
     rows.update(int8_timings(gen))
+    rows.update(rnnt_timings(gen))
     # context: the largest piece of the batch that is not a ported kernel
     pos_conv = copy.deepcopy(bridge.encoder.pos_conv).to("cuda",
                                                          torch.bfloat16)
@@ -826,6 +903,26 @@ def training_phase(rng):
                               peak_gb=peak_gb, idle=idle)
 
 
+def leaf_errors(got, want, parts):
+    """|card - CPU| / |CPU| per parameter, for each ``parts`` entry (error
+    name → key of the per-parameter dicts in ``got``/``want``); a leaf whose
+    CPU gradient is under ZERO_GRAD_SHARE of the gradient norm is exempt.
+    Returns ({error name: {parameter: error}}, [exempt parameters])."""
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in want["grads"].values()]))
+    errs = {key: {} for key in parts}
+    exempt = []
+    for name, g in want["grads"].items():
+        if torch.linalg.vector_norm(g) <= ZERO_GRAD_SHARE * norm:
+            exempt.append(name)
+            continue
+        for key, part in parts.items():
+            ref = want[part][name]
+            errs[key][name] = (torch.linalg.vector_norm(got[part][name] - ref)
+                               / torch.linalg.vector_norm(ref)).item()
+    return errs, exempt
+
+
 def card_vs_cpu_step(rng):
     """Phase 7: one f32 full-finetune step of 2 lv60-width layers with the
     full frontend, batch 2 x 30 s, attention dropout 0.1 (the hash mask is
@@ -857,18 +954,8 @@ def card_vs_cpu_step(rng):
                   {name: 2 for name in TRAIN_KERNELS}, "card step")
 
     got, want = result["cuda"], result["cpu"]
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g) for g in want["grads"].values()]))
-    errs = {"grad_rel": {}, "update_rel": {}}
-    exempt = []
-    for name, g in want["grads"].items():
-        if torch.linalg.vector_norm(g) <= ZERO_GRAD_SHARE * norm:
-            exempt.append(name)
-            continue
-        for key, part in (("grad_rel", "grads"), ("update_rel", "updates")):
-            ref = want[part][name]
-            errs[key][name] = (torch.linalg.vector_norm(got[part][name] - ref)
-                               / torch.linalg.vector_norm(ref)).item()
+    errs, exempt = leaf_errors(got, want, {"grad_rel": "grads",
+                                           "update_rel": "updates"})
     worst = {key: max(e, key=e.get) for key, e in errs.items()}
     loss_rel = abs(got["loss"] / want["loss"] - 1)
     gnorm_rel = abs(got["gnorm"] / want["gnorm"] - 1)
@@ -1134,6 +1221,555 @@ def int8_streaming_phase(faces, head, songs, rng):
                              "streaming attention kernels")
 
 
+# ------------------------------------------------------------ RNN-T kernels
+def rnnt_case(gen, b, t, u, v, t_rel, u_lens):
+    """Normal logits on the card, labels in 1..V-1, int32 lengths, and the
+    alpha and beta panels made from them as the loss makes them."""
+    logits = torch.randn(b, t, u + 1, v, generator=gen, device="cuda")
+    targets = torch.randint(1, v, (b, u), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    t_len = torch.round(torch.tensor(t_rel, device="cuda") * t).int()
+    u_len = torch.tensor(u_lens, device="cuda", dtype=torch.int32)
+    lse = torch.logsumexp(logits, -1)
+    skip, emit_pad = tl._gather_skip_emit(logits, lse, targets, RNNT_BLANK)
+    seed = torch.full_like(skip, tl.NEG_INF)
+    seed[:, 0, 0] = 0.0
+    beta_panels = tl._masked_panels(logits, lse, targets, t_len, u_len,
+                                    RNNT_BLANK)
+    return dict(logits=logits, targets=targets, t_len=t_len, u_len=u_len,
+                lse=lse, alpha_panels=(skip, emit_pad, seed),
+                beta_panels=beta_panels,
+                t_rel=torch.tensor(t_rel, device="cuda"),
+                u_rel=u_len.float() / max(u, 1))
+
+
+def rnnt_valid(case, extra_row=0):
+    """(B, T + extra_row, U1) bool: each row's valid region, t < T(b) and
+    u <= U(b)."""
+    _, t, u1, _ = case["logits"].shape
+    t_grid = torch.arange(t + extra_row, device="cuda")[None, :, None]
+    u_grid = torch.arange(u1, device="cuda")[None, None, :]
+    return ((t_grid < case["t_len"][:, None, None])
+            & (u_grid <= case["u_len"][:, None, None]))
+
+
+def rnnt_grad_args(case, alpha, beta, g):
+    final = tl._masks(case["t_len"], case["u_len"], alpha.shape[1],
+                      alpha.shape[2])[2]
+    log_z = torch.where(final, alpha + case["alpha_panels"][0],
+                        torch.zeros_like(alpha)).sum((1, 2))
+    return (case["logits"], case["lse"], case["targets"], alpha, beta, log_z,
+            case["t_len"], case["u_len"], g, RNNT_BLANK, False)
+
+
+def check_rnnt(gen, errs):
+    """6a on alpha panels (whole grid) and on the masked beta panels (each
+    row's valid region) against ``lattice_plain``; 6b against
+    ``rnnt_grad_plain`` on the kernel's lattices; the fused loss through the
+    kernels against the plain path (``lattice="scan"``), and at the small
+    shape against autograd through the plain ``transducer_loss``."""
+    for b, t, u, v, t_rel, u_lens in RNNT_CASES:
+        case = rnnt_case(gen, b, t, u, v, t_rel, u_lens)
+        shape = tuple(case["logits"].shape)
+        lattices, worst = {}, 0.0
+        for name, panels, reverse, live in (
+                ("alpha", case["alpha_panels"], False, None),
+                ("beta", case["beta_panels"], True, rnnt_valid(case, 1))):
+            # beta's grid has one more row, T(b), whose only live cell is
+            # the seed: rnnt_valid(case, 1) marks rows below T(b) only
+            got = tl.rnnt_lattice(*panels, reverse=reverse)
+            torch.cuda.synchronize()
+            want = tl.lattice_plain(*panels, reverse=reverse)
+            err, size = (got - want).abs(), want.abs()
+            if live is not None:
+                err, size = err[live], size[live]
+            ok = (torch.isfinite(got).all().item()
+                  and (err <= RNNT_TOL["lattice_atol"]
+                       + RNNT_TOL["lattice_rtol"] * size).all().item())
+            log(f"  rnnt_lattice {name} {shape[:3]}: max_abs_err="
+                f"{err.max().item():.3e} at values up to "
+                f"{size.max().item():.1f} (atol "
+                f"{RNNT_TOL['lattice_atol']:.0e} + rtol "
+                f"{RNNT_TOL['lattice_rtol']:.0e}) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"rnnt_lattice {name} disagrees with "
+                                     f"its plain version")
+            lattices[name] = got
+            worst = max(worst, err.max().item())
+        g = torch.linspace(0.5, 1.5, b, device="cuda")
+        args = rnnt_grad_args(case, lattices["alpha"], lattices["beta"], g)
+        got = tl.rnnt_grad(*args)
+        torch.cuda.synchronize()
+        want = tl.rnnt_grad_plain(*args)
+        err = (got - want).abs().max().item()
+        dead_zero = (got[~rnnt_valid(case)] == 0).all().item()
+        ok = (err <= RNNT_TOL["grad_atol"] and dead_zero
+              and got.abs().max().item() > 0)
+        log(f"  rnnt_grad {shape}: max_abs_err={err:.3e} tol="
+            f"{RNNT_TOL['grad_atol']:.0e} gradient peak "
+            f"{want.abs().max().item():.3f} zero outside the valid region="
+            f"{dead_zero} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("rnnt_grad disagrees with its plain version")
+        if (b, t) == RNNT_CASES[0][:2]:
+            errs[("rnnt_lattice", "f32")] = worst
+            errs[("rnnt_grad", "f32")] = err
+        del got, want, args, lattices
+
+        routes = [("kernel", tl.transducer_loss_fused, "kernel"),
+                  ("plain", tl.transducer_loss_fused, "scan")]
+        if t < 100:
+            routes.append(("autograd", transducer_loss, None))
+        out = {}
+        for key, fn, lattice in routes:
+            leaf = case["logits"].clone().requires_grad_()
+            kwargs = {} if lattice is None else {"lattice": lattice}
+            nll = fn(leaf, case["targets"], case["t_rel"], case["u_rel"],
+                     RNNT_BLANK, reduction="none", **kwargs)
+            (nll * g).sum().backward()
+            out[key] = (nll.detach(), leaf.grad)
+            del leaf
+        for key, grad_atol in (("plain", RNNT_TOL["grad_atol"]),
+                               ("autograd", RNNT_TOL["oracle_grad_atol"])):
+            if key not in out:
+                continue
+            loss_err = ((out["kernel"][0] - out[key][0]).abs()
+                        / out[key][0].abs()).max().item()
+            grad_err = (out["kernel"][1] - out[key][1]).abs().max().item()
+            ok = loss_err <= RNNT_TOL["loss_rtol"] and grad_err <= grad_atol
+            log(f"  fused loss {shape}, kernels against {key}: row losses "
+                f"{[round(x, 3) for x in out['kernel'][0].tolist()]}, loss "
+                f"rel err={loss_err:.3e} (tol {RNNT_TOL['loss_rtol']:.0e}), "
+                f"d_logits max_abs_err={grad_err:.3e} (tol {grad_atol:.0e}) "
+                f"-> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the fused loss through the kernels "
+                                     f"disagrees with the {key} path")
+        del out, case
+        torch.cuda.empty_cache()
+
+
+def rnnt_timings(gen):
+    """6a (alpha; beta beside it) and 6b at the training shape, beside their
+    plain versions, the whole fused loss forward + backward through the
+    kernels, and autograd through the plain ``transducer_loss``, which is
+    what a user would run without the kernels. Bounds, from this batch's
+    lengths: 6a moves its four f32 panels once; 6b reads the logits (and
+    4 floats of lattice state) of the cells with a nonzero posterior and
+    writes every cell. No PyTorch call computes either function."""
+    b, t, u, v, t_rel, u_lens = RNNT_CASES[0]
+    case = rnnt_case(gen, b, t, u, v, t_rel, u_lens)
+    cells = b * t * (u + 1)
+    alpha = tl.rnnt_lattice(*case["alpha_panels"])
+    beta = tl.rnnt_lattice(*case["beta_panels"], reverse=True)
+    g = torch.ones(b, device="cuda")
+    args = rnnt_grad_args(case, alpha, beta, g)
+    live = int((tl.rnnt_grad(*args).abs().amax(-1) > 0).sum())
+    rows = {}
+    b_ms, b_by = bound(0, 4 * 4 * cells, PEAK_F32)
+    beta_ms = time_ms(lambda: tl.rnnt_lattice(*case["beta_panels"],
+                                              reverse=True), iters=10,
+                      warmup=2)
+    rows["rnnt_lattice"] = dict(
+        ms=time_ms(lambda: tl.rnnt_lattice(*case["alpha_panels"]), iters=10,
+                   warmup=2),
+        plain_ms=time_ms(lambda: tl.lattice_plain(*case["alpha_panels"]),
+                         iters=2, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"alpha panels ({b}, {t}, {u + 1}) f32, {t + u} dependent "
+              f"steps (beta: {beta_ms:.4f} ms, {t + u + 1} steps)")
+    # per live cell: V logits, lse, alpha and two betas read; per cell: V
+    # gradients written
+    b_ms, b_by = bound(6 * live * v, 4 * (live * (v + 4) + cells * v),
+                       PEAK_F32)
+    rows["rnnt_grad"] = dict(
+        ms=time_ms(lambda: tl.rnnt_grad(*args), iters=10, warmup=2),
+        plain_ms=time_ms(lambda: tl.rnnt_grad_plain(*args), iters=3,
+                         warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"logits ({b}, {t}, {u + 1}, {v}) f32, {live} of {cells} "
+              f"cells live")
+    del alpha, beta, args
+
+    def loss_step(fn, **kwargs):
+        leaf = case["logits"].detach().requires_grad_()
+        fn(leaf, case["targets"], case["t_rel"], case["u_rel"], RNNT_BLANK,
+           **kwargs).backward()
+
+    fused_ms = time_ms(lambda: loss_step(tl.transducer_loss_fused), iters=5,
+                       warmup=1)
+    plain_ms = time_ms(lambda: loss_step(tl.transducer_loss_fused,
+                                         lattice="scan"), iters=2, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss_step(tl.transducer_loss_fused)
+    fused_gb = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    auto_ms = time_ms(lambda: loss_step(transducer_loss), iters=2, warmup=1)
+    auto_gb = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    log(f"  the loss forward + backward at ({b}, {t}, {u + 1}, {v}) f32: "
+        f"through the kernels {fused_ms:.3f} ms (peak {fused_gb:.2f} GiB "
+        f"above the logits), through the plain versions {plain_ms:.3f} ms, "
+        f"autograd through the plain transducer_loss {auto_ms:.3f} ms "
+        f"(peak {auto_gb:.2f} GiB)")
+    del case
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------ phases 10-12
+class TransducerBrain(Brain):
+    """The RNN-T assembly: wav2vec2 → ``enc_lin``; blank-prefixed labels →
+    ``emb`` → ``dec`` (GRU) → ``dec_lin``; sum joint with leaky_relu →
+    ``out``; ``TransducerLoss(fused=True)``. Adam on ``wav2vec2``, Adadelta
+    on the rest, as ``AudioAMT``. With ``self.marks`` a list, CUDA events
+    are recorded at the segment boundaries of the forward and, through
+    gradient hooks, of the backward, and ``d_logits_seen`` gets the shape
+    of the gradient that reached the logits and whether it was finite; with
+    ``keep_logits`` the step's logits stay in ``last_logits`` with their
+    gradient."""
+
+    HEADS = ("enc_lin", "emb", "dec", "dec_lin", "out")
+    marks = None
+    d_logits_seen = None
+    keep_logits = False
+    last_logits = None
+
+    def mark(self, label):
+        if self.marks is not None:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            self.marks.append((label, event))
+
+    def _mark_grad(self, tensor, label):
+        if self.marks is not None and tensor.requires_grad:
+            tensor.register_hook(lambda grad: self.mark(label))
+
+    def _see_d_logits(self, grad):
+        self.d_logits_seen = (tuple(grad.shape), torch.isfinite(grad).all())
+
+    def compute_forward(self, batch, stage, rng=None):
+        m = self.modules
+        wavs, wav_lens = batch["sig"]
+        tokens, token_lens = batch["tokens"]
+        self.mark("start")
+        feats = m.wav2vec2(wavs, rng=rng, train=True,
+                           row_mask=batch.get("valid_rows"))
+        self._mark_grad(feats, "joint, output and prediction network "
+                               "backward")
+        self.mark("encoder forward")
+        tn = m.enc_lin(feats)
+        bos = torch.cat([tokens.new_full((tokens.shape[0], 1), RNNT_BLANK),
+                         tokens], dim=1)
+        pn, _ = m.dec(m.emb(bos), rng=rng, train=True)
+        pn = m.dec_lin(pn)
+        self.mark("prediction network and enc_lin forward")
+        logits = m.out(self.hparams.joint(tn[:, :, None], pn[:, None]))
+        self._mark_grad(logits, "loss backward (gather, 6a beta, 6b)")
+        if self.marks is not None and logits.requires_grad:
+            logits.register_hook(self._see_d_logits)    # after the mark
+        self.mark("joint and output forward")
+        if self.keep_logits:
+            logits.retain_grad()
+            self.last_logits = logits
+        return logits, wav_lens, token_lens
+
+    def compute_objectives(self, predictions, batch, stage):
+        logits, wav_lens, token_lens = predictions
+        loss = self.hparams.loss(logits, batch["tokens"].data, wav_lens,
+                                 token_lens)
+        self.mark("loss forward (logsumexp, gather, 6a alpha)")
+        return loss
+
+    def init_optimizers(self):
+        self.add_optimizer("wav2vec", torch.optim.Adam, ["wav2vec2"],
+                           lr=self.hparams.lr_wav2vec)
+        self.add_optimizer(
+            "model", functools.partial(torch.optim.Adadelta, rho=0.95,
+                                       eps=1e-8),
+            list(self.HEADS), lr=self.hparams.lr)
+
+
+def rnnt_tree(config, gen):
+    h, j, v = config.hidden_size, RNNT["joint"], RNNT["vocab"]
+    return {"wav2vec2": init_wav2vec2(config, gen),
+            "enc_lin": init_linear(gen, h, j),
+            "emb": init_embedding(gen, v, RNNT["emb"]),
+            "dec": init_rnn(gen, 3, RNNT["emb"], j),
+            "dec_lin": init_linear(gen, j, j), "out": init_linear(gen, j, v)}
+
+
+def rnnt_modules(tree, arch, cell=False):
+    bridge = HuggingFaceWav2Vec2(source="facebook/wav2vec2-large-lv60",
+                                 output_norm=True, arch_overrides=arch)
+    h, j, v = bridge.config.hidden_size, RNNT["joint"], RNNT["vocab"]
+    dec = GRUCell if cell else GRU
+    modules = {"wav2vec2": bridge, "enc_lin": Linear(j, h),
+               "emb": Embedding(v, RNNT["emb"], blank_id=RNNT_BLANK),
+               "dec": dec(j, input_size=RNNT["emb"]),
+               "dec_lin": Linear(j, j), "out": Linear(v, j)}
+    for name, module in modules.items():
+        load_module_tree(module, tree[name])
+    return modules
+
+
+def rnnt_brain(tree, arch, device):
+    hp = amt_hparams()
+    brain = TransducerBrain(
+        rnnt_modules(tree, arch),
+        hparams=dict(seed=hp["seed"], lr=hp["lr"], lr_wav2vec=hp["lr_wav2vec"],
+                     joint=Transducer_joint(joint="sum",
+                                            nonlinearity="leaky_relu"),
+                     loss=TransducerLoss(blank_index=RNNT_BLANK, fused=True)),
+        run_opts={"device": device})
+    brain.init_optimizers()
+    return brain
+
+
+def rnnt_batch(rng, batch, seconds, labels, t_rel, u_lens):
+    wav = (0.1 * rng.standard_normal((batch, int(seconds * SR)))
+           ).astype(np.float32)
+    tokens = rng.integers(1, RNNT["vocab"], (batch, labels))
+    return {"sig": PaddedData(torch.from_numpy(wav).pin_memory(),
+                              np.asarray(t_rel, np.float32)),
+            "tokens": PaddedData(torch.from_numpy(tokens),
+                                 np.asarray(u_lens, np.float32) / labels)}
+
+
+def bias_the_blank(tree, arch):
+    """Random weights give 1000 near-equal logits, among which the blank
+    almost never reaches the top 4, and then the beam search's expansion
+    loop does not end. Raise the output bias of the blank to the 0.998
+    quantile of the joint's logits over one 5 s row (two labels in a
+    thousand above the blank on average), so that greedy emits on some
+    frames and every beam step finds the blank."""
+    m = torch.nn.ModuleDict(rnnt_modules(tree, arch)).cuda().eval()
+    gen = torch.Generator().manual_seed(SEED + 2)
+    wav = 0.1 * torch.randn(1, 5 * SR, generator=gen)
+    with torch.inference_mode():
+        tn = m["enc_lin"](m["wav2vec2"](wav.cuda()))
+        bos = torch.full((1, 1), RNNT_BLANK, device="cuda")
+        pn = m["dec_lin"](m["dec"](m["emb"](bos))[0])
+        logits = m["out"](torch.nn.functional.leaky_relu(
+            tn[:, :, None] + pn[:, None]))
+    shift = (torch.quantile(logits.flatten().float(), 0.998)
+             - logits[..., RNNT_BLANK].mean()).item()
+    tree["out"]["b"][RNNT_BLANK] += shift
+    log(f"  output bias of the blank raised by {shift:.4f} (the 0.998 "
+        f"quantile of the untrained joint's logits, std "
+        f"{logits.std().item():.4f})")
+    del m
+    torch.cuda.empty_cache()
+
+
+def segment_times(brain, batch):
+    """One more step with CUDA events at the segment boundaries; returns
+    [(segment, ms)] in the order the device ran them. The device is busy
+    throughout a step, so the time between two events is the segment's."""
+    brain.marks = []
+    torch.cuda.synchronize()
+    brain.fit_batch(batch)
+    brain.mark("encoder backward, gradient clip, optimizers")
+    torch.cuda.synchronize()
+    marks, brain.marks = brain.marks, None
+    return [(label, before.elapsed_time(event))
+            for (_, before), (label, event) in zip(marks, marks[1:])]
+
+
+def rnnt_training_phase(rng):
+    """Phase 10; returns (launch counts of a step, the seeded tree the
+    training started from, summary)."""
+    arch = {}                                   # lv60, all dropouts 0.1
+    tree = rnnt_tree(Wav2Vec2Config(**arch),
+                     torch.Generator().manual_seed(SEED + 3))
+    bias_the_blank(tree, arch)
+    brain = rnnt_brain(tree, arch, "cuda")
+    n_batch = len(RNNT_T_REL)
+    batch = rnnt_batch(rng, n_batch, RNNT["seconds"], RNNT["labels"],
+                       RNNT_T_REL, RNNT_U_LENS)
+    frames = brain.modules.wav2vec2.config.output_length(
+        int(RNNT["seconds"] * SR))
+    log(f"  batch {n_batch} x {RNNT['seconds']:.0f} s (T = {frames} frames, "
+        f"relative lengths {RNNT_T_REL}), U = {RNNT['labels']} labels of "
+        f"{RNNT['vocab']} (lengths {RNNT_U_LENS}); logits ({n_batch}, "
+        f"{frames}, {RNNT['labels'] + 1}, {RNNT['vocab']}) f32; "
+        f"{brain.modules.wav2vec2.config.num_layers} layers, dropouts 0.1")
+    torch.cuda.reset_peak_memory_stats()
+    steps = train_steps(brain, batch, 4)        # the first is the warm-up
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, (loss, gnorm, wall, counts) in enumerate(steps):
+        log(f"  step {i} {'(warm-up)' if i == 0 else ''}: loss={loss:.4f} "
+            f"gnorm={gnorm:.4f} {wall * 1e3:.1f} ms launches={counts}")
+        expect_counts(counts, {"rnnt_lattice": 2, "rnnt_grad": 1},
+                      "RNN-T training step")
+    losses_seen = [s[0] for s in steps]
+    if not losses_seen[-1] < losses_seen[0]:
+        raise AssertionError(f"the loss did not fall over the repeated "
+                             f"batch: {losses_seen}")
+    step_s = float(np.median([w for _, _, w, _ in steps[1:]]))
+    audio_s = sum(RNNT_T_REL) * RNNT["seconds"]
+    log(f"  median step {step_s * 1e3:.1f} ms: {audio_s / step_s:.1f} s of "
+        f"audio trained per second; peak memory {peak_gb:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    segments = segment_times(brain, batch)
+    shape, finite = brain.d_logits_seen
+    if not finite.item() or shape != (n_batch, frames, RNNT["labels"] + 1,
+                                      RNNT["vocab"]):
+        raise AssertionError("no finite gradient of the expected shape "
+                             "reached the logits")
+    total = sum(ms for _, ms in segments)
+    log("  where the device time goes, by segment (CUDA events, one step):")
+    for label, ms in segments:
+        log(f"    {ms:9.3f} ms ({100 * ms / total:5.1f}%) {label}")
+    log("  and by kernel (torch.profiler, one step):")
+    idle = profile_run(lambda: brain.fit_batch(batch))
+    del brain
+    torch.cuda.empty_cache()
+    return steps[-1][3], tree, dict(
+        step_ms=step_s * 1e3, audio_rate=audio_s / step_s, peak_gb=peak_gb,
+        idle=idle, loss_first=losses_seen[0], loss_last=losses_seen[-1],
+        segments={label: ms for label, ms in segments})
+
+
+def rnnt_searcher(modules, beam):
+    """``TransducerBeamSearcher`` over the prediction network (``emb`` →
+    GRU cell → ``dec_lin``) and the joint (sum, leaky_relu → ``out``)."""
+    joint = Transducer_joint(joint="sum", nonlinearity="leaky_relu")
+
+    def decode_fn(tokens, state):
+        out, state = modules["dec"](modules["emb"](tokens), state)
+        return modules["dec_lin"](out), state
+
+    def joint_fn(enc_frame, dec_out):
+        return modules["out"](joint(enc_frame, dec_out))
+
+    return TransducerBeamSearcher(decode_fn, joint_fn, RNNT_BLANK,
+                                  beam_size=beam, state_beam=2.3,
+                                  expand_beam=2.3)
+
+
+def decoding_modules(tree, arch, device):
+    """The assembly for decoding: eval mode, the GRU as a cell."""
+    return torch.nn.ModuleDict(rnnt_modules(tree, arch, cell=True)).to(
+        device).eval()
+
+
+def rnnt_decoding_phase(tree, rng):
+    """Phase 11, on the seeded weights phase 10 started from: a few steps on
+    one repeated batch already teach the model to emit the blank everywhere,
+    and then there is nothing to search."""
+    modules = decoding_modules(tree, {}, "cuda")
+    n_batch = len(RNNT_T_REL)
+    wav = torch.from_numpy((0.1 * rng.standard_normal(
+        (n_batch, int(RNNT["seconds"] * SR)))).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        tn = modules["enc_lin"](modules["wav2vec2"](wav))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hyps, score, _, _ = rnnt_searcher(modules, 1)(tn)
+        greedy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        best, beam_score, nbest, nbest_scores = rnnt_searcher(
+            modules, RNNT["beam"])(tn[:1, :249])
+        beam_s = time.perf_counter() - t0
+    log(f"  greedy, batch {n_batch} x {tn.shape[1]} frames: "
+        f"{greedy_s * 1e3:.1f} ms wall, hypothesis lengths "
+        f"{[len(h) for h in hyps]}, exp-mean score {score:.3e}")
+    log(f"  beam {RNNT['beam']}, one row of 249 frames: {beam_s * 1e3:.1f} "
+        f"ms wall, best hypothesis of {len(best[0])} labels, "
+        f"{len(nbest[0])} hypotheses of lengths "
+        f"{[len(h) for h in nbest[0]]}, normalized scores "
+        f"{[round(float(x), 4) for x in nbest_scores[0]]}")
+    if not all(0 <= tok < RNNT["vocab"] and tok != RNNT_BLANK
+               for h in hyps + nbest[0] for tok in h) \
+            or not np.isfinite(beam_score) or len(nbest[0]) == 0 \
+            or not any(hyps):
+        raise AssertionError("decoding gave no hypothesis, or labels outside "
+                             "1..V-1")
+    del modules
+    torch.cuda.empty_cache()
+
+    arch = dict(num_layers=2)
+    tree = rnnt_tree(Wav2Vec2Config(**arch),
+                     torch.Generator().manual_seed(SEED + 4))
+    bias_the_blank(tree, arch)
+    wav = torch.from_numpy((0.1 * rng.standard_normal((2, 5 * SR)))
+                           .astype(np.float32))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        modules = decoding_modules(tree, arch, dev)
+        with torch.inference_mode():
+            tn = modules["enc_lin"](modules["wav2vec2"](wav.to(dev)))
+            got[dev] = rnnt_searcher(modules, 1)(tn)[:2]
+        del modules
+    same = got["cuda"][0] == got["cpu"][0]
+    log(f"  greedy, 2 layers, f32, 2 x 5 s: card hypotheses of lengths "
+        f"{[len(h) for h in got['cuda'][0]]} equal to the CPU's: {same}; "
+        f"scores {got['cuda'][1]:.6e} / {got['cpu'][1]:.6e}")
+    if not same or not any(got["cuda"][0]):
+        raise AssertionError("greedy decoding on the card differs from the "
+                             "CPU")
+    torch.cuda.empty_cache()
+    return dict(greedy_ms=greedy_s * 1e3, beam_ms=beam_s * 1e3)
+
+
+def rnnt_card_vs_cpu_step(rng):
+    """Phase 12: 2 lv60-width layers, all dropouts 0, batch 2 x 5 s, U = 20
+    (lengths 20 and 11, input lengths 1 and 0.8), one f32 step."""
+    arch = dict(num_layers=2, hidden_dropout=0.0, activation_dropout=0.0,
+                feat_proj_dropout=0.0, attention_dropout=0.0)
+    tree = rnnt_tree(Wav2Vec2Config(**arch),
+                     torch.Generator().manual_seed(SEED + 5))
+    batch = rnnt_batch(rng, 2, 5.0, 20, [1.0, 0.8], [20, 11])
+    result = {}
+    for dev in ("cuda", "cpu"):
+        brain = rnnt_brain(tree, arch, dev)
+        brain.keep_logits = True
+        params = dict(brain.modules.named_parameters())
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = brain.fit_batch(batch)
+        wall = time.perf_counter() - t0
+        result[dev] = dict(
+            loss=loss, gnorm=brain.last_grad_norm, counts=ops.launch_counts(),
+            d_logits=brain.last_logits.grad.cpu(),
+            grads={n: p.grad.cpu() for n, p in params.items()})
+        log(f"  {dev}: loss={loss:.6f} gnorm={brain.last_grad_norm:.6f} "
+            f"{wall:.1f} s launches={result[dev]['counts']}")
+        del brain, params
+    counts = result["cuda"]["counts"]
+    if (counts["rnnt_lattice"], counts["rnnt_grad"]) != (2, 1) \
+            or any(result["cpu"]["counts"].values()):
+        raise AssertionError("the card step must launch 6a twice and 6b "
+                             "once, the CPU step nothing")
+    got, want = result["cuda"], result["cpu"]
+    errs, exempt = leaf_errors(got, want, {"grad_rel": "grads"})
+    worst = max(errs["grad_rel"], key=errs["grad_rel"].get)
+    loss_rel = abs(got["loss"] / want["loss"] - 1)
+    gnorm_rel = abs(got["gnorm"] / want["gnorm"] - 1)
+    d_rel = (torch.linalg.vector_norm(got["d_logits"] - want["d_logits"])
+             / torch.linalg.vector_norm(want["d_logits"])).item()
+    tol = TOL_RNNT_STEP
+    ok = (loss_rel <= tol["loss_rel"] and gnorm_rel <= tol["gnorm_rel"]
+          and d_rel <= tol["d_logits_rel"]
+          and errs["grad_rel"][worst] <= tol["grad_rel"]
+          and all(name.endswith("attn.bk") for name in exempt))
+    log(f"  card vs CPU: loss rel err={loss_rel:.3e} (tol "
+        f"{tol['loss_rel']:.0e}), gnorm rel err={gnorm_rel:.3e} (tol "
+        f"{tol['gnorm_rel']:.0e}), d_logits rel err={d_rel:.3e} (tol "
+        f"{tol['d_logits_rel']:.0e}); per parameter, worst of "
+        f"{len(errs['grad_rel'])}: gradient rel err "
+        f"{errs['grad_rel'][worst]:.3e} ({worst}, tol "
+        f"{tol['grad_rel']:.0e}); exempt (zero gradient) {exempt} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    top = sorted(errs["grad_rel"].items(), key=lambda kv: -kv[1])[:5]
+    log("    largest grad_rel: " + ", ".join(f"{n} {v:.3e}" for n, v in top))
+    if not ok:
+        raise AssertionError("the RNN-T training step on the card disagrees "
+                             "with the CPU")
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1168,6 +1804,7 @@ def main():
                     (3, 16, 1499, 64), LONG_LENGTHS, gen, errs)
     check_training_kernels(gen, errs)
     check_int8(gen, errs)
+    check_rnnt(gen, errs)
     extractor.cpu()
     torch.cuda.empty_cache()
 
@@ -1213,7 +1850,7 @@ def main():
     del tr
 
     log("phase 5: timings at main-path shapes (serving kernels in bf16, "
-        "training kernels in f32 and bf16)")
+        "training kernels in f32 and bf16, RNN-T kernels in f32)")
     rows = timings(bridge, gen)
 
     log("phase 8: int8 (a8w8) lv60 serving, 5 s chunks, batch 8, bf16, in "
@@ -1235,6 +1872,20 @@ def main():
     log("phase 7: one f32 training step, 2 lv60-width layers, card vs CPU")
     card_vs_cpu_step(rng)
 
+    log("phase 10: RNN-T training, lv60 full width and depth, 15 s rows, "
+        "U = 80, V = 1000")
+    rnnt_counts, rnnt_start, rnnt_summary = rnnt_training_phase(rng)
+    log(f"  RNN-T training summary: {json.dumps(rnnt_summary)}")
+
+    log("phase 11: RNN-T decoding, greedy and beam 4, on the card")
+    decode_summary = rnnt_decoding_phase(rnnt_start, rng)
+    log(f"  RNN-T decoding summary: {json.dumps(decode_summary)}")
+    del rnnt_start
+
+    log("phase 12: one f32 RNN-T training step, 2 lv60-width layers, card vs "
+        "CPU")
+    rnnt_card_vs_cpu_step(rng)
+
     kernels = []
     for key, r in rows.items():
         if not isinstance(key, tuple) and key not in SOURCES:
@@ -1245,9 +1896,12 @@ def main():
                 continue
             launches = train_counts[name]
         else:
-            name, tag = key, "bf16"
+            name = key
+            tag = "f32" if name.startswith("rnnt_") else "bf16"
             launches = {"flash_attention": song_counts,
-                        "int8_matmul": int8_counts}.get(
+                        "int8_matmul": int8_counts,
+                        "rnnt_lattice": rnnt_counts,
+                        "rnnt_grad": rnnt_counts}.get(
                             name, chunked_counts)[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -19,6 +19,12 @@ place of a float matrix, the module that owns the matrix is turned into its
 int8 form first; int8 leaves stay int8, so both packages run the same
 integers. ``export_jax_params`` gives such a tree back.
 
+The transducer parts load through ``load_module_tree`` too: an ``RNN``/
+``LSTM``/``GRU`` (or cell) tree ``l{k}``/``l{k}_rev`` with ``w_ih`` (in,
+g·H), ``w_hh`` (H, g·H), ``b_ih``, ``b_hh`` fills ``layers.{k}``'s torch
+parameters (weights transposed); an ``Embedding``'s ``table`` and a
+``Transducer_joint``'s ``joint_network`` keep their names.
+
 ``init_params`` draws a tree of the same shapes and distributions as the
 JAX ``init``s from a ``torch.Generator`` (JAX's PRNG gives other numbers;
 the machine with the card has no JAX).
@@ -32,6 +38,11 @@ import numpy as np
 import torch
 
 from svt_speechbrain_tpu_torch.nnet.cnn import jax_to_torch_conv_weight
+
+
+_RNN_LEAF = re.compile(r"(?:^|/)l(\d+)(_rev)?/([wb])_(ih|hh)$")
+_RNN_PARAM = re.compile(
+    r"(?:^|/)layers/(\d+)/(weight|bias)_(ih|hh)_l0(_reverse)?$")
 
 
 def _flatten(tree, prefix=""):
@@ -61,6 +72,14 @@ def _convert(path, value):
         t = jax_to_torch_conv_weight(t)
     elif name.endswith("pos_conv/g"):
         t = t.reshape(1, 1, -1)                # (k, 1, 1) → (1, 1, k)
+    rnn = _RNN_LEAF.search(name)
+    if rnn:                       # l0_rev/w_ih → layers/0/weight_ih_l0_reverse
+        layer, rev, kind, part = rnn.groups()
+        name = (f"{name[:rnn.start(1) - 1]}layers/{layer}/"
+                f"{'weight' if kind == 'w' else 'bias'}_{part}_l0"
+                f"{'_reverse' if rev else ''}")
+        if kind == "w":
+            t = t.t()                          # (in, g·H) → (g·H, in)
     return name.replace("/", "."), t.contiguous()
 
 
@@ -106,6 +125,34 @@ def init_linear(gen, n_in, n_out):
     bias."""
     return {"w": _kaiming(gen, (n_in, n_out), n_in),
             "b": _bias(gen, (n_out,), n_in)}
+
+
+def init_embedding(gen, num_embeddings, embedding_dim):
+    """Seeded ``Embedding`` tree {"table"}: unit normal."""
+    return {"table": torch.randn(num_embeddings, embedding_dim, generator=gen,
+                                 dtype=torch.float32).numpy()}
+
+
+def init_rnn(gen, gates, input_size, hidden_size, num_layers=1,
+             bidirectional=False, bias=True):
+    """Seeded tree of an ``RNN`` (``gates`` 1), ``GRU`` (3) or ``LSTM`` (4)
+    or of their cells: ``l{k}``/``l{k}_rev`` with ``w_ih`` (in, g·H),
+    ``w_hh`` (H, g·H), ``b_ih``, ``b_hh``, all uniform in
+    ±1/sqrt(hidden_size)."""
+    bound = 1.0 / math.sqrt(hidden_size)
+    n_dir = 2 if bidirectional else 1
+    tree = {}
+    for layer in range(num_layers):
+        n_in = input_size if layer == 0 else hidden_size * n_dir
+        for suffix in ("", "_rev")[:n_dir]:
+            p = {"w_ih": _uniform(gen, (n_in, gates * hidden_size), bound),
+                 "w_hh": _uniform(gen, (hidden_size, gates * hidden_size),
+                                  bound)}
+            if bias:
+                p["b_ih"] = _uniform(gen, (gates * hidden_size,), bound)
+                p["b_hh"] = _uniform(gen, (gates * hidden_size,), bound)
+            tree[f"l{layer}{suffix}"] = p
+    return tree
 
 
 def init_wav2vec2(config, generator):
@@ -169,6 +216,13 @@ def _unconvert(name, tensor):
         t = t.permute(2, 1, 0)
     elif path.endswith("pos_conv/g"):
         t = t.reshape(-1, 1, 1)                # (1, 1, k) → (k, 1, 1)
+    rnn = _RNN_PARAM.search(path)
+    if rnn:
+        layer, kind, part, rev = rnn.groups()
+        path = (f"{path[:rnn.start(1) - len('layers/')]}l{layer}"
+                f"{'_rev' if rev else ''}/{kind[0]}_{part}")
+        if kind == "weight":
+            t = t.t()
     return path, t.contiguous().numpy()
 
 

@@ -13,6 +13,7 @@ def kernel_wrappers():
     from svt_speechbrain_tpu_torch.ops.conv_frontend import fused_conv_frontend
     from svt_speechbrain_tpu_torch.ops import flash_attention as fa
     from svt_speechbrain_tpu_torch.ops.quant import int8_matmul
+    from svt_speechbrain_tpu_torch.ops import transducer_lattice as tl
 
     return {"conv_frontend": fused_conv_frontend,
             "flash_attention_short": fa.flash_attention_short,
@@ -20,7 +21,9 @@ def kernel_wrappers():
             "flash_attention_lse": fa.flash_attention_fwd_lse,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-            "int8_matmul": int8_matmul}
+            "int8_matmul": int8_matmul,
+            "rnnt_lattice": tl.rnnt_lattice,
+            "rnnt_grad": tl.rnnt_grad}
 
 
 def launch_counts():

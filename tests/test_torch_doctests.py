@@ -9,6 +9,7 @@ import pytest
 MODULES = [
     "svt_speechbrain_tpu_torch",
     "svt_speechbrain_tpu_torch.core",
+    "svt_speechbrain_tpu_torch.decoders.transducer",
     "svt_speechbrain_tpu_torch.convert_jax",
     "svt_speechbrain_tpu_torch.flagship",
     "svt_speechbrain_tpu_torch.inference",
@@ -19,12 +20,17 @@ MODULES = [
     "svt_speechbrain_tpu_torch.nnet.attention",
     "svt_speechbrain_tpu_torch.nnet.cnn",
     "svt_speechbrain_tpu_torch.nnet.dropout",
+    "svt_speechbrain_tpu_torch.nnet.embedding",
     "svt_speechbrain_tpu_torch.nnet.linear",
+    "svt_speechbrain_tpu_torch.nnet.loss.transducer_loss",
     "svt_speechbrain_tpu_torch.nnet.losses",
     "svt_speechbrain_tpu_torch.nnet.normalization",
+    "svt_speechbrain_tpu_torch.nnet.rnn",
+    "svt_speechbrain_tpu_torch.nnet.transducer_joint",
     "svt_speechbrain_tpu_torch.ops.conv_frontend",
     "svt_speechbrain_tpu_torch.ops.flash_attention",
     "svt_speechbrain_tpu_torch.ops.quant",
+    "svt_speechbrain_tpu_torch.ops.transducer_lattice",
     "svt_speechbrain_tpu_torch.pretrained.interfaces",
     "svt_speechbrain_tpu_torch.utils.amt",
     "svt_speechbrain_tpu_torch.utils.transcription_eval",

@@ -23,6 +23,10 @@ from svt_speechbrain_tpu_torch.models import convert_hf, quantize
 from svt_speechbrain_tpu_torch.ops import quant
 from svt_speechbrain_tpu_torch.pretrained.interfaces import SingingTranscriber
 from svt_speechbrain_tpu_torch.utils import transcription_eval
+from svt_speechbrain_tpu_torch.decoders import TransducerBeamSearcher
+from svt_speechbrain_tpu_torch.nnet import embedding, rnn, transducer_joint
+from svt_speechbrain_tpu_torch.nnet.loss.transducer_loss import TransducerLoss
+from svt_speechbrain_tpu_torch.ops import transducer_lattice
 model = build_flagship(tiny=True, device="cpu")
 with torch.no_grad():
     outs = model(torch.zeros(1, 8000))
@@ -35,6 +39,11 @@ iface = SingingTranscriber(
 session = iface.serve(batch_size=2).open()
 notes = session.feed(torch.zeros(12000).numpy()) + session.flush()
 assert all(len(ev) == 3 for ev in notes)
+logits = torch.zeros(1, 3, 2, 4, requires_grad=True)
+TransducerLoss(blank_index=0, fused=True)(
+    logits, torch.ones(1, 1, dtype=torch.long), torch.ones(1),
+    torch.ones(1)).backward()
+assert logits.grad.abs().sum() > 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "svt_speechbrain_tpu" or m.startswith("svt_speechbrain_tpu."))

@@ -20,6 +20,7 @@ from svt_speechbrain_tpu_torch.models.wav2vec2 import (ConvFeatureExtractor,
 from svt_speechbrain_tpu_torch.ops import conv_frontend as cf
 from svt_speechbrain_tpu_torch.ops import flash_attention as fa
 from svt_speechbrain_tpu_torch.ops import quant
+from svt_speechbrain_tpu_torch.ops import transducer_lattice as tl
 
 pytestmark = pytest.mark.cuda
 
@@ -357,3 +358,159 @@ def test_tiny_int8_transcriber_card_matches_cpu(cuda_device):
         got, want = out["cuda"][name], out["cpu"][name]
         assert np.median(np.abs(got[:, :2] - want[:, :2])) < 1e-5
         assert np.abs(got[:, :2] - want[:, :2]).max() < 2e-2
+
+
+# ------------------------------------------------- kernels 6a and 6b (RNN-T)
+def _rnnt_problem(device, b, t, u, v, seed, blank_target=False):
+    """Logits, targets and ragged relative lengths (the last row with an
+    empty target where the batch has more than one row)."""
+    rng = np.random.default_rng(seed)
+    logits = torch.from_numpy(rng.normal(size=(b, t, u + 1, v))
+                              .astype(np.float32)).to(device)
+    targets = torch.from_numpy(rng.integers(0 if blank_target else 1, v,
+                                            size=(b, u))).to(device)
+    t_rel = torch.linspace(1.0, 0.4, b)
+    u_rel = torch.linspace(1.0, 0.0, b) if b > 1 else torch.ones(1)
+    return logits, targets, t_rel.to(device), u_rel.to(device)
+
+
+def _rnnt_panels(logits, targets, t_rel, u_rel):
+    _, t, u1, _ = logits.shape
+    t_len = torch.round(t_rel * t).int()
+    u_len = torch.round(u_rel * (u1 - 1)).int()
+    lse = torch.logsumexp(logits, -1)
+    skip, emit_pad = tl._gather_skip_emit(logits, lse, targets.int(), 0)
+    skip_m, emit_m, seed_tu = tl._masked_panels(logits, lse, targets.int(),
+                                                t_len, u_len, 0)
+    seed = torch.full_like(skip, tl.NEG_INF)
+    seed[:, 0, 0] = 0.0
+    return lse, t_len, u_len, (skip, emit_pad, seed), (skip_m, emit_m,
+                                                      seed_tu)
+
+
+def _valid(t_len, u_len, rows, u1, extra_row=0):
+    """Cells of each row's valid region, (B, rows, u1) bool: t < T(b) (+ the
+    beta grid's extra row) and u <= U(b)."""
+    t_grid = torch.arange(rows, device=t_len.device)[None, :, None]
+    u_grid = torch.arange(u1, device=t_len.device)[None, None, :]
+    return ((t_grid < (t_len + extra_row)[:, None, None])
+            & (u_grid <= u_len[:, None, None]))
+
+
+# f32 logaddexp chains of up to T + U steps in two orders of evaluation
+# (expf/log1pf of the card's libm against PyTorch's): the lattice values
+# reach |x| of several thousand at T 749, where one f32 ulp is 4.9e-4, so
+# the lattices are held relative to their size
+RNNT_SHAPES = [(3, 12, 5, 7), (2, 1, 4, 6), (2, 9, 0, 5), (2, 40, 32, 12),
+               (2, 749, 80, 16), (1, 6, 1499, 8)]
+
+
+@pytest.mark.parametrize("b,t,u,v", RNNT_SHAPES)
+def test_rnnt_lattice_kernel_matches_plain(cuda_device, b, t, u, v):
+    """6a on alpha panels (forward) and on the masked beta panels
+    (reverse), U1 of 1, 5, 33, 81 and 1500, T of 1 and 749, ragged
+    lengths: equal to ``lattice_plain`` on each row's valid region."""
+    logits, targets, t_rel, u_rel = _rnnt_problem(cuda_device, b, t, u, v, 11)
+    _, t_len, u_len, fwd, rev = _rnnt_panels(logits, targets, t_rel, u_rel)
+    for panels, reverse in ((fwd, False), (rev, True)):
+        before = tl.rnnt_lattice.launches
+        got = tl.rnnt_lattice(*panels, reverse=reverse)
+        torch.cuda.synchronize()
+        assert tl.rnnt_lattice.launches == before + 1
+        want = tl.lattice_plain(*panels, reverse=reverse)
+        live = _valid(t_len, u_len, got.shape[1], u + 1, int(reverse))
+        assert torch.isfinite(got).all()
+        err = (got - want).abs()[live]
+        assert (err <= 1e-5 + 2e-6 * want.abs()[live]).all(), err.max()
+
+
+@pytest.mark.parametrize("from_log_probs", [False, True])
+@pytest.mark.parametrize("b,t,u,v", RNNT_SHAPES[:4] + [(2, 60, 20, 1000),
+                                                      (2, 30, 9, 37)])
+def test_rnnt_grad_kernel_matches_plain(cuda_device, b, t, u, v,
+                                        from_log_probs):
+    """6b against ``rnnt_grad_plain`` on the same lattices (V a multiple of
+    4 and not, a target equal to the blank): atol 1e-6 (posteriors are at
+    most 1; expf differs in the last bit), exact zeros outside the valid
+    region."""
+    logits, targets, t_rel, u_rel = _rnnt_problem(cuda_device, b, t, u, v, 12,
+                                                  blank_target=True)
+    if from_log_probs:
+        logits = torch.log_softmax(logits, -1)
+    lse, t_len, u_len, fwd, rev = _rnnt_panels(logits, targets, t_rel, u_rel)
+    if from_log_probs:
+        lse = torch.zeros_like(lse)
+    alpha = tl.lattice_plain(*fwd)
+    beta = tl.lattice_plain(*rev, reverse=True)
+    final = tl._masks(t_len, u_len, t, u + 1)[2]
+    log_z = torch.where(final, alpha + fwd[0], 0.0).sum((1, 2))
+    g = torch.linspace(0.5, 1.5, b, device=cuda_device)
+    args = (logits, lse, targets.int(), alpha, beta, log_z, t_len, u_len, g,
+            0, from_log_probs)
+    before = tl.rnnt_grad.launches
+    got = tl.rnnt_grad(*args)
+    torch.cuda.synchronize()
+    assert tl.rnnt_grad.launches == before + 1
+    want = tl.rnnt_grad_plain(*args)
+    assert (got - want).abs().max().item() <= 1e-6
+    dead = ~_valid(t_len, u_len, t, u + 1)
+    assert (got[dead] == 0).all()
+    assert got.abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rnnt_loss_gradients_on_card_match_cpu(cuda_device, dtype):
+    """``transducer_loss_fused`` through the autograd Function on the card
+    (2 launches of 6a, 1 of 6b) against the same call on the CPU (the plain
+    versions) and against autograd through the plain ``transducer_loss``;
+    a bf16 input gets a bf16 gradient."""
+    from svt_speechbrain_tpu_torch.nnet.loss.transducer_loss import (
+        transducer_loss)
+
+    logits, targets, t_rel, u_rel = _rnnt_problem("cpu", 4, 50, 12, 40, 13,
+                                                  blank_target=True)
+    logits = logits.to(dtype)
+    out = {}
+    for dev, fn in (("cuda", tl.transducer_loss_pallas),
+                    ("cpu", tl.transducer_loss_fused),
+                    ("oracle", transducer_loss)):
+        where = "cpu" if dev == "oracle" else dev
+        leaf = logits.to(where, copy=True).requires_grad_()
+        ops.reset_launch_counts()
+        nll = fn(leaf, targets.to(where), t_rel.to(where), u_rel.to(where), 0,
+                 reduction="none")
+        (nll * torch.arange(1, 5, device=where)).sum().backward()
+        counts = ops.launch_counts()
+        assert (counts["rnnt_lattice"], counts["rnnt_grad"]) == (
+            (2, 1) if dev == "cuda" else (0, 0))
+        assert leaf.grad.dtype == dtype
+        out[dev] = (nll.detach().cpu(), leaf.grad.float().cpu())
+    # the posteriors are exp of sums of lattice values of about 200, whose
+    # f32 ulp is 1.5e-5, and the card's expf/log1pf differ from the CPU's in
+    # the last bit; with row weights up to 4 the gradients agree to a few
+    # 1e-5. bf16 adds one rounding (an ulp is at most 2^-7 of the value).
+    # Autograd through the closed-form scan is held in f32 only (it takes
+    # its log-softmax in the input's type); it is 5.1e-5 from the plain
+    # version on the CPU
+    for other in ("cpu", "oracle"):
+        if other == "oracle" and dtype != torch.float32:
+            continue
+        torch.testing.assert_close(out["cuda"][0], out[other][0], rtol=1e-5,
+                                   atol=1e-5)
+        torch.testing.assert_close(
+            out["cuda"][1], out[other][1], atol=2e-4,
+            rtol=0 if dtype == torch.float32 else 2.0 ** -7)
+
+
+def test_rnnt_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    a = torch.zeros(2, 4, 3, device=cuda_device)
+    with pytest.raises(ValueError):
+        tl.rnnt_lattice(a.double(), a.double(), a.double())
+    with pytest.raises(ValueError):
+        tl.rnnt_lattice(a, a, a.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):
+        tl.rnnt_lattice(a, a, a, reverse=True)          # seed needs T + 1
+    with pytest.raises(ValueError):
+        tl.transducer_loss_fused(torch.zeros(1, 2, 2, 3, device=cuda_device),
+                                 torch.ones(1, 1), [1.0], [1.0], 0,
+                                 lattice="cudnn")
