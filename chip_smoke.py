@@ -5,7 +5,9 @@
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. build the CUDA kernels from ``svt_speechbrain_tpu_torch/csrc`` with nvcc;
+1. build the CUDA kernels from ``svt_speechbrain_tpu_torch/csrc`` with nvcc,
+   and hold every instantiation of the backward kernels 4a and 4b to no
+   spills and at least 8 resident warps an SM;
 2. hold each kernel against its plain PyTorch version at main-path shapes,
    in bf16 and in f32 (TF32 off);
 3. serve wav2vec2-large-lv60 AMT (24 layers, 1024 wide, 16 heads, seeded
@@ -14,7 +16,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    2-chunk batch in f32 against the same port on the CPU;
 4. one song at ``chunking="song"`` (a 30 s window, the streaming kernel);
 5. time each kernel, its plain version and its library yardstick at the
-   main-path shapes, beside its bound;
+   main-path shapes, beside its bound (by route: 4a and 4b in f32 run three
+   TF32 tensor-core products per product);
 6. train ``AudioAMT`` on lv60 at full width and depth with the recipe's
    hyperparameters (f32, all dropouts 0.1), batch 8 of 30 s rows: one
    linear-probe step, a warm-up and 3 timed full-finetune steps, counting
@@ -117,9 +120,12 @@ from svt_speechbrain_tpu_torch.pretrained.interfaces import (  # noqa: E402
 SEED = 0
 SR = 16000
 # H100 SXM published peaks (dense): bf16 tensor-core FLOP/s, f32 FLOP/s
-# outside the tensor cores, HBM bytes/s
+# outside the tensor cores, TF32 tensor-core FLOP/s, HBM bytes/s
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
+# the f32 backward kernels (4a, 4b) run each product as three TF32 products
+TF32_PRODUCTS = 3
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 # kernel vs plain tolerances (max abs error), with their reasons:
@@ -304,6 +310,29 @@ def songs_for(rng, seconds, int16_index=None):
     return songs
 
 
+def check_backward_build(report):
+    """Kernels 4a and 4b: no instantiation spills (ptxas, where the source
+    was built now, and the local memory the runtime reports) and each keeps
+    at least 8 warps resident per SM; prints registers and shared memory."""
+    if "flash_attention_bwd" in report:
+        spills = [line.strip() for line in
+                  report["flash_attention_bwd"][1].splitlines()
+                  if "spill" in line]
+        bad = [line for line in spills
+               if "0 bytes spill stores, 0 bytes spill loads" not in line]
+        if not spills or bad:
+            raise AssertionError(f"flash_attention_bwd spills: {bad}")
+    for r in fa.backward_kernel_attributes():
+        warps = r["blocks_per_sm"] * 4
+        log(f"  backward {r['kernel']} {r['dtype']} D={r['d']} dropout="
+            f"{r['dropout']}: {r['registers']} registers, "
+            f"{r['local_bytes']} bytes local, {r['smem_bytes']} bytes shared "
+            f"a block, {r['blocks_per_sm']} blocks ({warps} warps) an SM")
+        if r["local_bytes"] != 0 or warps < 8:
+            raise AssertionError(f"backward kernel spills or runs under 8 "
+                                 f"warps an SM: {r}")
+
+
 # ---------------------------------------------------------------- phase 2
 def attention_inputs(shape, lengths, dtype, gen):
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -358,8 +387,9 @@ def check_training_kernels(gen, errs):
     """3b (forward + L + dropout), 4a (dQ) and 4b (dK, dV) against their
     plain versions, rate 0.1, at the 30 s training shape without lengths
     and with lengths [1499, 700, 0]. The gradients are held to their error
-    over the plain version's peak magnitude; ``errs`` keeps each kernel's
-    largest max abs error per dtype."""
+    over the plain version's peak magnitude; rows of length 0 and keys past
+    the length must give exact zeros; ``errs`` keeps each kernel's largest
+    max abs error per dtype."""
     for shape, lengths in (((8, 16, 1499, 64), None),
                            ((3, 16, 1499, 64), LONG_LENGTHS)):
         for tag, dtype in DTYPES.items():
@@ -392,6 +422,12 @@ def check_training_kernels(gen, errs):
             zero_rows = (lens is None or all(
                 (t[lens.cpu() == 0] == 0).all().item()
                 for t in (out, dq, dk, dv)))
+            if lens is not None:    # keys past the length: exact zeros
+                past = (torch.arange(shape[2], device="cuda")[None, :]
+                        >= lens[:, None])
+                zero_rows = zero_rows and all(
+                    (t.transpose(1, 2)[past] == 0).all().item()
+                    for t in (dk, dv))
             ok = (finite and zero_rows
                   and torch.equal(lse > fa.NEG_INF / 2, live)
                   and e_abs["flash_attention_lse"]
@@ -402,7 +438,7 @@ def check_training_kernels(gen, errs):
                 f"{TRAIN_RATE}: out max_abs_err="
                 f"{e_abs['flash_attention_lse']:.3e} L max_abs_err="
                 f"{e_lse:.3e} dQ peak-relative err={e_dq:.3e} dK/dV "
-                f"peak-relative err={e_dkv:.3e} zero_rows_exact={zero_rows} "
+                f"peak-relative err={e_dkv:.3e} zeros_exact={zero_rows} "
                 f"-> {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"training kernels {tag} disagree with "
@@ -758,7 +794,6 @@ def training_timings(tag, dtype, gen):
     lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaves, dout,
                                                   retain_graph=True), iters=10)
     rows = {}
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
     for name, kernel, plain, args, lib in (
             ("flash_attention_lse", fa.flash_attention_fwd_lse,
              fa.attention_lse_reference, fwd, lib_fwd),
@@ -766,8 +801,16 @@ def training_timings(tag, dtype, gen):
              fa.attention_bwd_dq_reference, bwd, lib_bwd),
             ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv,
              fa.attention_bwd_dkv_reference, bwd, lib_bwd)):
-        b_ms, b_by = bound(*training_cost(name, shape, q.element_size()),
-                           peak)
+        flops, nbytes = training_cost(name, shape, q.element_size())
+        if dtype == torch.bfloat16:
+            b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
+        elif name == "flash_attention_lse":
+            b_ms, b_by = bound(flops, nbytes, PEAK_F32)
+        else:                   # by route: three TF32 products per product
+            b_ms, b_by = bound(TF32_PRODUCTS * flops, nbytes, PEAK_TF32)
+            log(f"  {name} f32 bound by route (3 x TF32 at 495 TFLOP/s) "
+                f"{b_ms:.4f} ms; at f32's 67 TFLOP/s outside the tensor "
+                f"cores {bound(flops, nbytes, PEAK_F32)[0]:.4f} ms")
         rows[(name, tag)] = dict(
             ms=time_ms(functools.partial(kernel, *args), iters=10, warmup=2),
             plain_ms=time_ms(functools.partial(plain, *args), iters=2,
@@ -1791,6 +1834,7 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  [{name}] {line.strip()}")
+    check_backward_build(report)
 
     log("phase 2: each kernel against its plain version, bf16 and f32")
     bridge, head = lv60_modules()

@@ -16,85 +16,295 @@
 // f32): dP = (dO V^T) o M, dS = P o (dP - Delta) * scale,
 // dQ = dS K, dK = dS^T Q, dV = (P o M)^T dO.
 //
-// Design: 4 warps per block, each owning 16 rows of the block's 64-row tile
-// (queries for dQ, keys for dK/dV), products on tile_mma.cuh's 16x8x16 tile
-// (mma.sync for bf16 with f32 accumulation, full f32 FMAs for f32). A warp
-// writes its dS (and P o M) rows to its own shared slab, then multiplies
-// the slab by a transposed panel. Each block owns its output rows, so there
-// are no atomics and no second pass. Rows of length 0 run no panel (dQ) or
-// take the zero path (dK/dV): zero gradients, never NaN.
-//
 // Casts follow the TPU kernels: dS is rounded to the input dtype before
-// dS K and dS^T Q (`ds.astype(k.dtype)`); dO V^T is exact in f32 either way
-// (bf16 products are exact in f32); dV's product takes P o M in f32
-// (`p_v.astype(do.dtype)` with dO already f32, `:280`, `:299-301`). For
-// bf16 that f32 operand is split into bf16 hi + lo parts and run as two
-// tensor-core products: 16 of P's 24 mantissa bits, where one bf16 operand
-// would keep 8.
+// dS K and dS^T Q (`ds.astype(k.dtype)`, `:244`, `:304`); dO V^T is exact in
+// f32 either way; dV's product takes P o M in f32 (`:300`): in bf16 it is
+// split into bf16 hi + lo parts and run as two products (16 of P's 24
+// mantissa bits), in f32 it is the TF32 split below.
 //
 // What bounds it on the H100: per row, dQ does 6 and dK/dV 8 T^2 D flops
-// against a few T x D tiles of bytes, so the work is the products and the
-// exps/hashes of each score element; this simple kernel is limited by its
-// shared-memory fragment reads (every mma reloads its fragments), as the
-// forward. wgmma and register-resident P are the later improvements.
+// against a few T x D tiles of bytes, so the products, and the exp and hash
+// of every score element, are the work. The design:
+//   * every product on the tensor cores (tile_mma.cuh): bf16 on
+//     m16n8k16 with ldmatrix (.trans where the operand lies keyed by the
+//     contraction index), f32 as three TF32 m16n8k8 products per product
+//     (big.big + big.small + small.big, the 3xTF32 of CUTLASS's
+//     OpMultiplyAddFastF32, the route PyTorch's memory-efficient SDPA
+//     backward takes in f32);
+//   * P and dS never leave registers: the C fragment of S (dQ) or S^T
+//     (dK/dV), after the elementwise step, is the A fragment of the next
+//     product (bf16: two n8 C tiles pack into one k16 A tile; tf32: the next
+//     product's k index is permuted instead, see tile_mma.cuh);
+//   * no transposed copies: the tf32 B operand is read straight from the
+//     row-major panel, whose rows are padded to D + 4 floats: with a row
+//     stride of 4 (mod 32) banks the A-style reads [g][t] and, with 2 x 68 =
+//     8 (mod 32), the permuted reads [2t][g] hit 32 distinct banks (D = 16:
+//     20 floats, the same residues); bf16 rows are padded to D + 8 so that
+//     ldmatrix's eight 16-byte rows fall in distinct bank groups;
+//   * the streamed panels (K, V for dQ; Q, dO with their L and Delta for
+//     dK/dV) arrive through a ring of shared-memory stages by 16-byte
+//     cp.async (4-byte for L and Delta, whose rows need not be 16-byte
+//     aligned), one barrier a panel: panel i + 1 (and i + 2) is in flight
+//     while panel i is computed. The block's own tile (Q, dO, or K, V) is
+//     copied once;
+//   * accuracy: the tensor cores truncate the f32 sums they form; with
+//     the products of 1,499 keys chained inside them, dQ, dK and dV ended
+//     1.8e-5 of their peak from the plain version (chip_smoke.py phase 2),
+//     and a 2-layer training step broke its card-vs-CPU tolerance. Each k
+//     step of S and dP and each panel's share of dQ, dK and dV is summed in
+//     a fresh fragment and added with f32 adds (round to nearest).
+// Tiles (`Bwd<T>`; chosen on an H100 among panels of 32 and 64 rows, 2 to 4
+// stages and 2 to 4 blocks an SM, for no spills first, then time): 4 warps
+// a block, each owning 16 rows of the block's 64-row tile; panels of 32
+// rows; f32 2 stages, 3 dQ and 2 dK/dV blocks an SM; bf16 3 stages, 4 and
+// 3 blocks. Shared memory a block (dQ / dK/dV): f32 69,632 / 70,144 B at
+// D = 64 and 20,480 / 20,992 at D = 16; bf16 46,080 / 46,848 and 15,360 /
+// 16,128. chip_smoke.py phase 1 prints each instantiation's registers and
+// holds it to no spills and at least 8 resident warps an SM; PERF.md keeps
+// the numbers. Each block owns its output rows: no atomics, no second pass,
+// the same bits on every run. Rows of length 0 run no panel (dQ) or take
+// the zero path (dK/dV): zero gradients, never NaN.
 //
-// Requirements as the forward: D = 16 or 64, unit stride on D, arbitrary
-// (batch, head, time) strides, lengths int32 per batch clamped to Tk, lse
-// and delta f32 (B*H, Tq) contiguous, f32 or bf16.
+// Requirements: D = 16 or 64, unit stride on D, (batch, head, time) strides
+// and base pointers of q, k, v and dO that keep every row 16-byte aligned
+// (the wrapper checks), lengths int32 per batch clamped to Tk, lse and delta
+// f32 (B*H, Tq) contiguous, f32 or bf16.
 #include "flash_common.cuh"
 
 namespace {
 
 using svt::Dropout;
-using svt::kThreads;
-using svt::kTile;
 using svt::Num;
 using svt::Strides;
-using svt::Tile;
+using svt::Tf32x3;
+
+constexpr int kWarps = 4;          // each owns 16 rows of the block's tile
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kWarps * 16;  // the block's own tile
 
 __device__ __forceinline__ int clamp_len(const int* lengths, int b, int tk) {
   const int len = lengths == nullptr ? tk : lengths[b];
   return len < 0 ? 0 : (len > tk ? tk : len);
 }
 
+// The two products of a warp, by dtype. `a` holds the warp's 16 rows and `b`
+// a panel, both row-major in shared memory with row width `ld`.
+//   scores:     c[nt] += A . B^T over D, for the panel's rows nt*8 .. +7;
+//   accumulate: acc[dt] += P . B over NT*8 panel rows, P the C fragments of
+//               `scores` (16 x NT*8), B's columns dt*8 .. +7 of D; kHiLo
+//               keeps P in f32 (bf16: hi + lo parts; f32 always does).
+template <typename T>
+struct Bwd;
+
+template <>
+struct Bwd<float> {
+  static constexpr int kPad = 4;
+  // the tiles of the f32 instantiations (the source note has their cost)
+  static constexpr int kPanel = 32;     // rows of a streamed panel
+  static constexpr int kStages = 2;     // panels in the ring
+  static constexpr int kDqBlocks = 3;   // resident blocks per SM: dQ
+  static constexpr int kDkvBlocks = 2;  // and dK/dV
+
+  template <int D, int NT>
+  static __device__ __forceinline__ void scores(float (&c)[NT][4],
+                                                const float* a, const float* b,
+                                                int ld, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    // one k step at a time: unrolled over D, ptxas loads every step's
+    // fragments up front and spills
+#pragma unroll 1
+    for (int ks = 0; ks < D / 8; ++ks) {
+      const float* a0 = a + g * ld + ks * 8 + t;
+      Tf32x3<4> fa;
+      fa.split(0, a0[0]);
+      fa.split(1, a0[8 * ld]);
+      fa.split(2, a0[4]);
+      fa.split(3, a0[8 * ld + 4]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* b0 = b + (nt * 8 + g) * ld + ks * 8 + t;
+        Tf32x3<2> fb;
+        fb.split(0, b0[0]);
+        fb.split(1, b0[4]);
+        // each k step summed in a fresh fragment, added in f32: a chain
+        // over D inside the tensor cores would bias S toward zero, and P =
+        // exp(S - L) with it
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        svt::mma_tf32x3(part, fa, fb);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[nt][i] += part[i];
+      }
+    }
+  }
+
+  template <int D, int NT, bool kHiLo>
+  static __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
+                                                    const float (&p)[NT][4],
+                                                    const float* b, int ld,
+                                                    int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    // C's (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1) as A's a0, a2,
+    // a1, a3: panel row 2t is k = t, row 2t + 1 is k = t + 4
+    Tf32x3<4> fa[NT];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      fa[nt].split(0, p[nt][0]);
+      fa[nt].split(1, p[nt][2]);
+      fa[nt].split(2, p[nt][1]);
+      fa[nt].split(3, p[nt][3]);
+    }
+    const float* b0 = b + 2 * t * ld + g;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      // this panel's share, summed in the tensor cores (3 NT products), then
+      // added to the running sum in f32 (tile_mma.cuh: truncation)
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        Tf32x3<2> fb;
+        fb.split(0, b0[nt * 8 * ld + dt * 8]);
+        fb.split(1, b0[(nt * 8 + 1) * ld + dt * 8]);
+        svt::mma_tf32x3(part, fa[nt], fb);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[dt][i] += part[i];
+    }
+  }
+};
+
+template <>
+struct Bwd<__nv_bfloat16> {
+  static constexpr int kPad = 8;
+  // the tiles of the bf16 instantiations
+  static constexpr int kPanel = 32;
+  static constexpr int kStages = 3;
+  static constexpr int kDqBlocks = 4;
+  static constexpr int kDkvBlocks = 3;
+  using T = __nv_bfloat16;
+
+  static __device__ __forceinline__ float bf16_round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+
+  template <int D, int NT>
+  static __device__ __forceinline__ void scores(float (&c)[NT][4],
+                                                const T* a, const T* b, int ld,
+                                                int lane) {
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t fa[4];
+      svt::ldmatrix_x4(fa, a + (lane & 15) * ld + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        // rows np*16 + 0..7 then + 8..15, k halves 0..7 and 8..15 of each
+        uint32_t fb[4];
+        svt::ldmatrix_x4(fb, b + (np * 16 + (lane & 7) + (lane >> 4) * 8) * ld +
+                                 ks * 16 + ((lane >> 3) & 1) * 8);
+        svt::mma_bf16(c[2 * np], fa, fb[0], fb[1]);
+        svt::mma_bf16(c[2 * np + 1], fa, fb[2], fb[3]);
+      }
+    }
+  }
+
+  template <int D, int NT, bool kHiLo>
+  static __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
+                                                    const float (&p)[NT][4],
+                                                    const T* b, int ld,
+                                                    int lane) {
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      // C tiles 2kk and 2kk + 1 (k 0..7 and 8..15) as one k16 A tile:
+      // a0, a1 from tile 2kk's rows g and g + 8, a2, a3 from tile 2kk + 1's
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x0 = p[2 * kk + (r >> 1)][2 * (r & 1)];
+        const float x1 = p[2 * kk + (r >> 1)][2 * (r & 1) + 1];
+        hi[r] = svt::pack_bf16(x0, x1);
+        if constexpr (kHiLo)
+          lo[r] = svt::pack_bf16(x0 - bf16_round(x0), x1 - bf16_round(x1));
+      }
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        // k rows kk*16 + 0..15, columns dp*16 + 0..7 then + 8..15
+        uint32_t fb[4];
+        svt::ldmatrix_x4_trans(
+            fb, b + (kk * 16 + (lane & 15)) * ld + dp * 16 + (lane >> 4) * 8);
+        svt::mma_bf16(acc[2 * dp], hi, fb[0], fb[1]);
+        svt::mma_bf16(acc[2 * dp + 1], hi, fb[2], fb[3]);
+        if constexpr (kHiLo) {
+          svt::mma_bf16(acc[2 * dp], lo, fb[0], fb[1]);
+          svt::mma_bf16(acc[2 * dp + 1], lo, fb[2], fb[3]);
+        }
+      }
+    }
+  }
+};
+
+template <typename T, int D>
+__host__ __device__ constexpr int row_width() {
+  return D + Bwd<T>::kPad;
+}
+
+// two neighbouring outputs of a C fragment row
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 template <typename T, int D>
 constexpr size_t dq_smem_bytes() {
-  // Q, dO, K, V (64 x LDD each) + K^T (D x LDT) + dS slab (64 x LDT)
-  return sizeof(T) * ((size_t)svt::ld_d<T, D>() * 4 * kTile +
-                      (size_t)svt::ld_t<T>() * (D + kTile));
+  // Q and dO (the block's tile) + kStages x (K, V) panels
+  return sizeof(T) * (size_t)row_width<T, D>() *
+         (2 * kRows + Bwd<T>::kStages * 2 * Bwd<T>::kPanel);
 }
 
 template <typename T, int D, bool kDropout>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
+__global__ void __launch_bounds__(kThreads, Bwd<T>::kDqBlocks)
+    flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, const int* __restrict__ lengths,
     T* __restrict__ dq, int heads, int tq, int tk, Strides qs, Strides ks,
     Strides vs, Strides dos, Strides dqs, float scale, Dropout dr) {
-  constexpr int LDD = svt::ld_d<T, D>();
-  constexpr int LDT = svt::ld_t<T>();
+  constexpr int LD = row_width<T, D>();
+  constexpr int kPanel = Bwd<T>::kPanel, kStages = Bwd<T>::kStages;
+  constexpr int kPanelElems = kPanel * LD;
+  constexpr int NT = kPanel / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sq = reinterpret_cast<T*>(smem_raw);
-  T* sdo = sq + kTile * LDD;
-  T* sk = sdo + kTile * LDD;
-  T* sv = sk + kTile * LDD;
-  T* s_kt = sv + kTile * LDD;
-  T* sds = s_kt + D * LDT;
+  T* sdo = sq + kRows * LD;
+  T* ring = sdo + kRows * LD;  // stage s: K at ring + 2 s kPanelElems, V next
 
   const int row = blockIdx.y;
   const int b = row / heads, h = row % heads;
-  const int q0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq4 = lane & 3;
   const int len = clamp_len(lengths, b, tk);
-
+  const int n_panels = (len + kPanel - 1) / kPanel;
   const T* kb = k + b * ks.b + h * ks.h;
   const T* vb = v + b * vs.b + h * vs.h;
-  svt::stage<T, D>(q + b * qs.b + h * qs.h, qs.t, q0, tq, sq, LDD, nullptr,
-                   0);
-  svt::stage<T, D>(dout + b * dos.b + h * dos.h, dos.t, q0, tq, sdo, LDD,
-                   nullptr, 0);
+
+  auto fetch = [&](int pb) {  // K and V panel pb into its stage
+    T* dst = ring + (pb % kStages) * 2 * kPanelElems;
+    svt::cp_async_panel<T, D, kPanel, kThreads>(dst, LD, kb, ks.t,
+                                                pb * kPanel, tk);
+    svt::cp_async_panel<T, D, kPanel, kThreads>(dst + kPanelElems, LD, vb,
+                                                vs.t, pb * kPanel, tk);
+  };
+  svt::cp_async_panel<T, D, kRows, kThreads>(sq, LD, q + b * qs.b + h * qs.h,
+                                             qs.t, q0, tq);
+  svt::cp_async_panel<T, D, kRows, kThreads>(
+      sdo, LD, dout + b * dos.b + h * dos.h, dos.t, q0, tq);
+#pragma unroll
+  for (int pb = 0; pb < kStages - 1; ++pb) {  // one group per panel
+    if (pb < n_panels) fetch(pb);
+    svt::cp_async_commit();
+  }
 
   // this thread's two query rows (g, g + 8): L, Delta and the row hash;
   // rows past Tq have dO = 0 and Delta = 0, so their dS is 0
@@ -111,54 +321,43 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 
   float acc[D / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
+  for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.0f;
 
-  const T* sq_w = sq + warp * 16 * LDD;
-  const T* sdo_w = sdo + warp * 16 * LDD;
-  T* sds_w = sds + warp * 16 * LDT;
-  const int n_panels = (len + kTile - 1) / kTile;
+  const T* sq_w = sq + warp * 16 * LD;
+  const T* sdo_w = sdo + warp * 16 * LD;
 
   for (int pb = 0; pb < n_panels; ++pb) {
-    const int k0 = pb * kTile;
-    __syncthreads();  // previous panel fully consumed
-    svt::stage<T, D>(kb, ks.t, k0, tk, sk, LDD, s_kt, LDT);
-    svt::stage<T, D>(vb, vs.t, k0, tk, sv, LDD, nullptr, 0);
-    __syncthreads();
+    svt::cp_async_wait<kStages - 2>();  // panel pb and the block's tile
+    __syncthreads();  // landed for all; panel pb - 1 is consumed, so its
+    if (pb + kStages - 1 < n_panels) fetch(pb + kStages - 1);  // stage refills
+    svt::cp_async_commit();
+    const T* sk = ring + (pb % kStages) * 2 * kPanelElems;
+    const T* sv = sk + kPanelElems;
+    const int k0 = pb * kPanel;
 
+    float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int kt = 0; kt < D / 16; ++kt) {
-        Tile<T>::mma(s, sq_w + kt * 16, LDD, sk + nt * 8 * LDD + kt * 16, LDD,
-                     lane);
-        Tile<T>::mma(dp, sdo_w + kt * 16, LDD, sv + nt * 8 * LDD + kt * 16,
-                     LDD, lane);
-      }
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.0f;
+    Bwd<T>::template scores<D, NT>(s, sq_w, sk, LD, lane);
+    Bwd<T>::template scores<D, NT>(dp, sdo_w, sv, LD, lane);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
-        const int c = nt * 8 + 2 * tq4 + (e & 1);
-        const int col = k0 + c;
-        const float p = col < len ? expf(s[e] * scale - lse_r[i]) : 0.0f;
-        float dpv = dp[e];
+        const int col = k0 + nt * 8 + 2 * tq4 + (e & 1);
+        const float p = col < len ? expf(s[nt][e] * scale - lse_r[i]) : 0.0f;
+        float dpv = dp[nt][e];
         if constexpr (kDropout) dpv *= svt::keep(dr, hq[i], (uint32_t)col);
-        const float ds = p * (dpv - delta_r[i]) * scale;
-        sds_w[(i * 8 + g) * LDT + c] = Num<T>::from_f32(ds);
+        s[nt][e] = p * (dpv - delta_r[i]) * scale;  // dS, in registers
       }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-      for (int kt = 0; kt < kTile / 16; ++kt)
-        Tile<T>::mma(acc[nt], sds_w + kt * 16, LDT,
-                     s_kt + nt * 8 * LDT + kt * 16, LDT, lane);
-    __syncwarp();
+    Bwd<T>::template accumulate<D, NT, false>(acc, s, sk, LD, lane);
   }
+  svt::cp_async_wait<0>();
 
   T* dqb = dq + b * dqs.b + h * dqs.h;
 #pragma unroll
@@ -166,56 +365,44 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const int r = q0 + warp * 16 + i * 8 + g;
     if (r >= tq) continue;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        dqb[r * dqs.t + nt * 8 + 2 * tq4 + e] =
-            Num<T>::from_f32(acc[nt][i * 2 + e]);
+    for (int dt = 0; dt < D / 8; ++dt)
+      store2(dqb + r * dqs.t + dt * 8 + 2 * tq4, acc[dt][2 * i],
+             acc[dt][2 * i + 1]);
   }
-}
-
-// bf16 keeps P o M for dV as two slabs (hi + lo); f32 as one
-template <typename T>
-__host__ __device__ constexpr int p_slabs() {
-  return std::is_same<T, float>::value ? 1 : 2;
 }
 
 template <typename T, int D>
 constexpr size_t dkv_smem_bytes() {
-  // L and Delta of the Q panel (64 f32 each) + K, V, Q, dO (64 x LDD each)
-  // + Q^T, dO^T (D x LDT each) + P o M slab(s) and dS slab (64 x LDT each)
-  return sizeof(float) * 2 * kTile +
-         sizeof(T) * ((size_t)svt::ld_d<T, D>() * 4 * kTile +
-                      (size_t)svt::ld_t<T>() *
-                          (2 * D + (p_slabs<T>() + 1) * kTile));
+  // kStages x (L, Delta) of a Q panel + K, V (the block's tile) + kStages x
+  // (Q, dO) panels
+  constexpr int kPanel = Bwd<T>::kPanel, kStages = Bwd<T>::kStages;
+  return sizeof(float) * kStages * 2 * kPanel +
+         sizeof(T) * (size_t)row_width<T, D>() *
+             (2 * kRows + kStages * 2 * kPanel);
 }
 
 template <typename T, int D, bool kDropout>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
+__global__ void __launch_bounds__(kThreads, Bwd<T>::kDkvBlocks)
+    flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, const int* __restrict__ lengths,
     T* __restrict__ dk, T* __restrict__ dv, int heads, int tq, int tk,
     Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
     float scale, Dropout dr) {
-  constexpr int LDD = svt::ld_d<T, D>();
-  constexpr int LDT = svt::ld_t<T>();
-  constexpr bool kSplit = p_slabs<T>() == 2;
+  constexpr int LD = row_width<T, D>();
+  constexpr int kPanel = Bwd<T>::kPanel, kStages = Bwd<T>::kStages;
+  constexpr int kPanelElems = kPanel * LD;
+  constexpr int NT = kPanel / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* s_lse = reinterpret_cast<float*>(smem_raw);
-  float* s_delta = s_lse + kTile;
-  T* sk = reinterpret_cast<T*>(s_delta + kTile);
-  T* sv = sk + kTile * LDD;
-  T* sq = sv + kTile * LDD;
-  T* sdo = sq + kTile * LDD;
-  T* s_qt = sdo + kTile * LDD;
-  T* s_dot = s_qt + D * LDT;
-  T* sp = s_dot + D * LDT;
-  T* sds = sp + p_slabs<T>() * kTile * LDT;
+  float* s_rows = reinterpret_cast<float*>(smem_raw);  // stage s: L, Delta
+  T* sk = reinterpret_cast<T*>(s_rows + kStages * 2 * kPanel);
+  T* sv = sk + kRows * LD;
+  T* ring = sv + kRows * LD;  // stage s: Q at ring + 2 s kPanelElems, dO next
 
   const int row = blockIdx.y;
   const int b = row / heads, h = row % heads;
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.x * kRows;
   const int tid = threadIdx.x;
   const int len = clamp_len(lengths, b, tk);
   T* dkb = dk + b * dks.b + h * dks.h;
@@ -223,7 +410,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
   if (k0 >= len) {  // every key of this tile is masked: zero gradients
     const T zero = Num<T>::from_f32(0.0f);
-    for (int i = tid; i < kTile * D; i += kThreads) {
+    for (int i = tid; i < kRows * D; i += kThreads) {
       const int r = k0 + i / D, d = i % D;
       if (r >= tk) continue;
       dkb[r * dks.t + d] = zero;
@@ -234,12 +421,36 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq4 = lane & 3;
-  svt::stage<T, D>(k + b * ks.b + h * ks.h, ks.t, k0, tk, sk, LDD, nullptr,
-                   0);
-  svt::stage<T, D>(v + b * vs.b + h * vs.h, vs.t, k0, tk, sv, LDD, nullptr,
-                   0);
   const T* qb = q + b * qs.b + h * qs.h;
   const T* dob = dout + b * dos.b + h * dos.h;
+  const float* lse_b = lse + (long long)row * tq;
+  const float* delta_b = delta + (long long)row * tq;
+  const int n_panels = (tq + kPanel - 1) / kPanel;
+
+  auto fetch = [&](int pb) {  // Q, dO, L and Delta of panel pb
+    const int stage = pb % kStages, q0 = pb * kPanel;
+    T* dst = ring + stage * 2 * kPanelElems;
+    svt::cp_async_panel<T, D, kPanel, kThreads>(dst, LD, qb, qs.t, q0, tq);
+    svt::cp_async_panel<T, D, kPanel, kThreads>(dst + kPanelElems, LD, dob,
+                                                dos.t, q0, tq);
+    float* rows = s_rows + stage * 2 * kPanel;
+    for (int i = tid; i < 2 * kPanel; i += kThreads) {
+      const int r = i % kPanel;
+      const bool valid = q0 + r < tq;
+      svt::cp_async4(rows + i,
+                     (i < kPanel ? lse_b : delta_b) + (valid ? q0 + r : 0),
+                     valid);
+    }
+  };
+  svt::cp_async_panel<T, D, kRows, kThreads>(sk, LD, k + b * ks.b + h * ks.h,
+                                             ks.t, k0, tk);
+  svt::cp_async_panel<T, D, kRows, kThreads>(sv, LD, v + b * vs.b + h * vs.h,
+                                             vs.t, k0, tk);
+#pragma unroll
+  for (int pb = 0; pb < kStages - 1; ++pb) {  // one group per panel
+    if (pb < n_panels) fetch(pb);
+    svt::cp_async_commit();
+  }
 
   // this thread's two key rows (g, g + 8 of the warp's 16)
   int key[2];
@@ -253,41 +464,34 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
+  for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.0f;
+    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.0f;
 
-  const T* sk_w = sk + warp * 16 * LDD;
-  const T* sv_w = sv + warp * 16 * LDD;
-  T* sp_w = sp + warp * 16 * LDT;
-  T* sp_lo_w = sp_w + kTile * LDT;  // bf16 only
-  T* sds_w = sds + warp * 16 * LDT;
-  const int n_q = (tq + kTile - 1) / kTile;
+  const T* sk_w = sk + warp * 16 * LD;
+  const T* sv_w = sv + warp * 16 * LD;
 
-  for (int qb_i = 0; qb_i < n_q; ++qb_i) {
-    const int q0 = qb_i * kTile;
-    __syncthreads();  // previous Q panel fully consumed
-    svt::stage<T, D>(qb, qs.t, q0, tq, sq, LDD, s_qt, LDT);
-    svt::stage<T, D>(dob, dos.t, q0, tq, sdo, LDD, s_dot, LDT);
-    for (int i = tid; i < kTile; i += kThreads) {
-      const int r = q0 + i;
-      s_lse[i] = r < tq ? lse[(long long)row * tq + r] : 0.0f;
-      s_delta[i] = r < tq ? delta[(long long)row * tq + r] : 0.0f;
-    }
-    __syncthreads();
+  for (int pb = 0; pb < n_panels; ++pb) {
+    svt::cp_async_wait<kStages - 2>();  // panel pb and the block's tile
+    __syncthreads();  // landed for all; panel pb - 1 is consumed, so its
+    if (pb + kStages - 1 < n_panels) fetch(pb + kStages - 1);  // stage refills
+    svt::cp_async_commit();
+    const int stage = pb % kStages, q0 = pb * kPanel;
+    const T* sq = ring + stage * 2 * kPanelElems;
+    const T* sdo = sq + kPanelElems;
+    const float* s_lse = s_rows + stage * 2 * kPanel;
+    const float* s_delta = s_lse + kPanel;
 
     // S^T and dP^T fragments: rows = this warp's keys, columns = queries
+    float st[NT][4], dpt[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      float st[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float dpt[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int kt = 0; kt < D / 16; ++kt) {
-        Tile<T>::mma(st, sk_w + kt * 16, LDD, sq + nt * 8 * LDD + kt * 16,
-                     LDD, lane);
-        Tile<T>::mma(dpt, sv_w + kt * 16, LDD, sdo + nt * 8 * LDD + kt * 16,
-                     LDD, lane);
-      }
+      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.0f;
+    Bwd<T>::template scores<D, NT>(st, sk_w, sq, LD, lane);
+    Bwd<T>::template scores<D, NT>(dpt, sv_w, sdo, LD, lane);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
       uint32_t hq[2] = {0u, 0u};
       if constexpr (kDropout) {
 #pragma unroll
@@ -299,47 +503,49 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
         const int i = e >> 1, c = e & 1;
         const int ql = nt * 8 + 2 * tq4 + c;
         const bool valid = kvalid[i] && q0 + ql < tq;
-        const float p = valid ? expf(st[e] * scale - s_lse[ql]) : 0.0f;
+        const float p = valid ? expf(st[nt][e] * scale - s_lse[ql]) : 0.0f;
         float mk = 1.0f;
         if constexpr (kDropout) mk = svt::keep(dr, hq[c], (uint32_t)key[i]);
-        const float pv = p * mk;
-        const float ds = p * (dpt[e] * mk - s_delta[ql]) * scale;
-        const int at = (i * 8 + g) * LDT + ql;
-        const T hi = Num<T>::from_f32(pv);
-        sp_w[at] = hi;
-        if constexpr (kSplit)
-          sp_lo_w[at] = Num<T>::from_f32(pv - Num<T>::to_f32(hi));
-        sds_w[at] = Num<T>::from_f32(ds);
+        st[nt][e] = p * mk;  // P o M, in registers
+        dpt[nt][e] = p * (dpt[nt][e] * mk - s_delta[ql]) * scale;  // dS
       }
     }
-    __syncwarp();
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-      for (int kt = 0; kt < kTile / 16; ++kt) {
-        const int off = nt * 8 * LDT + kt * 16;
-        Tile<T>::mma(dv_acc[nt], sp_w + kt * 16, LDT, s_dot + off, LDT, lane);
-        if constexpr (kSplit)
-          Tile<T>::mma(dv_acc[nt], sp_lo_w + kt * 16, LDT, s_dot + off, LDT,
-                       lane);
-        Tile<T>::mma(dk_acc[nt], sds_w + kt * 16, LDT, s_qt + off, LDT, lane);
-      }
-    __syncwarp();
+    Bwd<T>::template accumulate<D, NT, true>(dv_acc, st, sdo, LD, lane);
+    Bwd<T>::template accumulate<D, NT, false>(dk_acc, dpt, sq, LD, lane);
   }
+  svt::cp_async_wait<0>();
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = key[i];
     if (r >= tk) continue;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = nt * 8 + 2 * tq4 + e;
-        dkb[r * dks.t + d] = Num<T>::from_f32(dk_acc[nt][i * 2 + e]);
-        dvb[r * dvs.t + d] = Num<T>::from_f32(dv_acc[nt][i * 2 + e]);
-      }
+    for (int dt = 0; dt < D / 8; ++dt) {
+      const int d = dt * 8 + 2 * tq4;
+      store2(dkb + r * dks.t + d, dk_acc[dt][2 * i], dk_acc[dt][2 * i + 1]);
+      store2(dvb + r * dvs.t + d, dv_acc[dt][2 * i], dv_acc[dt][2 * i + 1]);
+    }
   }
+}
+
+// registers, local memory (bytes per thread: 0 = no spills), dynamic shared
+// memory per block and resident blocks per SM of one instantiation
+template <typename K>
+cudaError_t attributes(K kernel, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncAttributes a;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        kThreads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -375,7 +581,7 @@ extern "C" int svt_flash_attention_bwd_dq(
     const cudaError_t err =
         svt::allow_smem(flash_bwd_dq_kernel<T, D, kDrop>, smem, configured);
     if (err != cudaSuccess) return err;
-    const dim3 grid((tq + kTile - 1) / kTile, batch * heads);
+    const dim3 grid((tq + kRows - 1) / kRows, batch * heads);
     flash_bwd_dq_kernel<T, D, kDrop><<<grid, kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -412,7 +618,7 @@ extern "C" int svt_flash_attention_bwd_dkv(
     const cudaError_t err =
         svt::allow_smem(flash_bwd_dkv_kernel<T, D, kDrop>, smem, configured);
     if (err != cudaSuccess) return err;
-    const dim3 grid((tk + kTile - 1) / kTile, batch * heads);
+    const dim3 grid((tk + kRows - 1) / kRows, batch * heads);
     flash_bwd_dkv_kernel<T, D, kDrop><<<grid, kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -421,5 +627,23 @@ extern "C" int svt_flash_attention_bwd_dkv(
         static_cast<T*>(dv), heads, tq, tk, qs, ks, vs, dos, dks, dvs, scale,
         dr);
     return cudaGetLastError();
+  });
+}
+
+// kernel: 0 = dQ, 1 = dK/dV; out[4] = registers per thread, local memory
+// bytes per thread, dynamic shared memory bytes per block, resident blocks
+// per SM, for the instantiation of (dtype, d, dropout).
+extern "C" int svt_flash_attention_bwd_attributes(int kernel, int dtype, int d,
+                                                  int dropout, int* out) {
+  return (int)svt::dispatch(dtype, d, dropout, [&](auto t, auto dd,
+                                                   auto drop) -> cudaError_t {
+    using T = typename decltype(t)::type;
+    constexpr int D = decltype(dd)::value;
+    constexpr bool kDrop = decltype(drop)::value;
+    if (kernel == 0)
+      return attributes(flash_bwd_dq_kernel<T, D, kDrop>,
+                        dq_smem_bytes<T, D>(), out);
+    return attributes(flash_bwd_dkv_kernel<T, D, kDrop>,
+                      dkv_smem_bytes<T, D>(), out);
   });
 }

@@ -10,7 +10,8 @@
 //   arithmetic. Every kernel regenerates the identical mask from those
 //   coordinates, whatever its tiling.
 // * Staging of a 64-row (T, D) panel into shared memory, row-major and/or
-//   transposed, zero past the array's end.
+//   transposed, zero past the array's end (the forward), and the
+//   asynchronous 16-byte copies of the backward's panel ring.
 // * `dispatch`: (dtype, D, dropout) at run time -> a template instantiation.
 #pragma once
 
@@ -90,6 +91,57 @@ __device__ __forceinline__ void stage(const T* __restrict__ src, long long st,
     const T x = r0 + r < t ? src[(long long)(r0 + r) * st + d] : zero;
     if (dst != nullptr) dst[r * ld + d] = x;
     if (dst_t != nullptr) dst_t[d * ldt + r] = x;
+  }
+}
+
+// Asynchronous copies into shared memory (the backward kernels' ring):
+// `cp.async` of 16 (cg, past L1) or 4 (ca) bytes; `valid` false writes zeros
+// and reads nothing (src-size 0), though `src` must still be a valid address.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [r0, r0 + ROWS) of a (T, D) panel (row stride `st` elements, unit
+// stride on D) into `dst` (row width `ld`) by 16-byte cp.async from all
+// THREADS threads; rows >= t are zero. The source rows and `dst`'s rows must
+// be 16-byte aligned.
+template <typename T, int D, int ROWS, int THREADS>
+__device__ __forceinline__ void cp_async_panel(T* dst, int ld,
+                                               const T* __restrict__ src,
+                                               long long st, int r0, int t) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = D / kVec;
+  constexpr int kPieces = ROWS * kPerRow;
+#pragma unroll
+  for (int j = 0; j < (kPieces + THREADS - 1) / THREADS; ++j) {
+    const int i = j * THREADS + threadIdx.x;
+    if (kPieces % THREADS != 0 && i >= kPieces) break;
+    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
+    const bool valid = r0 + r < t;
+    cp_async16(dst + r * ld + c,
+               src + (valid ? (long long)(r0 + r) * st : 0LL) + c, valid);
   }
 }
 

@@ -24,7 +24,9 @@ q, k, v are (B, H, T, D); ``lengths`` (B,) gives each batch row's valid key
 count (keys ≥ length are masked with −1e30; a row of length 0 yields
 zeros and zero gradients). On a CUDA tensor each wrapper launches its
 kernel or raises; on a CPU tensor it runs its plain PyTorch version, which
-is also the tests' oracle.
+is also the tests' oracle. The backward kernels copy rows in 16-byte
+pieces: their wrappers raise on rows that are not 16-byte aligned (the
+autograd Function hands them aligned copies of such inputs).
 """
 from __future__ import annotations
 
@@ -50,7 +52,9 @@ _BWD = {"svt_flash_attention_bwd_dq":
         + _STRIDES * 5 + _DROPOUT,
         "svt_flash_attention_bwd_dkv":
         [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-        + _STRIDES * 6 + _DROPOUT}
+        + _STRIDES * 6 + _DROPOUT,
+        "svt_flash_attention_bwd_attributes":
+        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _FMIX_C1 = 0x85EBCA6B
@@ -253,6 +257,37 @@ def _check_backward(q, dout, *rows):
                              f"{want} on the device of q")
 
 
+def _misaligned(t):
+    """Why ``t`` cannot feed the backward kernels, or None. They copy rows
+    into shared memory in 16-byte pieces (``cp.async``): the base address and
+    the (batch, head, time) strides in bytes must be multiples of 16 (the
+    stride of an axis of size 1 is never used)."""
+    size = t.element_size()
+    strides = tuple(st * size for st in t.stride()[:3])
+    if t.data_ptr() % 16 or any(n > 1 and st % 16 for n, st in
+                                zip(t.shape[:3], strides)):
+        return (f"base address {t.data_ptr() % 16} bytes past a multiple of "
+                f"16, (batch, head, time) strides {strides} bytes")
+    return None
+
+
+def _check_aligned(*tensors):
+    for t in tensors:
+        why = _misaligned(t)
+        if why is not None:
+            raise ValueError("the attention backward kernels need 16-byte "
+                             f"aligned rows; got {why}")
+
+
+def _aligned(t):
+    """``t``, or a contiguous copy where the backward kernels cannot take it
+    as it is (a non-unit stride on D, e.g. the expanded gradient of a sum,
+    or rows that are not 16-byte aligned)."""
+    if t.stride(-1) == 1 and _misaligned(t) is None:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _lengths_ptr(lengths, device):
     if lengths is None:
         return None, None
@@ -313,6 +348,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, lengths=None,
                                           lengths, scale, seed, rate)
     _check_card(q, k, v, dout)
     _check_backward(q, dout, lse, delta)
+    _check_aligned(q, k, v, dout)
     b, h, tq, d = q.shape
     lens, lens_ptr = _lengths_ptr(lengths, q.device)
     dq = _like_bthd(q)
@@ -337,6 +373,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, lengths=None,
                                            lengths, scale, seed, rate)
     _check_card(q, k, v, dout)
     _check_backward(q, dout, lse, delta)
+    _check_aligned(q, k, v, dout)
     b, h, tq, d = q.shape
     lens, lens_ptr = _lengths_ptr(lengths, q.device)
     dk, dv = _like_bthd(k), _like_bthd(v)
@@ -351,6 +388,30 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, lengths=None,
     _build.check(err, "flash_attention dK/dV kernel launch")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
+
+
+def backward_kernel_attributes():
+    """Each instantiation of the two backward kernels on the current card:
+    a list of dicts with ``kernel`` ("dq" or "dkv"), ``dtype``, ``d``,
+    ``dropout``, ``registers`` (per thread), ``local_bytes`` (per thread:
+    0 means no spills), ``smem_bytes`` (dynamic, per block) and
+    ``blocks_per_sm`` (resident, at the kernels' 128 threads a block)."""
+    lib = _build.load("flash_attention_bwd", _BWD)
+    rows = []
+    for kernel_id, kernel in enumerate(("dq", "dkv")):
+        for dtype, code in _DTYPE_CODES.items():
+            for d in HEAD_DIMS:
+                for dropout in (0, 1):
+                    out = (ctypes.c_int * 4)()
+                    _build.check(lib.svt_flash_attention_bwd_attributes(
+                        kernel_id, code, d, dropout, out),
+                        "flash_attention backward attributes")
+                    rows.append(dict(
+                        kernel=kernel, dtype=str(dtype).split(".")[-1], d=d,
+                        dropout=bool(dropout), registers=out[0],
+                        local_bytes=out[1], smem_bytes=out[2],
+                        blocks_per_sm=out[3]))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -374,8 +435,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, grad):
         q, k, v, out, lse, lengths = ctx.saved_tensors
         scale, seed, rate = ctx.args
-        if grad.stride(-1) != 1:     # e.g. the expanded gradient of a sum
-            grad = grad.contiguous()
+        q, k, v, grad = (_aligned(t) for t in (q, k, v, grad))
         delta = (grad.float() * out.float()).sum(dim=-1).contiguous()
         dq = flash_attention_bwd_dq(q, k, v, grad, lse, delta, lengths,
                                     scale, seed, rate)

@@ -99,7 +99,13 @@ TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TRAIN_CASES = [  # (B, H, Tq, Tk, lengths, dropout rate)
     (3, 4, 300, 300, [300, 0, 170], 0.1),
     (2, 2, 130, 200, [200, 63], 0.3),
-    (2, 2, 100, 100, None, 0.0)]
+    (2, 2, 100, 100, None, 0.0),
+    # the backward's 64-row tiles and its ring of 32-row panels: Tk of 1499
+    # (46 panels and a tail of 27), Tq != Tk, lengths that end inside a
+    # panel (130, 700), one key, zero keys (Tk = 1: test_backward_one_key)
+    (3, 2, 150, 1499, [1499, 129, 1], 0.3),
+    (2, 3, 1499, 200, [130, 0], 0.0),
+    (1, 2, 1499, 1499, [700], 0.1)]
 
 
 def _train_inputs(device, dtype, d, b, h, tq, tk, seed):
@@ -148,6 +154,63 @@ def test_training_kernels_match_plain(cuda_device, dtype, d, case):
             assert (t[dead] == 0).all()
         past = torch.arange(tk)[None, :] >= torch.tensor(lens)[:, None]
         assert (dk.transpose(1, 2)[past] == 0).all()
+        assert (dv.transpose(1, 2)[past] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64])
+def test_backward_one_key(cuda_device, dtype, d):
+    """Tk = 1 (a single, ragged panel) with lengths [1, 0]: over one key the
+    softmax is 1 whatever the score, so dS, dQ and dK are 0 in exact
+    arithmetic and only rounding is left of them; dV = (P o M)^T dO is not.
+    dV is held to its plain version, dQ and dK to zero at the tolerance
+    relative to dV's peak, and the row of length 0 to exact zeros."""
+    q, k, v, dout = _train_inputs(cuda_device, dtype, d, 2, 2, 77, 1, 3)
+    lengths = torch.tensor([1, 0], device=cuda_device)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, lengths, None, 9, 0.3)
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    args = (q, k, v, dout, lse, delta, lengths, None, 9, 0.3)
+    dq = fa.flash_attention_bwd_dq(*args)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    want_dv = fa.attention_bwd_dkv_reference(*args)[1]
+    assert _peak_err(dv, want_dv) <= TRAIN_TOL[dtype]
+    peak = want_dv.float().abs().max()
+    for t in (dq, dk):
+        assert (t.float().abs().max() / peak).item() <= TRAIN_TOL[dtype]
+    for t in (dq, dk, dv):
+        assert (t[1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64])
+def test_backward_kernels_are_deterministic(cuda_device, dtype, d):
+    """Each block owns its output rows (no atomics): two launches on the
+    same inputs give the same bits."""
+    q, k, v, dout = _train_inputs(cuda_device, dtype, d, 2, 3, 333, 555, 8)
+    lengths = torch.tensor([555, 300], device=cuda_device)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, lengths, None, 5, 0.1)
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    args = (q, k, v, dout, lse, delta, lengths, None, 5, 0.1)
+    first = (fa.flash_attention_bwd_dq(*args),
+             *fa.flash_attention_bwd_dkv(*args))
+    second = (fa.flash_attention_bwd_dq(*args),
+              *fa.flash_attention_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
+        assert a.abs().max() > 0, name
+
+
+def test_backward_kernels_do_not_spill(cuda_device):
+    """Every instantiation of 4a and 4b (f32 and bf16, D 16 and 64, with
+    and without dropout): no local memory (no spills) and at least 8 warps
+    resident per SM."""
+    rows = fa.backward_kernel_attributes()
+    assert len(rows) == 16
+    for r in rows:
+        assert r["local_bytes"] == 0, r
+        assert r["blocks_per_sm"] * 4 >= 8, r
 
 
 def test_flash_attention_gradients_on_card_match_cpu(cuda_device):
@@ -209,6 +272,19 @@ def test_unsupported_inputs_raise_on_card(cuda_device):
     q = torch.zeros(1, 2, 8, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
+    # the backward kernels copy 16-byte pieces: a view that starts 4 bytes
+    # into its storage, and one whose rows are 17 floats apart, must raise
+    q, k, v, dout = _train_inputs(cuda_device, torch.float32, 16, 1, 2, 8, 8,
+                                  1)
+    lse = torch.zeros(1, 2, 8, device=cuda_device)
+    shifted = torch.zeros(1 * 2 * 8 * 16 + 1, device=cuda_device)[1:]
+    wide = torch.zeros(1, 2, 8, 17, device=cuda_device)[..., :16]
+    for bad in (shifted.view(1, 2, 8, 16), wide):
+        for fn in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+            with pytest.raises(ValueError, match="16-byte"):
+                fn(bad, k, v, dout, lse, lse)
+            with pytest.raises(ValueError, match="16-byte"):
+                fn(q, k, v, bad, lse, lse)
 
 
 def test_tiny_transcriber_card_matches_cpu(cuda_device):
