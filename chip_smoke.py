@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build the CUDA kernels from ``svt_speechbrain_tpu_torch/csrc`` with nvcc,
-   and hold every instantiation of the backward kernels 4a and 4b to no
-   spills and at least 8 resident warps an SM;
+   and hold every instantiation of the attention forward (kernels 2, 3, 3b)
+   and of the backward kernels 4a and 4b to no spills and at least 8
+   resident warps an SM;
 2. hold each kernel against its plain PyTorch version at main-path shapes,
    in bf16 and in f32 (TF32 off);
 3. serve wav2vec2-large-lv60 AMT (24 layers, 1024 wide, 16 heads, seeded
@@ -16,8 +17,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    2-chunk batch in f32 against the same port on the CPU;
 4. one song at ``chunking="song"`` (a 30 s window, the streaming kernel);
 5. time each kernel, its plain version and its library yardstick at the
-   main-path shapes, beside its bound (by route: 4a and 4b in f32 run three
-   TF32 tensor-core products per product);
+   main-path shapes, beside its bound (by route: 3b, 4a and 4b in f32 run
+   three TF32 tensor-core products per product);
 6. train ``AudioAMT`` on lv60 at full width and depth with the recipe's
    hyperparameters (f32, all dropouts 0.1), batch 8 of 30 s rows: one
    linear-probe step, a warm-up and 3 timed full-finetune steps, counting
@@ -124,7 +125,8 @@ SR = 16000
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
-# the f32 backward kernels (4a, 4b) run each product as three TF32 products
+# the f32 training kernels (3b, 4a, 4b) run each product as three TF32
+# products
 TF32_PRODUCTS = 3
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
@@ -310,26 +312,27 @@ def songs_for(rng, seconds, int16_index=None):
     return songs
 
 
-def check_backward_build(report):
-    """Kernels 4a and 4b: no instantiation spills (ptxas, where the source
-    was built now, and the local memory the runtime reports) and each keeps
-    at least 8 warps resident per SM; prints registers and shared memory."""
-    if "flash_attention_bwd" in report:
-        spills = [line.strip() for line in
-                  report["flash_attention_bwd"][1].splitlines()
-                  if "spill" in line]
-        bad = [line for line in spills
-               if "0 bytes spill stores, 0 bytes spill loads" not in line]
-        if not spills or bad:
-            raise AssertionError(f"flash_attention_bwd spills: {bad}")
-    for r in fa.backward_kernel_attributes():
+def check_attention_build(report):
+    """The attention forward (kernels 2, 3, 3b) and backward (4a, 4b): no
+    instantiation spills (ptxas, where the source was built now, and the
+    local memory the runtime reports) and each keeps at least 8 warps
+    resident per SM; prints registers, shared memory and resident warps."""
+    for source in ("flash_attention", "flash_attention_bwd"):
+        if source in report:
+            spills = [line.strip() for line in report[source][1].splitlines()
+                      if "spill" in line]
+            bad = [line for line in spills
+                   if "0 bytes spill stores, 0 bytes spill loads" not in line]
+            if not spills or bad:
+                raise AssertionError(f"{source} spills: {bad}")
+    for r in fa.forward_kernel_attributes() + fa.backward_kernel_attributes():
         warps = r["blocks_per_sm"] * 4
-        log(f"  backward {r['kernel']} {r['dtype']} D={r['d']} dropout="
+        log(f"  attention {r['kernel']} {r['dtype']} D={r['d']} dropout="
             f"{r['dropout']}: {r['registers']} registers, "
             f"{r['local_bytes']} bytes local, {r['smem_bytes']} bytes shared "
             f"a block, {r['blocks_per_sm']} blocks ({warps} warps) an SM")
         if r["local_bytes"] != 0 or warps < 8:
-            raise AssertionError(f"backward kernel spills or runs under 8 "
+            raise AssertionError(f"attention kernel spills or runs under 8 "
                                  f"warps an SM: {r}")
 
 
@@ -804,8 +807,6 @@ def training_timings(tag, dtype, gen):
         flops, nbytes = training_cost(name, shape, q.element_size())
         if dtype == torch.bfloat16:
             b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
-        elif name == "flash_attention_lse":
-            b_ms, b_by = bound(flops, nbytes, PEAK_F32)
         else:                   # by route: three TF32 products per product
             b_ms, b_by = bound(TF32_PRODUCTS * flops, nbytes, PEAK_TF32)
             log(f"  {name} f32 bound by route (3 x TF32 at 495 TFLOP/s) "
@@ -1834,7 +1835,7 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  [{name}] {line.strip()}")
-    check_backward_build(report)
+    check_attention_build(report)
 
     log("phase 2: each kernel against its plain version, bf16 and f32")
     bridge, head = lv60_modules()

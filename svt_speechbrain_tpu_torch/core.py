@@ -115,6 +115,15 @@ class Brain:
         if self.precision not in ("fp32", "bf16"):
             raise ValueError(f"precision must be fp32 or bf16, not "
                              f"{self.precision!r}")
+        accum = run_opts.get("grad_accumulation_factor",
+                             hparams.get("grad_accumulation_factor", 1))
+        if accum != 1:
+            # the JAX Brain splits each batch into micro-batches; ignoring
+            # the option would train on other batches than the caller asked
+            raise NotImplementedError(
+                f"grad_accumulation_factor={accum!r}: gradient accumulation "
+                f"is not ported yet (ROADMAP.md queue 1, item 10); only 1 "
+                f"is accepted")
         self.device = resolve_device(self.device)
         self.hparams = SimpleNamespace(**hparams)
         self.modules = nn.ModuleDict(modules or {}).to(self.device)

@@ -25,7 +25,8 @@
 // What bounds it on the H100: per row, dQ does 6 and dK/dV 8 T^2 D flops
 // against a few T x D tiles of bytes, so the products, and the exp and hash
 // of every score element, are the work. The design:
-//   * every product on the tensor cores (tile_mma.cuh): bf16 on
+//   * every product on the tensor cores (tile_mma.cuh; the warp-level
+//     products, shared with the forward, in flash_warp.cuh): bf16 on
 //     m16n8k16 with ldmatrix (.trans where the operand lies keyed by the
 //     contraction index), f32 as three TF32 m16n8k8 products per product
 //     (big.big + big.small + small.big, the 3xTF32 of CUTLASS's
@@ -70,190 +71,40 @@
 // (the wrapper checks), lengths int32 per batch clamped to Tk, lse and delta
 // f32 (B*H, Tq) contiguous, f32 or bf16.
 #include "flash_common.cuh"
+#include "flash_warp.cuh"
 
 namespace {
 
+using svt::clamp_len;
 using svt::Dropout;
+using svt::kRows;
+using svt::kThreads;
 using svt::Num;
+using svt::row_width;
+using svt::store2;
 using svt::Strides;
-using svt::Tf32x3;
+using svt::Warp;
 
-constexpr int kWarps = 4;          // each owns 16 rows of the block's tile
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps * 16;  // the block's own tile
-
-__device__ __forceinline__ int clamp_len(const int* lengths, int b, int tk) {
-  const int len = lengths == nullptr ? tk : lengths[b];
-  return len < 0 ? 0 : (len > tk ? tk : len);
-}
-
-// The two products of a warp, by dtype. `a` holds the warp's 16 rows and `b`
-// a panel, both row-major in shared memory with row width `ld`.
-//   scores:     c[nt] += A . B^T over D, for the panel's rows nt*8 .. +7;
-//   accumulate: acc[dt] += P . B over NT*8 panel rows, P the C fragments of
-//               `scores` (16 x NT*8), B's columns dt*8 .. +7 of D; kHiLo
-//               keeps P in f32 (bf16: hi + lo parts; f32 always does).
+// The tiles, by dtype (the source note has their cost): rows of a streamed
+// panel, panels in the ring, resident blocks per SM of dQ and of dK/dV.
 template <typename T>
 struct Bwd;
 
 template <>
 struct Bwd<float> {
-  static constexpr int kPad = 4;
-  // the tiles of the f32 instantiations (the source note has their cost)
-  static constexpr int kPanel = 32;     // rows of a streamed panel
-  static constexpr int kStages = 2;     // panels in the ring
-  static constexpr int kDqBlocks = 3;   // resident blocks per SM: dQ
-  static constexpr int kDkvBlocks = 2;  // and dK/dV
-
-  template <int D, int NT>
-  static __device__ __forceinline__ void scores(float (&c)[NT][4],
-                                                const float* a, const float* b,
-                                                int ld, int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    // one k step at a time: unrolled over D, ptxas loads every step's
-    // fragments up front and spills
-#pragma unroll 1
-    for (int ks = 0; ks < D / 8; ++ks) {
-      const float* a0 = a + g * ld + ks * 8 + t;
-      Tf32x3<4> fa;
-      fa.split(0, a0[0]);
-      fa.split(1, a0[8 * ld]);
-      fa.split(2, a0[4]);
-      fa.split(3, a0[8 * ld + 4]);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float* b0 = b + (nt * 8 + g) * ld + ks * 8 + t;
-        Tf32x3<2> fb;
-        fb.split(0, b0[0]);
-        fb.split(1, b0[4]);
-        // each k step summed in a fresh fragment, added in f32: a chain
-        // over D inside the tensor cores would bias S toward zero, and P =
-        // exp(S - L) with it
-        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        svt::mma_tf32x3(part, fa, fb);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) c[nt][i] += part[i];
-      }
-    }
-  }
-
-  template <int D, int NT, bool kHiLo>
-  static __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
-                                                    const float (&p)[NT][4],
-                                                    const float* b, int ld,
-                                                    int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    // C's (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1) as A's a0, a2,
-    // a1, a3: panel row 2t is k = t, row 2t + 1 is k = t + 4
-    Tf32x3<4> fa[NT];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      fa[nt].split(0, p[nt][0]);
-      fa[nt].split(1, p[nt][2]);
-      fa[nt].split(2, p[nt][1]);
-      fa[nt].split(3, p[nt][3]);
-    }
-    const float* b0 = b + 2 * t * ld + g;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      // this panel's share, summed in the tensor cores (3 NT products), then
-      // added to the running sum in f32 (tile_mma.cuh: truncation)
-      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        Tf32x3<2> fb;
-        fb.split(0, b0[nt * 8 * ld + dt * 8]);
-        fb.split(1, b0[(nt * 8 + 1) * ld + dt * 8]);
-        svt::mma_tf32x3(part, fa[nt], fb);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[dt][i] += part[i];
-    }
-  }
+  static constexpr int kPanel = 32;
+  static constexpr int kStages = 2;
+  static constexpr int kDqBlocks = 3;
+  static constexpr int kDkvBlocks = 2;
 };
 
 template <>
 struct Bwd<__nv_bfloat16> {
-  static constexpr int kPad = 8;
-  // the tiles of the bf16 instantiations
   static constexpr int kPanel = 32;
   static constexpr int kStages = 3;
   static constexpr int kDqBlocks = 4;
   static constexpr int kDkvBlocks = 3;
-  using T = __nv_bfloat16;
-
-  static __device__ __forceinline__ float bf16_round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-
-  template <int D, int NT>
-  static __device__ __forceinline__ void scores(float (&c)[NT][4],
-                                                const T* a, const T* b, int ld,
-                                                int lane) {
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      uint32_t fa[4];
-      svt::ldmatrix_x4(fa, a + (lane & 15) * ld + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        // rows np*16 + 0..7 then + 8..15, k halves 0..7 and 8..15 of each
-        uint32_t fb[4];
-        svt::ldmatrix_x4(fb, b + (np * 16 + (lane & 7) + (lane >> 4) * 8) * ld +
-                                 ks * 16 + ((lane >> 3) & 1) * 8);
-        svt::mma_bf16(c[2 * np], fa, fb[0], fb[1]);
-        svt::mma_bf16(c[2 * np + 1], fa, fb[2], fb[3]);
-      }
-    }
-  }
-
-  template <int D, int NT, bool kHiLo>
-  static __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
-                                                    const float (&p)[NT][4],
-                                                    const T* b, int ld,
-                                                    int lane) {
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      // C tiles 2kk and 2kk + 1 (k 0..7 and 8..15) as one k16 A tile:
-      // a0, a1 from tile 2kk's rows g and g + 8, a2, a3 from tile 2kk + 1's
-      uint32_t hi[4], lo[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float x0 = p[2 * kk + (r >> 1)][2 * (r & 1)];
-        const float x1 = p[2 * kk + (r >> 1)][2 * (r & 1) + 1];
-        hi[r] = svt::pack_bf16(x0, x1);
-        if constexpr (kHiLo)
-          lo[r] = svt::pack_bf16(x0 - bf16_round(x0), x1 - bf16_round(x1));
-      }
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        // k rows kk*16 + 0..15, columns dp*16 + 0..7 then + 8..15
-        uint32_t fb[4];
-        svt::ldmatrix_x4_trans(
-            fb, b + (kk * 16 + (lane & 15)) * ld + dp * 16 + (lane >> 4) * 8);
-        svt::mma_bf16(acc[2 * dp], hi, fb[0], fb[1]);
-        svt::mma_bf16(acc[2 * dp + 1], hi, fb[2], fb[3]);
-        if constexpr (kHiLo) {
-          svt::mma_bf16(acc[2 * dp], lo, fb[0], fb[1]);
-          svt::mma_bf16(acc[2 * dp + 1], lo, fb[2], fb[3]);
-        }
-      }
-    }
-  }
 };
-
-template <typename T, int D>
-__host__ __device__ constexpr int row_width() {
-  return D + Bwd<T>::kPad;
-}
-
-// two neighbouring outputs of a C fragment row
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 template <typename T, int D>
 constexpr size_t dq_smem_bytes() {
@@ -342,8 +193,8 @@ __global__ void __launch_bounds__(kThreads, Bwd<T>::kDqBlocks)
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.0f;
-    Bwd<T>::template scores<D, NT>(s, sq_w, sk, LD, lane);
-    Bwd<T>::template scores<D, NT>(dp, sdo_w, sv, LD, lane);
+    Warp<T>::template scores<D, NT>(s, sq_w, sk, LD, lane);
+    Warp<T>::template scores<D, NT>(dp, sdo_w, sv, LD, lane);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -355,7 +206,7 @@ __global__ void __launch_bounds__(kThreads, Bwd<T>::kDqBlocks)
         if constexpr (kDropout) dpv *= svt::keep(dr, hq[i], (uint32_t)col);
         s[nt][e] = p * (dpv - delta_r[i]) * scale;  // dS, in registers
       }
-    Bwd<T>::template accumulate<D, NT, false>(acc, s, sk, LD, lane);
+    Warp<T>::template accumulate<D, NT, false>(acc, s, sk, LD, lane);
   }
   svt::cp_async_wait<0>();
 
@@ -488,8 +339,8 @@ __global__ void __launch_bounds__(kThreads, Bwd<T>::kDkvBlocks)
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.0f;
-    Bwd<T>::template scores<D, NT>(st, sk_w, sq, LD, lane);
-    Bwd<T>::template scores<D, NT>(dpt, sv_w, sdo, LD, lane);
+    Warp<T>::template scores<D, NT>(st, sk_w, sq, LD, lane);
+    Warp<T>::template scores<D, NT>(dpt, sv_w, sdo, LD, lane);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       uint32_t hq[2] = {0u, 0u};
@@ -510,8 +361,8 @@ __global__ void __launch_bounds__(kThreads, Bwd<T>::kDkvBlocks)
         dpt[nt][e] = p * (dpt[nt][e] * mk - s_delta[ql]) * scale;  // dS
       }
     }
-    Bwd<T>::template accumulate<D, NT, true>(dv_acc, st, sdo, LD, lane);
-    Bwd<T>::template accumulate<D, NT, false>(dk_acc, dpt, sq, LD, lane);
+    Warp<T>::template accumulate<D, NT, true>(dv_acc, st, sdo, LD, lane);
+    Warp<T>::template accumulate<D, NT, false>(dk_acc, dpt, sq, LD, lane);
   }
   svt::cp_async_wait<0>();
 
@@ -526,26 +377,6 @@ __global__ void __launch_bounds__(kThreads, Bwd<T>::kDkvBlocks)
       store2(dvb + r * dvs.t + d, dv_acc[dt][2 * i], dv_acc[dt][2 * i + 1]);
     }
   }
-}
-
-// registers, local memory (bytes per thread: 0 = no spills), dynamic shared
-// memory per block and resident blocks per SM of one instantiation
-template <typename K>
-cudaError_t attributes(K kernel, size_t smem, int* out) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  cudaFuncAttributes a;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                        kThreads, smem);
-  if (err != cudaSuccess) return err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)smem;
-  out[3] = blocks;
-  return cudaSuccess;
 }
 
 }  // namespace
@@ -641,9 +472,9 @@ extern "C" int svt_flash_attention_bwd_attributes(int kernel, int dtype, int d,
     constexpr int D = decltype(dd)::value;
     constexpr bool kDrop = decltype(drop)::value;
     if (kernel == 0)
-      return attributes(flash_bwd_dq_kernel<T, D, kDrop>,
+      return svt::attributes(flash_bwd_dq_kernel<T, D, kDrop>,
                         dq_smem_bytes<T, D>(), out);
-    return attributes(flash_bwd_dkv_kernel<T, D, kDrop>,
+    return svt::attributes(flash_bwd_dkv_kernel<T, D, kDrop>,
                       dkv_smem_bytes<T, D>(), out);
   });
 }

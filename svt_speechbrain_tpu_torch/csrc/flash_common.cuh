@@ -1,18 +1,19 @@
 // Pieces shared by the attention kernels (flash_attention.cu: forward;
 // flash_attention_bwd.cu: the two backward programs).
 //
-// * Tile geometry: blocks of 4 warps over 64-row tiles of queries or keys,
-//   head dim D = 16 (TINY_ARCH) or 64 (wav2vec2-large).
+// * Block geometry: 4 warps over a 64-row tile of queries or keys, each
+//   warp owning 16 rows; head dim D = 16 (TINY_ARCH) or 64
+//   (wav2vec2-large).
 // * The in-kernel dropout hash, bit-identical to the JAX package's
 //   `_dropout_bits` / `_keep_scale` (svt_speechbrain_tpu/ops/
 //   flash_attention.py:65-95): chained murmur3 fmix32 finalizers over the
 //   GLOBAL score coordinates (seed, row = b*H + h, q, k), uint32 wraparound
 //   arithmetic. Every kernel regenerates the identical mask from those
 //   coordinates, whatever its tiling.
-// * Staging of a 64-row (T, D) panel into shared memory, row-major and/or
-//   transposed, zero past the array's end (the forward), and the
-//   asynchronous 16-byte copies of the backward's panel ring.
-// * `dispatch`: (dtype, D, dropout) at run time -> a template instantiation.
+// * The asynchronous 16-byte copies of the kernels' panel rings, zero past
+//   the array's end.
+// * `dispatch`: (dtype, D, dropout) at run time -> a template instantiation;
+//   `attributes`: what ptxas and the occupancy calculator made of one.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,9 +26,9 @@
 
 namespace svt {
 
-constexpr int kTile = 64;  // queries or keys per block tile and per panel
 constexpr int kWarps = 4;  // each warp owns 16 rows of the block's tile
 constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kWarps * 16;  // the block's own tile
 constexpr float kNegInf = -1e30f;
 
 struct Strides {
@@ -65,36 +66,22 @@ __device__ __forceinline__ float keep(const Dropout& dr, uint32_t hq,
   return fmix32((k * 0x85EBCA6Bu) ^ hq) >= dr.thresh ? dr.scale : 0.0f;
 }
 
-// padded shared-memory row widths: rows of D (row-major tiles) and rows of
-// 64 (transposed tiles, P/dS slabs); the padding keeps the fragment reads
-// of tile_mma.cuh bank-conflict free
-template <typename T, int D>
-__host__ __device__ constexpr int ld_d() {
-  return D + Num<T>::kPad;
+// a batch row's key length, clamped to [0, tk] (null: every key valid)
+__device__ __forceinline__ int clamp_len(const int* lengths, int b, int tk) {
+  const int len = lengths == nullptr ? tk : lengths[b];
+  return len < 0 ? 0 : (len > tk ? tk : len);
 }
 
-template <typename T>
-__host__ __device__ constexpr int ld_t() {
-  return kTile + Num<T>::kPad;
+// two neighbouring outputs of a C fragment row
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// rows [r0, r0 + 64) of a (T, D) panel (row stride `st`, unit stride on D)
-// into `dst` (row-major, row width `ld`) and/or `dst_t` (transposed: d rows
-// of width `ldt`); rows >= t are zero
-template <typename T, int D>
-__device__ __forceinline__ void stage(const T* __restrict__ src, long long st,
-                                      int r0, int t, T* dst, int ld, T* dst_t,
-                                      int ldt) {
-  const T zero = Num<T>::from_f32(0.0f);
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const T x = r0 + r < t ? src[(long long)(r0 + r) * st + d] : zero;
-    if (dst != nullptr) dst[r * ld + d] = x;
-    if (dst_t != nullptr) dst_t[d * ldt + r] = x;
-  }
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// Asynchronous copies into shared memory (the backward kernels' ring):
+// Asynchronous copies into shared memory (the kernels' panel rings):
 // `cp.async` of 16 (cg, past L1) or 4 (ca) bytes; `valid` false writes zeros
 // and reads nothing (src-size 0), though `src` must still be a valid address.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -177,6 +164,26 @@ cudaError_t allow_smem(K kernel, size_t smem, bool& configured) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess) configured = true;
   return err;
+}
+
+// registers, local memory (bytes per thread: 0 = no spills), dynamic shared
+// memory per block and resident blocks per SM of one instantiation
+template <typename K>
+cudaError_t attributes(K kernel, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncAttributes a;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        kThreads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  return cudaSuccess;
 }
 
 }  // namespace svt

@@ -133,10 +133,13 @@ template <> struct Tile<int8_t> {
 // the same order).
 // ---------------------------------------------------------------------------
 
+// cvt.rna.tf32.f32 as two integer operations: the magnitude rounded to 10
+// explicit mantissa bits, ties away from zero. Bit for bit the instruction's
+// result for every finite x (and for infinities and quiet NaNs); ptxas
+// expands the instruction into about twice as many operations, which guard
+// the other NaNs, and the f32 kernels split a value for every operand
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
 // N fragment registers, each split into its big and small TF32 parts

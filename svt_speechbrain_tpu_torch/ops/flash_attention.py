@@ -24,9 +24,10 @@ q, k, v are (B, H, T, D); ``lengths`` (B,) gives each batch row's valid key
 count (keys ≥ length are masked with −1e30; a row of length 0 yields
 zeros and zero gradients). On a CUDA tensor each wrapper launches its
 kernel or raises; on a CPU tensor it runs its plain PyTorch version, which
-is also the tests' oracle. The backward kernels copy rows in 16-byte
-pieces: their wrappers raise on rows that are not 16-byte aligned (the
-autograd Function hands them aligned copies of such inputs).
+is also the tests' oracle. The kernels copy rows in 16-byte pieces: the
+forward wrappers hand the kernel aligned copies of rows that are not
+16-byte aligned; the backward wrappers raise on them (the autograd Function
+hands them aligned copies).
 """
 from __future__ import annotations
 
@@ -46,7 +47,9 @@ _DROPOUT = [ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
             ctypes.c_float, ctypes.c_void_p]       # scale .. stream
 _FWD = {"svt_flash_attention_fwd":
         [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-        + _STRIDES * 4 + _DROPOUT}
+        + _STRIDES * 4 + _DROPOUT,
+        "svt_flash_attention_fwd_attributes":
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]}
 _BWD = {"svt_flash_attention_bwd_dq":
         [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
         + _STRIDES * 5 + _DROPOUT,
@@ -258,7 +261,7 @@ def _check_backward(q, dout, *rows):
 
 
 def _misaligned(t):
-    """Why ``t`` cannot feed the backward kernels, or None. They copy rows
+    """Why ``t`` cannot feed the attention kernels, or None. They copy rows
     into shared memory in 16-byte pieces (``cp.async``): the base address and
     the (batch, head, time) strides in bytes must be multiples of 16 (the
     stride of an axis of size 1 is never used)."""
@@ -280,9 +283,9 @@ def _check_aligned(*tensors):
 
 
 def _aligned(t):
-    """``t``, or a contiguous copy where the backward kernels cannot take it
-    as it is (a non-unit stride on D, e.g. the expanded gradient of a sum,
-    or rows that are not 16-byte aligned)."""
+    """``t``, or a contiguous copy where the attention kernels cannot take
+    it as it is (a non-unit stride on D, e.g. the expanded gradient of a
+    sum, or rows that are not 16-byte aligned)."""
     if t.stride(-1) == 1 and _misaligned(t) is None:
         return t
     return t.clone(memory_format=torch.contiguous_format)
@@ -310,12 +313,17 @@ def _dropout_args(scale, seed, rate):
     return [float(scale), 0, 0, 0, 1.0, _build.stream_handle()]
 
 
-def _launch_fwd(q, k, v, lengths, scale, lse, seed=0, rate=0.0):
+def _launch_fwd(q, k, v, lengths, scale, lse, seed=0, rate=0.0, lib=None):
+    """One launch of the forward body (``lib``: another build of
+    ``csrc/flash_attention.cu``, for timing tile variants). q, k and v are
+    copied where their rows are not 16-byte aligned (the kernel copies rows
+    in 16-byte pieces)."""
     _check_card(q, k, v)
+    q, k, v = (_aligned(t) for t in (q, k, v))
     b, h, tq, d = q.shape
     lens, lens_ptr = _lengths_ptr(lengths, q.device)
     out = _like_bthd(q)
-    lib = _build.load("flash_attention", _FWD)
+    lib = lib or _build.load("flash_attention", _FWD)
     err = lib.svt_flash_attention_fwd(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         lens_ptr, out.data_ptr(), None if lse is None else lse.data_ptr(),
@@ -390,6 +398,37 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, lengths=None,
     return dk, dv
 
 
+def _attribute_rows(query, kernels, what):
+    """``query(kernel_id, dtype_code, d, dropout, out)`` over every
+    instantiation: dicts with ``kernel``, ``dtype``, ``d``, ``dropout``,
+    ``registers`` (per thread), ``local_bytes`` (per thread: 0 means no
+    spills), ``smem_bytes`` (dynamic, per block) and ``blocks_per_sm``
+    (resident, at the kernels' 128 threads a block)."""
+    rows = []
+    for kernel_id, kernel in enumerate(kernels):
+        for dtype, code in _DTYPE_CODES.items():
+            for d in HEAD_DIMS:
+                for dropout in (0, 1):
+                    out = (ctypes.c_int * 4)()
+                    _build.check(query(kernel_id, code, d, dropout, out), what)
+                    rows.append(dict(
+                        kernel=kernel, dtype=str(dtype).split(".")[-1], d=d,
+                        dropout=bool(dropout), registers=out[0],
+                        local_bytes=out[1], smem_bytes=out[2],
+                        blocks_per_sm=out[3]))
+    return rows
+
+
+def forward_kernel_attributes(lib=None):
+    """Each instantiation of the forward body (kernels 2, 3 and 3b) on the
+    current card (``lib``: another build of ``csrc/flash_attention.cu``), as
+    ``backward_kernel_attributes``, ``kernel`` "fwd"."""
+    lib = lib or _build.load("flash_attention", _FWD)
+    return _attribute_rows(
+        lambda _, *args: lib.svt_flash_attention_fwd_attributes(*args),
+        ("fwd",), "flash_attention forward attributes")
+
+
 def backward_kernel_attributes():
     """Each instantiation of the two backward kernels on the current card:
     a list of dicts with ``kernel`` ("dq" or "dkv"), ``dtype``, ``d``,
@@ -397,21 +436,8 @@ def backward_kernel_attributes():
     0 means no spills), ``smem_bytes`` (dynamic, per block) and
     ``blocks_per_sm`` (resident, at the kernels' 128 threads a block)."""
     lib = _build.load("flash_attention_bwd", _BWD)
-    rows = []
-    for kernel_id, kernel in enumerate(("dq", "dkv")):
-        for dtype, code in _DTYPE_CODES.items():
-            for d in HEAD_DIMS:
-                for dropout in (0, 1):
-                    out = (ctypes.c_int * 4)()
-                    _build.check(lib.svt_flash_attention_bwd_attributes(
-                        kernel_id, code, d, dropout, out),
-                        "flash_attention backward attributes")
-                    rows.append(dict(
-                        kernel=kernel, dtype=str(dtype).split(".")[-1], d=d,
-                        dropout=bool(dropout), registers=out[0],
-                        local_bytes=out[1], smem_bytes=out[2],
-                        blocks_per_sm=out[3]))
-    return rows
+    return _attribute_rows(lib.svt_flash_attention_bwd_attributes,
+                           ("dq", "dkv"), "flash_attention backward attributes")
 
 
 # ---------------------------------------------------------------------------

@@ -160,3 +160,37 @@ def test_backward_wrappers_name_misaligned_rows(view):
     assert fa._misaligned(copy) is None and torch.equal(copy, t)
     fine = torch.zeros(2, 8, 3, 64).transpose(1, 2)     # (B, T, H, D) view
     assert fa._misaligned(fine) is None and fa._aligned(fine) is fine
+
+
+@pytest.mark.parametrize("view", ["offset", "time_stride"])
+@pytest.mark.parametrize("operand", [0, 1, 2])
+def test_forward_launch_hands_the_kernel_aligned_rows(monkeypatch, view,
+                                                      operand):
+    """The forward (kernels 2, 3, 3b) copies rows in 16-byte pieces too: its
+    launch replaces a q, k or v whose rows are not 16-byte aligned by an
+    aligned copy and passes aligned ones through. Checked on the CPU with a
+    stand-in library that records the pointers and strides it is given."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def svt_flash_attention_fwd(*args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(fa, "_check_card", lambda *ts: None)
+    monkeypatch.setattr(fa._build, "load", lambda *a, **k: Lib)
+    monkeypatch.setattr(fa._build, "stream_handle", lambda: None)
+    qkv = [torch.zeros(2, 3, 8, 16) for _ in range(3)]
+    if view == "offset":
+        qkv[operand] = torch.zeros(2 * 3 * 8 * 16 + 1)[1:].view(2, 3, 8, 16)
+    else:
+        qkv[operand] = torch.zeros(2, 3, 8, 17)[..., :16]
+    assert fa._misaligned(qkv[operand]) is not None
+    fa._launch_fwd(*qkv, None, None, None)
+    (args,) = calls
+    for i, t in enumerate(qkv):
+        ptr, strides = args[1 + i], args[12 + 3 * i:15 + 3 * i]
+        assert ptr % 16 == 0
+        assert all(st * 4 % 16 == 0 for st in strides), strides
+        assert (ptr == t.data_ptr()) == (i != operand)

@@ -186,10 +186,13 @@ def test_backward_one_key(cuda_device, dtype, d):
 @pytest.mark.parametrize("d", [16, 64])
 def test_backward_kernels_are_deterministic(cuda_device, dtype, d):
     """Each block owns its output rows (no atomics): two launches on the
-    same inputs give the same bits."""
+    same inputs give the same bits, forward (out and L) and backward."""
     q, k, v, dout = _train_inputs(cuda_device, dtype, d, 2, 3, 333, 555, 8)
     lengths = torch.tensor([555, 300], device=cuda_device)
     out, lse = fa.flash_attention_fwd_lse(q, k, v, lengths, None, 5, 0.1)
+    out2, lse2 = fa.flash_attention_fwd_lse(q, k, v, lengths, None, 5, 0.1)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert out.abs().max() > 0
     delta = (dout.float() * out.float()).sum(-1).contiguous()
     args = (q, k, v, dout, lse, delta, lengths, None, 5, 0.1)
     first = (fa.flash_attention_bwd_dq(*args),
@@ -200,6 +203,45 @@ def test_backward_kernels_are_deterministic(cuda_device, dtype, d):
     for a, b, name in zip(first, second, ("dq", "dk", "dv")):
         assert torch.equal(a, b), name
         assert a.abs().max() > 0, name
+
+
+def test_forward_kernel_does_not_spill(cuda_device):
+    """Every instantiation of the forward body (kernels 2, 3 and 3b; f32 and
+    bf16, D 16 and 64, with and without dropout): no local memory (no
+    spills) and at least 8 warps resident per SM."""
+    rows = fa.forward_kernel_attributes()
+    assert len(rows) == 8
+    for r in rows:
+        assert r["local_bytes"] == 0, r
+        assert r["blocks_per_sm"] * 4 >= 8, r
+
+
+@pytest.mark.parametrize("view", ["offset", "time_stride"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_wrappers_take_misaligned_rows(cuda_device, view, dtype):
+    """The forward copies rows in 16-byte pieces: its wrappers hand it
+    aligned copies of views whose rows are not 16-byte aligned, with the
+    plain version's result."""
+    q, k, v, _ = _train_inputs(cuda_device, dtype, 16, 2, 2, 40, 40, 6)
+    if view == "offset":
+        flat = torch.zeros(q.numel() + 1, device=cuda_device, dtype=dtype)
+        bad = flat[1:].view(q.shape)
+    else:
+        bad = torch.zeros(*q.shape[:3], 17, device=cuda_device,
+                          dtype=dtype)[..., :16]
+    bad.copy_(q)
+    assert fa._misaligned(bad) is not None
+    lengths = torch.tensor([40, 23], device=cuda_device)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+    for fn in (fa.flash_attention_short, fa.flash_attention):
+        got = fn(bad, k, v, lengths)
+        want = fa.attention_reference(q, k, v, lengths)
+        assert (got.float() - want.float()).abs().max().item() <= tol
+    out, lse = fa.flash_attention_fwd_lse(bad, bad, v, lengths, None, 3, 0.1)
+    want, want_lse = fa.attention_lse_reference(q, q, v, lengths, None, 3,
+                                                0.1)
+    assert (out.float() - want.float()).abs().max().item() <= tol
+    assert (lse - want_lse).abs().max().item() <= 1e-3
 
 
 def test_backward_kernels_do_not_spill(cuda_device):

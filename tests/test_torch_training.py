@@ -280,6 +280,22 @@ def test_bf16_precision_casts_parameters_and_keeps_f32_masters():
     assert brain.optimizer_step == 1
 
 
+@pytest.mark.parametrize("where,factor", [("run_opts", 1),
+                                          ("run_opts", 2), ("hparams", 2)])
+def test_grad_accumulation_is_refused_until_ported(where, factor):
+    """The JAX Brain splits a batch into ``grad_accumulation_factor``
+    micro-batches; the port has no accumulation yet, so it refuses any
+    factor but 1 instead of silently training on the whole batch."""
+    opts = {"grad_accumulation_factor": factor}
+    kwargs = {"run_opts": {"device": "cpu", **opts}} if where == "run_opts" \
+        else {"run_opts": {"device": "cpu"}, "hparams": {"seed": 0, **opts}}
+    if factor == 1:
+        assert Brain({"model": Linear(2, 2)}, **kwargs).device.type == "cpu"
+        return
+    with pytest.raises(NotImplementedError, match="item 10"):
+        Brain({"model": Linear(2, 2)}, **kwargs)
+
+
 def test_nonfinite_steps_are_skipped_then_raise():
     class Nan(Brain):
         def compute_forward(self, batch, stage, rng=None):
