@@ -8,17 +8,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. build the CUDA kernels from ``svt_speechbrain_tpu_torch/csrc`` with nvcc,
    and hold every instantiation of the attention forward (kernels 2, 3, 3b)
    and of the backward kernels 4a and 4b to no spills and at least 8
-   resident warps an SM;
+   resident warps an SM, and every instantiation of the frontend kernels
+   (layer 0, layers 1-6) to no spills, printing registers, shared memory
+   and resident blocks of each;
 2. hold each kernel against its plain PyTorch version at main-path shapes,
-   in bf16 and in f32 (TF32 off);
+   in bf16 and in f32 (TF32 off); the frontend at wav (8, 80000), at the
+   30 s song window (1, 480000) and on a (3, 16123) view one sample into
+   its storage;
 3. serve wav2vec2-large-lv60 AMT (24 layers, 1024 wide, 16 heads, seeded
    random weights) through ``BatchedAMTTranscriber`` at 5 s chunks, batch 8,
    bf16, on synthetic songs, counting kernel launches; and compare one
    2-chunk batch in f32 against the same port on the CPU;
 4. one song at ``chunking="song"`` (a 30 s window, the streaming kernel);
 5. time each kernel, its plain version and its library yardstick at the
-   main-path shapes, beside its bound (by route: 3b, 4a and 4b in f32 run
-   three TF32 tensor-core products per product);
+   main-path shapes, beside its bound (by route: 3b, 4a, 4b and the f32
+   frontend run three TF32 tensor-core products per product); the
+   frontend also layer by layer (each layer's device time a launch from
+   torch.profiler beside its bound), in f32, and beside the eager library
+   chain of the same function (cuDNN conv1d, LayerNorm, GELU);
 6. train ``AudioAMT`` on lv60 at full width and depth with the recipe's
    hyperparameters (f32, all dropouts 0.1), batch 8 of 30 s rows: one
    linear-probe step, a warm-up and 3 timed full-finetune steps, counting
@@ -336,6 +343,27 @@ def check_attention_build(report):
                                  f"warps an SM: {r}")
 
 
+def check_frontend_build(report):
+    """The frontend kernels (layer 0, layers 1-6; f32 and bf16; each C the
+    kernel takes): no instantiation spills (ptxas, where the source was
+    built now, and the local memory the runtime reports); prints
+    registers, shared memory and resident blocks."""
+    if "conv_frontend" in report:
+        spills = [line.strip() for line in
+                  report["conv_frontend"][1].splitlines() if "spill" in line]
+        bad = [line for line in spills
+               if "0 bytes spill stores, 0 bytes spill loads" not in line]
+        if not spills or bad:
+            raise AssertionError(f"conv_frontend spills: {bad}")
+    for r in cf.frontend_kernel_attributes():
+        log(f"  conv_frontend {r['kernel']} {r['dtype']} C={r['c']}: "
+            f"{r['registers']} registers, {r['local_bytes']} bytes local, "
+            f"{r['smem_bytes']} bytes shared a block, {r['blocks_per_sm']} "
+            f"blocks (8 warps each) an SM")
+        if r["local_bytes"] != 0:
+            raise AssertionError(f"conv_frontend kernel spills: {r}")
+
+
 # ---------------------------------------------------------------- phase 2
 def attention_inputs(shape, lengths, dtype, gen):
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -362,24 +390,41 @@ def check_attention(name, wrapper, shape, lengths, gen, errs):
         errs[(name, tag)] = err
 
 
+def frontend_wavs(gen):
+    """Phase 2's frontend inputs: chunked serving's batch, the 30 s song
+    window, and a (3, 16123) view one sample into its storage (an odd
+    length at an odd offset: layer 0 takes it as it is)."""
+    flat = torch.randn(3 * 16123 + 1, generator=gen, device="cuda")
+    return (("(8, 80000)", torch.randn(8, 80000, generator=gen,
+                                       device="cuda")),
+            ("(1, 480000)", torch.randn(1, 480000, generator=gen,
+                                        device="cuda")),
+            ("(3, 16123) at offset 1", flat))
+
+
 def check_frontend(extractor, gen, errs):
-    wav = torch.randn(8, 80000, generator=gen, device="cuda")
-    for tag, dtype in DTYPES.items():
-        x = wav.to(dtype)
-        packed = extractor.packed(dtype)
-        got = cf.fused_conv_frontend(x, packed)
-        torch.cuda.synchronize()
-        want = cf.conv_frontend_reference(x, packed)
-        err = (got.float() - want.float()).abs().max().item()
-        ok = (got.shape == (8, 249, 512) and torch.isfinite(got).all().item()
-              and err <= TOL[("conv_frontend", tag)])
-        log(f"  conv_frontend {tag} (8, 80000)->{tuple(got.shape)}: "
-            f"max_abs_err={err:.3e} tol={TOL[('conv_frontend', tag)]:.1e} "
-            f"-> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"conv_frontend {tag} disagrees with its "
-                                 f"plain version")
-        errs[("conv_frontend", tag)] = err
+    for case, wav in frontend_wavs(gen):
+        for tag, dtype in DTYPES.items():
+            if case.endswith("offset 1"):
+                x = wav.to(dtype)[1:].view(3, 16123)
+            else:
+                x = wav.to(dtype)
+            packed = extractor.packed(dtype)
+            got = cf.fused_conv_frontend(x, packed)
+            torch.cuda.synchronize()
+            want = cf.conv_frontend_reference(x, packed)
+            err = (got.float() - want.float()).abs().max().item()
+            shape = (x.shape[0], cf.output_frames(x.shape[1]), 512)
+            ok = (got.shape == shape and torch.isfinite(got).all().item()
+                  and err <= TOL[("conv_frontend", tag)])
+            log(f"  conv_frontend {tag} {case}->{tuple(got.shape)}: "
+                f"max_abs_err={err:.3e} tol={TOL[('conv_frontend', tag)]:.1e}"
+                f" -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"conv_frontend {tag} {case} disagrees "
+                                     f"with its plain version")
+            errs[("conv_frontend", tag)] = max(
+                err, errs.get(("conv_frontend", tag), 0.0))
 
 
 def _max_abs(got, want):
@@ -582,6 +627,24 @@ def profile_run(fn, top=10):
     return 1 - busy / window
 
 
+def kernel_device_ms(fn, match, reps=10):
+    """Mean device time, ms a launch, of the kernels whose name holds
+    ``match`` over ``reps`` calls of ``fn`` (torch.profiler: the kernels' own
+    intervals, without the host's launch time); None if none was seen."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [ev.time_range.end - ev.time_range.start for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and match in ev.name]
+    return sum(spans) / len(spans) / 1e3 if spans else None
+
+
 def check_frames(tr, songs):
     frames = tr.predict_frames(songs)
     for name, wav in songs.items():
@@ -638,6 +701,19 @@ def frontend_cost(b, t, c, itemsize):
     return flops, nbytes
 
 
+def frontend_layer_costs(b, t, c, itemsize):
+    """Per layer: (k, s, T_out, K, flops, bytes): the input read once, the
+    weights once, the output written once, bias and LayerNorm affine f32."""
+    out, tin, cin = [], t, 1
+    for k, s in zip(cf.KERNELS, cf.STRIDES):
+        tout = (tin - k) // s + 1
+        nbytes = ((b * tin * cin + k * cin * c + b * tout * c) * itemsize
+                  + 3 * c * 4)
+        out.append((k, s, tout, k * cin, 2 * b * tout * k * cin * c, nbytes))
+        tin, cin = tout, c
+    return out
+
+
 def attention_cost(shape, lengths, itemsize):
     """What this run's lengths need: QK^T and PV over the valid keys; q read
     for rows with keys, k and v read up to each length, out written whole."""
@@ -680,6 +756,30 @@ def timings(bridge, gen):
                          iters=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape="wav (8, 80000) bf16 -> (8, 249, 512)")
+    rows.update(frontend_layer_timings(extractor, gen))
+    # f32: bound by route (three TF32 products per product)
+    wav32 = wav.float()
+    packed32 = extractor.packed(torch.float32)
+    flops, nbytes = frontend_cost(8, 80000, 512, 4)
+    b_ms, b_by = bound(TF32_PRODUCTS * flops, nbytes, PEAK_TF32)
+    log(f"  conv_frontend f32 bound by route (3 x TF32 at 495 TFLOP/s) "
+        f"{b_ms:.4f} ms; at f32's 67 TFLOP/s outside the tensor cores "
+        f"{bound(flops, nbytes, PEAK_F32)[0]:.4f} ms")
+    rows["conv_frontend f32"] = dict(
+        ms=time_ms(lambda: cf.fused_conv_frontend(wav32, packed32), iters=20),
+        plain_ms=time_ms(lambda: cf.conv_frontend_reference(wav32, packed32),
+                         iters=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape="wav (8, 80000) f32 -> (8, 249, 512)")
+    # context: the eager library chain of the same function (cuDNN conv1d,
+    # LayerNorm, GELU: 21 launches, so not one call and not library_ms)
+    eager = copy.deepcopy(extractor).to(torch.bfloat16)
+    with torch.inference_mode():
+        eager_ms = time_ms(lambda: eager(wav, fused=False), iters=20)
+    log(f"  context: eager chain ConvFeatureExtractor.forward(wav, "
+        f"fused=False) on (8, 80000) bf16 (cuDNN conv1d + LayerNorm + GELU "
+        f"per layer): {eager_ms:.4f} ms")
+    del eager
     for name, wrapper, shape, lengths in (
             ("flash_attention_short", fa.flash_attention_short,
              (8, 16, 249, 64), SHORT_LENGTHS),
@@ -723,6 +823,37 @@ def timings(bridge, gen):
             f"{dq['ms'] + dkv['ms']:.4f} ms against one SDPA backward (dQ, "
             f"dK and dV in one call; the library_ms of both rows) "
             f"{dq['library_ms']:.4f} ms")
+    return rows
+
+
+def frontend_layer_timings(extractor, gen):
+    """Each frontend layer alone at wav (8, 80000) in bf16, on the plain
+    version's input to it, beside its own bound and plain version: ms
+    through the wrapper (the host's launch time for the small layers) and
+    the kernel's device time a launch from the profiler."""
+    rows = {}
+    lib = _build.load("conv_frontend", cf._SIGNATURES)
+    packed = extractor.packed(torch.bfloat16)
+    x = torch.randn(8, 80000, generator=gen, device="cuda").bfloat16()
+    for i, (layer, cost) in enumerate(zip(
+            packed, frontend_layer_costs(8, 80000, 512, 2))):
+        k, s, tout, kk, flops, nbytes = cost
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
+        inp = x[..., None] if i == 0 else x
+        launch = lambda: cf._launch_layer(lib, x, layer, 1e-5)  # noqa: E731
+        dev = kernel_device_ms(launch, "conv_ln_gelu")
+        log(f"  conv_frontend layer {i} device time a launch (profiler): "
+            + ("not measured" if dev is None else
+               f"{dev:.4f} ms, {dev / b_ms:.2f}x its bound {b_ms:.4f} "
+               f"({b_by})"))
+        rows[f"conv_frontend layer {i}"] = dict(
+            ms=time_ms(launch),
+            plain_ms=time_ms(lambda: cf._reference_layer(inp, layer, 1e-5),
+                             iters=5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=f"k={k} s={s} K={kk} T_out={tout} bf16, "
+                  f"{flops / 1e9:.2f} GFLOP")
+        x = cf._reference_layer(inp, layer, 1e-5)
     return rows
 
 
@@ -1836,6 +1967,7 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"  [{name}] {line.strip()}")
     check_attention_build(report)
+    check_frontend_build(report)
 
     log("phase 2: each kernel against its plain version, bf16 and f32")
     bridge, head = lv60_modules()

@@ -10,8 +10,8 @@
 //   GLOBAL score coordinates (seed, row = b*H + h, q, k), uint32 wraparound
 //   arithmetic. Every kernel regenerates the identical mask from those
 //   coordinates, whatever its tiling.
-// * The asynchronous 16-byte copies of the kernels' panel rings, zero past
-//   the array's end.
+// * The panel copies of the kernels' rings (16-byte cp.async,
+//   async_copy.cuh), zero past the array's end.
 // * `dispatch`: (dtype, D, dropout) at run time -> a template instantiation;
 //   `attributes`: what ptxas and the occupancy calculator made of one.
 #pragma once
@@ -22,6 +22,7 @@
 
 #include <type_traits>
 
+#include "async_copy.cuh"
 #include "tile_mma.cuh"
 
 namespace svt {
@@ -72,44 +73,6 @@ __device__ __forceinline__ int clamp_len(const int* lengths, int b, int tk) {
   return len < 0 ? 0 : (len > tk ? tk : len);
 }
 
-// two neighbouring outputs of a C fragment row
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// Asynchronous copies into shared memory (the kernels' panel rings):
-// `cp.async` of 16 (cg, past L1) or 4 (ca) bytes; `valid` false writes zeros
-// and reads nothing (src-size 0), though `src` must still be a valid address.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // rows [r0, r0 + ROWS) of a (T, D) panel (row stride `st` elements, unit
 // stride on D) into `dst` (row width `ld`) by 16-byte cp.async from all
 // THREADS threads; rows >= t are zero. The source rows and `dst`'s rows must
@@ -153,17 +116,6 @@ cudaError_t dispatch(int dtype, int d, int dropout, F&& f) {
   if (dtype == 0) return by_drop(TypeTag<float>{});
   if (dtype == 1) return by_drop(TypeTag<__nv_bfloat16>{});
   return cudaErrorInvalidValue;
-}
-
-// Opt a kernel into more than 48 KB of dynamic shared memory (once per
-// kernel instantiation: `configured` is the caller's static flag).
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem, bool& configured) {
-  if (configured) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) configured = true;
-  return err;
 }
 
 // registers, local memory (bytes per thread: 0 = no spills), dynamic shared

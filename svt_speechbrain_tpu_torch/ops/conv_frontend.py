@@ -38,7 +38,9 @@ RECEPTIVE = 400                       # samples per output frame
 KERNEL_CHANNELS = (64, 128, 256, 512)  # C the CUDA kernel is built for
 
 _SIGNATURES = {"svt_conv_ln_gelu": [ctypes.c_int] + [ctypes.c_void_p] * 6
-               + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]}
+               + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+               "svt_conv_frontend_attributes": [ctypes.c_int] * 3
+               + [ctypes.POINTER(ctypes.c_int)]}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -131,31 +133,69 @@ def _check(wav, packed):
                              "device (pack_weights with that dtype)")
 
 
-def _launch(wav, packed, eps):
-    """Seven kernel launches, one per layer."""
+def _launch_layer(lib, x, layer, eps):
+    """One launch: x (B, T_in, C_in), or the wav (B, T) for layer 0, →
+    (B, T_out, C). Layer 0 takes its rows at any alignment (its kernel
+    loads samples one by one); layers 1-6 copy 16-byte pieces and take only
+    16-byte aligned operands, which the wrapper's own outputs and packed
+    weights are."""
+    b, tin = x.shape[:2]
+    cin = 1 if x.dim() == 2 else x.shape[2]
+    c = layer.wt.shape[0]
+    if cin > 1 and any(t.data_ptr() % 16 for t in (x, layer.wt)):
+        raise ValueError("conv_frontend layers 1-6 need 16-byte aligned "
+                         "inputs and weights")
+    tout = (tin - layer.kernel) // layer.stride + 1
+    out = torch.empty(b, tout, c, device=x.device, dtype=x.dtype)
+    err = lib.svt_conv_ln_gelu(
+        _DTYPE_CODES[x.dtype], x.data_ptr(), layer.wt.data_ptr(),
+        layer.bias.data_ptr(), layer.gamma.data_ptr(),
+        layer.beta.data_ptr(), out.data_ptr(), b, tin, cin, layer.kernel,
+        layer.stride, tout, c, eps, _build.stream_handle())
+    _build.check(err, "conv_frontend kernel launch")
+    fused_conv_frontend.launches += 1
+    return out
+
+
+def _launch(wav, packed, eps, lib=None):
+    """Seven kernel launches, one per layer (``lib``: another build of
+    ``csrc/conv_frontend.cu``, for timing variants). A wav whose rows are
+    not contiguous is copied; a contiguous one is taken as it is, at any
+    offset or length."""
     if wav.dtype not in _DTYPE_CODES:
         raise ValueError(f"the CUDA frontend takes f32 or bf16, not {wav.dtype}")
     c = packed[0].wt.shape[0]
     if c not in KERNEL_CHANNELS or any(l.wt.shape[0] != c for l in packed):
         raise ValueError(f"the CUDA frontend needs uniform C in "
                          f"{KERNEL_CHANNELS}, got {[l.wt.shape[0] for l in packed]}")
-    lib = _build.load("conv_frontend", _SIGNATURES)
+    lib = lib or _build.load("conv_frontend", _SIGNATURES)
     x = wav.contiguous()
-    b, tin = x.shape
-    cin = 1
-    stream = _build.stream_handle()
     for layer in packed:
-        tout = (tin - layer.kernel) // layer.stride + 1
-        out = torch.empty(b, tout, c, device=x.device, dtype=x.dtype)
-        err = lib.svt_conv_ln_gelu(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), layer.wt.data_ptr(),
-            layer.bias.data_ptr(), layer.gamma.data_ptr(),
-            layer.beta.data_ptr(), out.data_ptr(), b, tin, cin,
-            layer.kernel, layer.stride, tout, c, eps, stream)
-        _build.check(err, "conv_frontend kernel launch")
-        fused_conv_frontend.launches += 1
-        x, tin, cin = out, tout, c
+        x = _launch_layer(lib, x, layer, eps)
     return x
+
+
+def frontend_kernel_attributes(lib=None):
+    """Each instantiation of the frontend kernels on the current card
+    (``lib``: another build of ``csrc/conv_frontend.cu``): dicts with
+    ``kernel`` ("layer 0" or "layers 1-6"), ``dtype``, ``c``, ``registers``
+    (per thread), ``local_bytes`` (per thread: 0 means no spills),
+    ``smem_bytes`` (dynamic, per block) and ``blocks_per_sm`` (resident at
+    256 threads a block)."""
+    lib = lib or _build.load("conv_frontend", _SIGNATURES)
+    rows = []
+    for first, kernel in ((1, "layer 0"), (0, "layers 1-6")):
+        for dtype, code in _DTYPE_CODES.items():
+            for c in KERNEL_CHANNELS:
+                out = (ctypes.c_int * 4)()
+                _build.check(lib.svt_conv_frontend_attributes(code, c, first,
+                                                              out),
+                             "conv_frontend attributes")
+                rows.append(dict(kernel=kernel,
+                                 dtype=str(dtype).split(".")[-1], c=c,
+                                 registers=out[0], local_bytes=out[1],
+                                 smem_bytes=out[2], blocks_per_sm=out[3]))
+    return rows
 
 
 class _FusedFrontend(torch.autograd.Function):

@@ -45,22 +45,63 @@ def _extractor(c, seed):
 
 
 # tolerances as in chip_smoke.py: f32 differs by summation order and erff;
-# bf16 by a few ulp of the last layer's bf16 output
-@pytest.mark.parametrize("c", [128, 512])
+# bf16 by a few ulp of the last layer's bf16 output. Cases: (C, wav shape,
+# view): a ragged length, chunked serving's batch, the 30 s song window, a
+# wav one sample into its storage (layer 0 takes it as it is); C 64 and 256
+# run the same kernels with narrower warp tiles
+FRONTEND_CASES = [(128, (2, 16123), "plain"), (512, (2, 16123), "plain"),
+                  (512, (8, 80000), "plain"), (512, (1, 480000), "plain"),
+                  (512, (3, 16123), "offset"), (64, (2, 16123), "plain"),
+                  (256, (3, 16123), "offset")]
+
+
+def _frontend_wav(device, shape, view, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = shape[0] * shape[1]
+    flat = torch.randn(n + 1, generator=gen, device=device).to(dtype)
+    return flat[1:].view(shape) if view == "offset" else flat[:n].view(shape)
+
+
+@pytest.mark.parametrize("c,shape,view", FRONTEND_CASES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
                                        (torch.bfloat16, 6.25e-2)])
-def test_conv_frontend_kernel_matches_plain(cuda_device, c, dtype, tol):
+def test_conv_frontend_kernel_matches_plain(cuda_device, c, shape, view,
+                                            dtype, tol):
     ext = _extractor(c, 0).to(cuda_device)
-    gen = torch.Generator(device=cuda_device).manual_seed(1)
-    wav = torch.randn(2, 16000 + 123, generator=gen, device=cuda_device)
+    wav = _frontend_wav(cuda_device, shape, view, dtype, 1)
     packed = ext.packed(dtype)
     before = cf.fused_conv_frontend.launches
-    got = cf.fused_conv_frontend(wav.to(dtype), packed)
+    got = cf.fused_conv_frontend(wav, packed)
     torch.cuda.synchronize()
     assert cf.fused_conv_frontend.launches == before + 7
-    want = cf.conv_frontend_reference(wav.to(dtype), packed)
-    assert got.shape == want.shape == (2, cf.output_frames(16123), c)
+    want = cf.conv_frontend_reference(wav, packed)
+    assert got.shape == want.shape == (shape[0],
+                                       cf.output_frames(shape[1]), c)
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_conv_frontend_kernels_do_not_spill(cuda_device):
+    """Every instantiation of the frontend kernels (layer 0 and layers 1-6;
+    f32 and bf16; C 64, 128, 256, 512): no local memory (no spills), and
+    each fits on an SM."""
+    rows = cf.frontend_kernel_attributes()
+    assert len(rows) == 16
+    for r in rows:
+        assert r["local_bytes"] == 0, r
+        assert r["blocks_per_sm"] >= 1, r
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_frontend_kernel_is_deterministic(cuda_device, dtype):
+    """Each block owns its output rows: two calls give the same bits."""
+    ext = _extractor(512, 4).to(cuda_device)
+    wav = _frontend_wav(cuda_device, (3, 16123), "offset", dtype, 5)
+    packed = ext.packed(dtype)
+    first = cf.fused_conv_frontend(wav, packed)
+    second = cf.fused_conv_frontend(wav, packed)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert first.abs().max() > 0
 
 
 # f32: summation order and expf; bf16: P rounded to bf16 before P·V
