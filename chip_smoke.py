@@ -9,8 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and hold every instantiation of the attention forward (kernels 2, 3, 3b)
    and of the backward kernels 4a and 4b to no spills and at least 8
    resident warps an SM, and every instantiation of the frontend kernels
-   (layer 0, layers 1-6) to no spills, printing registers, shared memory
-   and resident blocks of each;
+   (layer 0, layers 1-6) and of the int8 kernel (f32, bf16) to no spills,
+   printing registers, shared memory and resident blocks of each (and for
+   the int8 kernel the clusters of each size resident on the card);
 2. hold each kernel against its plain PyTorch version at main-path shapes,
    in bf16 and in f32 (TF32 off); the frontend at wav (8, 80000), at the
    30 s song window (1, 480000) and on a (3, 16123) view one sample into
@@ -69,9 +70,14 @@ Phases 2 and 5 also hold and time the two RNN-T kernels (the lattice on
 alpha and on beta panels, the gradient) against their plain versions at the
 training shape (8, 749, 81, 1000) and at (4, 64, 17, 32), and time autograd
 through the plain ``transducer_loss`` beside them. Phase 2 also holds the
-int8 kernel's integers bit for bit against the plain quantizer; phase 5
-also times it beside ``torch._int_mm`` with an eager quantize pass and
-beside the bf16 ``torch.matmul`` of the same shape.
+int8 kernel's integers bit for bit against the plain quantizer at six
+shapes (the attention projections of ``quantize_attn`` among them); phase 5
+also times it at the four shapes of int8 serving, as the profiler's device
+time a launch beside the time through the wrapper, beside ``torch._int_mm``
+with an eager quantize pass (its library route) and, alone, beside
+``torch._int_mm`` and the bf16 ``torch.matmul`` of the same shape; phase 8
+prints its device time in one batch and its share of the batch's kernel
+time.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON line and the result line
@@ -187,7 +193,11 @@ INT8_RTOL = {"f32": 1e-6, "bf16": 2.0 ** -8}
 # (M, K, N): feat_proj, ffn1 and ffn2 of a chunked batch (8 x 249 frames),
 # ffn1 of a 30 s song window, ffn2 of one streamed 5 s window
 INT8_SHAPES = ((1992, 512, 1024), (1992, 1024, 4096), (1992, 4096, 1024),
-               (1499, 1024, 4096), (249, 4096, 1024))
+               (1499, 1024, 4096), (249, 4096, 1024), (1992, 1024, 1024))
+# timed in phase 5: feat_proj, ffn1, ffn2 of a chunked batch and the
+# attention projections of ``quantize_attn``
+INT8_TIMED = ((1992, 512, 1024), (1992, 1024, 4096), (1992, 4096, 1024),
+              (1992, 1024, 1024))
 INT8_ROW = (1992, 1024, 4096)       # the shape of the kernels line
 # how far int8 serving may stray from float serving on random weights, per
 # frame: the onset and offset decisions, and the pitch class (an argmax
@@ -319,19 +329,25 @@ def songs_for(rng, seconds, int16_index=None):
     return songs
 
 
+def check_ptxas_spills(report, source):
+    """Where ``source`` was built now, ptxas reports no spill in any of its
+    instantiations."""
+    if source in report:
+        spills = [line.strip() for line in report[source][1].splitlines()
+                  if "spill" in line]
+        bad = [line for line in spills
+               if "0 bytes spill stores, 0 bytes spill loads" not in line]
+        if not spills or bad:
+            raise AssertionError(f"{source} spills: {bad}")
+
+
 def check_attention_build(report):
     """The attention forward (kernels 2, 3, 3b) and backward (4a, 4b): no
     instantiation spills (ptxas, where the source was built now, and the
     local memory the runtime reports) and each keeps at least 8 warps
     resident per SM; prints registers, shared memory and resident warps."""
     for source in ("flash_attention", "flash_attention_bwd"):
-        if source in report:
-            spills = [line.strip() for line in report[source][1].splitlines()
-                      if "spill" in line]
-            bad = [line for line in spills
-                   if "0 bytes spill stores, 0 bytes spill loads" not in line]
-            if not spills or bad:
-                raise AssertionError(f"{source} spills: {bad}")
+        check_ptxas_spills(report, source)
     for r in fa.forward_kernel_attributes() + fa.backward_kernel_attributes():
         warps = r["blocks_per_sm"] * 4
         log(f"  attention {r['kernel']} {r['dtype']} D={r['d']} dropout="
@@ -348,13 +364,7 @@ def check_frontend_build(report):
     kernel takes): no instantiation spills (ptxas, where the source was
     built now, and the local memory the runtime reports); prints
     registers, shared memory and resident blocks."""
-    if "conv_frontend" in report:
-        spills = [line.strip() for line in
-                  report["conv_frontend"][1].splitlines() if "spill" in line]
-        bad = [line for line in spills
-               if "0 bytes spill stores, 0 bytes spill loads" not in line]
-        if not spills or bad:
-            raise AssertionError(f"conv_frontend spills: {bad}")
+    check_ptxas_spills(report, "conv_frontend")
     for r in cf.frontend_kernel_attributes():
         log(f"  conv_frontend {r['kernel']} {r['dtype']} C={r['c']}: "
             f"{r['registers']} registers, {r['local_bytes']} bytes local, "
@@ -362,6 +372,21 @@ def check_frontend_build(report):
             f"blocks (8 warps each) an SM")
         if r["local_bytes"] != 0:
             raise AssertionError(f"conv_frontend kernel spills: {r}")
+
+
+def check_int8_build(report):
+    """The int8 kernel (f32 and bf16): no spills (ptxas, where the source
+    was built now, and the local memory the runtime reports); prints
+    registers, shared memory, resident blocks and the clusters of each size
+    resident on the card."""
+    check_ptxas_spills(report, "quant_matmul")
+    for r in quant.int8_kernel_attributes():
+        log(f"  int8_matmul {r['dtype']}: {r['registers']} registers, "
+            f"{r['local_bytes']} bytes local, {r['smem_bytes']} bytes shared "
+            f"a block, {r['blocks_per_sm']} blocks (8 warps each) an SM, "
+            f"clusters resident by size {r['clusters']}")
+        if r["local_bytes"] != 0:
+            raise AssertionError(f"int8 kernel spills: {r}")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -627,22 +652,28 @@ def profile_run(fn, top=10):
     return 1 - busy / window
 
 
-def kernel_device_ms(fn, match, reps=10):
+def kernel_device_ms(fn, match, reps=10, windows=3):
     """Mean device time, ms a launch, of the kernels whose name holds
     ``match`` over ``reps`` calls of ``fn`` (torch.profiler: the kernels' own
-    intervals, without the host's launch time); None if none was seen."""
+    intervals, without the host's launch time); None if none was seen in
+    any of ``windows`` profiled windows (a window sometimes comes back
+    without device events)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [ev.time_range.end - ev.time_range.start for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA
-             and match in ev.name]
-    return sum(spans) / len(spans) / 1e3 if spans else None
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [ev.time_range.end - ev.time_range.start
+                 for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and match in ev.name]
+        if spans:
+            return sum(spans) / len(spans) / 1e3
+    return None
 
 
 def check_frames(tr, songs):
@@ -865,14 +896,20 @@ def eager_int8_matmul(x, w8, w_scale):
     return ((acc.float() * x_scale) * w_scale).to(x.dtype)
 
 
+def _ms(t):
+    return "not measured" if t is None else f"{t:.4f}"
+
+
 def int8_timings(gen):
-    """Kernel 5 in bf16 at the three shapes of a chunked batch: beside its
+    """Kernel 5 in bf16 at the four shapes of int8 serving: its device time
+    a launch (torch.profiler) beside its time through the wrapper, its
     bound (x, w8, w_scale read once, the output written once; 2·M·K·N
-    operations against the int8 tensor-core peak), its plain version, the
-    library's int8 route and the bf16 ``torch.matmul`` it has to beat. The
+    operations against the int8 tensor-core peak), its plain version and
+    the library's int8 route; and, as context, bf16 ``torch.matmul`` and
+    ``torch._int_mm`` alone (device time a launch / through the call). The
     kernels line takes the ffn1 shape."""
     rows = {}
-    for m, k, n in INT8_SHAPES[:3]:
+    for m, k, n in INT8_TIMED:
         x, w8, ws = int8_inputs(m, k, n, torch.bfloat16, gen)
         w8t = quant.pack_weight(w8)
         w = (w8.float() * ws).bfloat16()
@@ -888,21 +925,34 @@ def int8_timings(gen):
                 log(f"  torch._int_mm refuses M={m} K={k} N={n}: {exc}")
         else:
             log("  this PyTorch has no torch._int_mm: library_ms is null")
+        kernel = lambda: quant.int8_matmul(x, w8, ws, w8t)  # noqa: E731
         row = dict(
-            ms=time_ms(lambda: quant.int8_matmul(x, w8, ws, w8t)),
+            ms=time_ms(kernel),
+            device_ms=kernel_device_ms(kernel, "int8_matmul"),
             plain_ms=time_ms(lambda: quant.int8_matmul_plain(x, w8, ws),
                              iters=5, warmup=2),
             bound_ms=b_ms, bound_by=b_by, library_ms=lib,
             shape=f"x ({m}, {k}) bf16, w8 ({k}, {n})")
-        bf16_ms = time_ms(lambda: torch.matmul(x, w))
+        matmul = lambda: torch.matmul(x, w)  # noqa: E731
+        bf16 = (kernel_device_ms(matmul, ""), time_ms(matmul))
         x8 = quant.quantize_activation(x)[0]
-        product_ms = (time_ms(lambda: torch._int_mm(x8, w8))
-                      if lib is not None else float("nan"))
-        log(f"  int8_matmul M={m} K={k} N={n}: bf16 torch.matmul "
-            f"{bf16_ms:.4f} ms; torch._int_mm alone {product_ms:.4f} ms "
-            f"(library_ms adds the eager quantize pass and epilogue"
-            + ("" if lib is None else f"; equal to the plain version: {same}")
-            + f"); kernel at {2 * m * k * n / row['ms'] / 1e9:.1f} TOP/s")
+        int_mm = lambda: torch._int_mm(x8, w8)  # noqa: E731
+        alone = ((kernel_device_ms(int_mm, ""), time_ms(int_mm))
+                 if lib is not None else (float("nan"), float("nan")))
+        dev = row["device_ms"]
+        log(f"  int8_matmul M={m} K={k} N={n}: device "
+            + ("not measured" if dev is None else
+               f"{dev:.4f} ms a launch, {dev / b_ms:.2f}x its bound "
+               f"{b_ms:.4f} ({b_by}), {2 * m * k * n / dev / 1e9:.1f} TOP/s")
+            + f"; through the wrapper {row['ms']:.4f} ms; context (device / "
+            f"through the call): bf16 torch.matmul {_ms(bf16[0])} / "
+            f"{bf16[1]:.4f} ms, torch._int_mm alone {_ms(alone[0])} / "
+            f"{alone[1]:.4f} ms"
+            + ("" if dev is None or bf16[0] is None else
+               f"; under bf16 torch.matmul: {dev < bf16[0]}")
+            + ("" if lib is None else
+               f"; the library route (eager quantize + torch._int_mm + "
+               f"epilogue) equal to the plain version: {same}"))
         rows["int8_matmul" if (m, k, n) == INT8_ROW
              else f"int8_matmul K={k} N={n}"] = row
     return rows
@@ -1241,6 +1291,31 @@ def batch_ms(tr, rng):
         launches
 
 
+def int8_batch_device(tr, rng, reps=5):
+    """The int8 kernel's device time in one full batch of 8 five-second
+    chunks through ``tr`` and its share of the batch's kernel time
+    (torch.profiler over ``reps`` batches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wavs = torch.from_numpy(rng.standard_normal((8, tr.chunk_samples))
+                            .astype(np.float32)).cuda()
+    lens = torch.ones(8, device="cuda")
+    tr._forward(wavs, lens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            tr._forward(wavs, lens)
+        torch.cuda.synchronize()
+    spans = [(ev.name, ev.time_range.end - ev.time_range.start)
+             for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(d for _, d in spans)
+    int8 = sum(d for name, d in spans if "int8_matmul" in name)
+    if not total:
+        return None, None
+    return int8 / reps / 1e3, int8 / total
+
+
 def int8_serving_phase(bridge, head, songs, rng):
     """Phase 8; returns (launch counts of the int8 path, the float and int8
     interfaces, summary)."""
@@ -1290,6 +1365,12 @@ def int8_serving_phase(bridge, head, songs, rng):
         + "; ".join(f"{name} {np.mean(v):.3f} ms {[round(x, 3) for x in v]}"
                     for name, v in per_batch.items())
         + "; launches a batch 0 / 49 / 145")
+    for name in ("int8", "int8 + quantize_attn"):
+        dev, share = int8_batch_device(trs[name], rng)
+        log(f"  {name}: the int8 kernel's device time in one batch "
+            + ("not measured" if dev is None else
+               f"{dev:.3f} ms ({100 * share:.1f}% of the batch's kernel "
+               f"time; torch.profiler over 5 batches)"))
     log("  where the device time goes, int8 (torch.profiler, one "
         "predict_frames):")
     profile_run(lambda: trs["int8"].predict_frames(songs))
@@ -1968,6 +2049,7 @@ def main():
                 log(f"  [{name}] {line.strip()}")
     check_attention_build(report)
     check_frontend_build(report)
+    check_int8_build(report)
 
     log("phase 2: each kernel against its plain version, bf16 and f32")
     bridge, head = lv60_modules()
@@ -2085,7 +2167,8 @@ def main():
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": errs[(name, tag)], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("device_ms",) if k in r}})
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -79,6 +79,7 @@
 
 #include "async_copy.cuh"
 #include "tile_mma.cuh"
+#include "wgmma.cuh"
 
 // Tiles (chosen on an H100 with tools/tune_conv_frontend.py, PERF.md):
 // the f32 mma.sync body's BM and BK, the mma.sync ring's stages and layer
@@ -551,13 +552,12 @@ using G = Geo<__nv_bfloat16, 512, kBM, 2, kWarps>;     // a warp: 16 x 256
 constexpr size_t kSmem = 1024 + (size_t)kStages * kSlabBytes +
                          4 * (size_t)(G::BM + 2 * G::BM);
 
-// a K-major operand of 8-row, 128-byte-swizzled atoms stacked 1024 bytes
-// apart (descriptor: start >> 4, leading offset unused, stride 1024 >> 4,
-// layout 1 = 128-byte swizzle)
-__device__ __forceinline__ uint64_t desc(uint32_t smem_addr) {
-  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
+// the descriptor, fences, commit and wait are wgmma.cuh's
+using svt::wg::commit;
+using svt::wg::desc;
+using svt::wg::fence;
+using svt::wg::fence_operands;
+using svt::wg::wait;
 
 // d += A (64 x 16, descriptor da) . B^T (256 x 16, descriptor db)
 __device__ __forceinline__ void mma(float (&d)[32][4], uint64_t da,
@@ -613,24 +613,6 @@ __device__ __forceinline__ void mma(float (&d)[32][4], uint64_t da,
         "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
         "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
       : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// the compiler may not move accumulator reads or writes across the MMAs
-__device__ __forceinline__ void fence_operands(float (&d)[32][4]) {
-#pragma unroll
-  for (int nt = 0; nt < 32; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[nt][e])::"memory");
 }
 
 // slab kb of A (this block's 128 frames) and W^T (its 256 channels)
@@ -699,7 +681,7 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
   }
   for (int kb = 0; kb < nk; ++kb) {
     svt::cp_async_wait<wg::kAhead - 1>();  // slab kb
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    svt::wg::fence_shared();
     __syncthreads();  // landed for all; every warpgroup is done with the
     const int next = kb + wg::kAhead;  // stage that slab `next` refills
     if (next < nk)

@@ -1,17 +1,10 @@
-// Warp-wide tile products, shared by the port's kernels: `Tile<int8_t>`
-// reads its fragments from shared memory (quant_matmul.cu); the
-// register-level pieces below it (TF32, bf16 with ldmatrix) take fragments
-// the caller holds (the attention kernels, conv_frontend.cu).
+// Warp-wide tile products on the tensor cores (`mma.sync`), shared by the
+// attention kernels and conv_frontend.cu: fragments held by the caller, f32
+// as three TF32 products and bf16 with ldmatrix.
 //
 // The accumulator is the C fragment of `mma.sync.m16n8k16`: lane
 // (g = lane / 4, t = lane % 4) holds c[0], c[1] = C[g][2t], C[g][2t + 1] and
 // c[2], c[3] = C[g + 8][2t], C[g + 8][2t + 1].
-//
-// int8 is a 16x8x32 product (`mma.sync.m16n8k32`, s8 x s8 -> s32, exact):
-// the same C fragment with int accumulators, A 16 rows x 32 k and B 8
-// columns x 32 k, both with k contiguous (one byte per element), lda and ldb
-// in bytes and multiples of 4. Lane (g, t) reads the 4 consecutive k at
-// 4t (and at 16 + 4t) of rows g and g + 8 of A and of column g of B.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,31 +25,6 @@ template <> struct Num<__nv_bfloat16> {
   }
   static __device__ __forceinline__ __nv_bfloat16 from_f32(float v) {
     return __float2bfloat16(v);
-  }
-};
-
-template <typename T> struct Tile;
-
-template <> struct Tile<int8_t> {
-  static __device__ __forceinline__ void mma(int c[4], const int8_t* A,
-                                             int lda, const int8_t* B, int ldb,
-                                             int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    const uint32_t a0 = *reinterpret_cast<const uint32_t*>(A + g * lda + 4 * t);
-    const uint32_t a1 =
-        *reinterpret_cast<const uint32_t*>(A + (g + 8) * lda + 4 * t);
-    const uint32_t a2 =
-        *reinterpret_cast<const uint32_t*>(A + g * lda + 4 * t + 16);
-    const uint32_t a3 =
-        *reinterpret_cast<const uint32_t*>(A + (g + 8) * lda + 4 * t + 16);
-    const uint32_t b0 = *reinterpret_cast<const uint32_t*>(B + g * ldb + 4 * t);
-    const uint32_t b1 =
-        *reinterpret_cast<const uint32_t*>(B + g * ldb + 4 * t + 16);
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
   }
 };
 

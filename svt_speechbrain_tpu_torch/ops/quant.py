@@ -17,18 +17,20 @@ undefined, so an input that requires grad raises.
 
 The kernel replaces the TPU kernel ``ops/quant.py:121 int8_matmul_fused``
 (body ``_qmm_kernel``), which quantizes a row block once into VMEM scratch
-and reuses it across its in-order column grid. Here a block owns 32 or 64
-rows, quantizes them once into shared memory and walks over its own group
-of 128-column tiles with ``mma.sync.m16n8k32`` (s8 x s8 → s32); the int8
-activations and their scales never reach device memory. Operations bound it
-at the serving shapes (2·M·K·N against the int8 tensor-core peak); the
-design's own limits are written in the CUDA source. The kernel wants the
-weights as (N, K) with K contiguous: ``pack_weight`` transposes the tree's
-(K, N) once, and ``PackedWeight`` keeps that copy beside a module's buffer.
+and reuses it across its in-order column grid. Here a block owns 128 rows x
+128 columns and multiplies on ``wgmma`` (s8 x s8 → s32); the blocks of a
+cluster along N share one row block, each quantizing a share of K into a
+scratch in device memory that all of them then stream (``launch_plan``).
+Operations bound it at ffn1 and ffn2 (2·M·K·N against the int8 tensor-core
+peak), bytes at the narrower products; the design's own limits are written
+in the CUDA source. The kernel wants the weights as (N, K) with K
+contiguous: ``pack_weight`` transposes the tree's (K, N) once, and
+``PackedWeight`` keeps that copy beside a module's buffer.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -36,13 +38,25 @@ from svt_speechbrain_tpu_torch.ops import _build
 
 ALIGN = 128                  # K and N must be multiples of this on the card
 SHARED_LIMIT = 232448        # bytes of shared memory a block may take
-_SLABS = 2 * 128 * (128 + 16)   # the kernel's two staged weight slabs
+BLOCK_M = BLOCK_N = 128      # rows and columns a block owns
+BLOCK_K = 128                # k a staged slab (bytes)
+MAX_K = 133120               # 127 * 127 * K stays below 2^31 in s32
+CLUSTERS = (8, 4, 2, 1)      # blocks a cluster along N, the widest first
+# the kernel's dynamic shared memory: 1024 bytes of alignment, its ring's
+# 3 stages (128 rows of int8 x and 128 rows of W^T, 128 bytes each), the
+# partial amax of up to 8 ranks, the row scales and the tile's w_scale in
+# f32 (`kSmem` in csrc/quant_matmul.cu)
+SHARED_BYTES = 1024 + 3 * (BLOCK_M + BLOCK_N) * BLOCK_K \
+    + 4 * ((CLUSTERS[0] + 1) * BLOCK_M + BLOCK_N)
 
-_SIGNATURES = {"svt_int8_matmul": [
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p]}
+_SIGNATURES = {
+    "svt_int8_matmul": [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "svt_int8_matmul_attributes": [ctypes.c_int, ctypes.c_int,
+                                   ctypes.POINTER(ctypes.c_int)]}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -121,29 +135,62 @@ class PackedWeight:
         return PackedWeight()      # a copy of the module packs its own
 
 
-def launch_plan(m, k, n, sms=132):
-    """(rows per block, column tiles per block) for an (M, K) x (K, N)
-    product on a card with ``sms`` multiprocessors (an H100 has 132): 64
-    rows where their int8 copy fits in shared memory beside the weight
-    slabs, else 32; column tiles grouped so that the grid has about two
-    waves of blocks.
+class Plan(NamedTuple):
+    """One launch of the kernel: block (i, j) of ``grid`` owns rows
+    [128 j, 128 j + 128) x columns [128 i, 128 i + 128); ``cluster`` blocks
+    along N share their rows, block rank r quantizing the share
+    [r K / cluster, (r + 1) K / cluster) of K into ``workspace`` (int8: for
+    each group of ``cluster`` column tiles, the rows padded to whole blocks,
+    in the kernel's swizzled 128 x 128 slabs)."""
+    cluster: int
+    grid: tuple
+    workspace: tuple
+
+
+def launch_plan(m, k, n, cluster=None):
+    """The kernel's ``Plan`` for an (M, K) x (K, N) product: the widest
+    cluster that divides the column tiles (``cluster`` overrides it, for
+    the tuning script's variants).
 
     Example
     -------
-    >>> launch_plan(1992, 1024, 4096), launch_plan(1992, 4096, 1024)
-    ((64, 4), (32, 2))
+    >>> p = launch_plan(1992, 1024, 4096)
+    >>> p.cluster, p.grid, p.workspace
+    (8, (32, 16), (4, 2048, 1024))
+    >>> launch_plan(1992, 4096, 1024)[:2]
+    (8, (8, 16))
     """
-    for block_m in (64, 32):
-        if block_m * (k + 16) + _SLABS + 4 * block_m <= SHARED_LIMIT:
-            break
-    else:
-        raise ValueError(f"K={k} is too deep for the int8 kernel's shared "
-                         f"memory (32 rows of K + 16 bytes beside "
-                         f"{_SLABS} bytes of weight slabs)")
-    row_blocks = -(-m // block_m)
-    n_tiles = n // ALIGN
-    groups = min(n_tiles, -(-2 * sms // row_blocks))
-    return block_m, -(-n_tiles // groups)
+    if k > MAX_K:
+        raise ValueError(f"K={k} is too deep for the int8 kernel: its s32 "
+                         f"sums hold 127 * 127 * K only up to K={MAX_K}")
+    row_blocks = -(-m // BLOCK_M)
+    tiles = n // BLOCK_N
+    if cluster is None:
+        cluster = next(c for c in CLUSTERS if tiles % c == 0)
+    return Plan(cluster, (tiles, row_blocks),
+                (tiles // cluster, row_blocks * BLOCK_M, k))
+
+
+def int8_kernel_attributes(lib=None):
+    """Each instantiation of the kernel on the current card (``lib``:
+    another build of ``csrc/quant_matmul.cu``): dicts with ``dtype``,
+    ``registers`` (per thread), ``local_bytes`` (per thread: 0 means no
+    spills), ``smem_bytes`` (dynamic, per block), ``blocks_per_sm`` and
+    ``clusters`` ({size: clusters of that many blocks resident on the card
+    at once})."""
+    lib = lib or _build.load("quant_matmul", _SIGNATURES)
+    rows = []
+    for dtype, code in _DTYPE_CODES.items():
+        clusters = {}
+        for size in CLUSTERS:
+            out = (ctypes.c_int * 5)()
+            _build.check(lib.svt_int8_matmul_attributes(code, size, out),
+                         "int8_matmul attributes")
+            clusters[size] = out[4]
+        rows.append(dict(dtype=str(dtype).split(".")[-1], registers=out[0],
+                         local_bytes=out[1], smem_bytes=out[2],
+                         blocks_per_sm=out[3], clusters=clusters))
+    return rows
 
 
 def _check(x, w8, w_scale):
@@ -160,7 +207,7 @@ def _check(x, w8, w_scale):
         raise ValueError("x, w8 and w_scale must lie on one device")
 
 
-def _launch(x, w8, w_scale, w8t, debug):
+def _launch(x, w8, w_scale, w8t, debug, lib=None, plan=None):
     k, n = w8.shape
     if k % ALIGN or n % ALIGN:
         raise ValueError(f"the int8 kernel needs K and N to be multiples of "
@@ -186,14 +233,16 @@ def _launch(x, w8, w_scale, w8t, debug):
                          dtype=torch.float32)
     if m == 0:
         return out, x8, xs
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    block_m, tiles_per_group = launch_plan(m, k, n, sms)
-    lib = _build.load("quant_matmul", _SIGNATURES)
+    if plan is None:
+        plan = launch_plan(m, k, n)
+    scratch = torch.empty(plan.workspace, device=x.device, dtype=torch.int8)
+    lib = lib or _build.load("quant_matmul", _SIGNATURES)
     err = lib.svt_int8_matmul(
         _DTYPE_CODES[x.dtype], x.data_ptr(), w8t.data_ptr(),
         w_scale.data_ptr(), _DTYPE_CODES[w_scale.dtype], out.data_ptr(),
         x8.data_ptr() if debug else None, xs.data_ptr() if debug else None,
-        m, k, n, block_m, tiles_per_group, _build.stream_handle())
+        scratch.data_ptr(), scratch.numel(), m, k, n, plan.cluster,
+        _build.stream_handle())
     _build.check(err, "int8_matmul kernel launch")
     int8_matmul.launches += 1
     return out, x8, xs

@@ -433,8 +433,9 @@ def assert_int8_kernel_matches_plain(x, w8, ws):
 
 INT8_SHAPES = [  # (M, K, N): the serving shapes, then the edges
     (1992, 512, 1024), (1992, 1024, 4096), (1992, 4096, 1024),
-    (1499, 1024, 1024), (249, 1024, 4096), (249, 4096, 1024),
-    (1, 128, 128), (33, 128, 128), (64, 2944, 256), (65, 3072, 128)]
+    (1992, 1024, 1024), (1499, 1024, 1024), (249, 1024, 4096),
+    (249, 4096, 1024), (1993, 4096, 1024), (1, 128, 128), (33, 128, 128),
+    (64, 2944, 256), (65, 3072, 128)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -452,6 +453,33 @@ def test_int8_matmul_kernel_matches_plain(cuda_device, dtype, m, k, n):
         want = quant.int8_matmul_plain(x, w8, ws16).reshape(3, m // 3, n)
         assert torch.allclose(got.float(), want.float(), atol=0,
                               rtol=1e-6 if dtype == torch.float32 else 2.0 ** -8)
+
+
+def test_int8_matmul_kernel_does_not_spill(cuda_device):
+    """Both instantiations of the int8 kernel (f32, bf16): no local memory
+    (no spills), two blocks an SM, and clusters of 8 resident (the plan's
+    widest)."""
+    rows = quant.int8_kernel_attributes()
+    assert len(rows) == 2
+    for r in rows:
+        assert r["local_bytes"] == 0, r
+        assert r["blocks_per_sm"] >= 2, r
+        assert r["smem_bytes"] == quant.SHARED_BYTES, r
+        assert r["clusters"][8] >= 1, r
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_kernel_is_deterministic(cuda_device, dtype):
+    """Each block owns its output tile and sums its products in one order:
+    two calls on the same input give the same bits, integers and all."""
+    x, w8, ws = int8_case(1993, 4096, 1024, dtype, cuda_device, seed=3)
+    w8t = quant.pack_weight(w8)
+    first = quant.int8_matmul_quantized(x, w8, ws, w8t)
+    second = quant.int8_matmul_quantized(x, w8, ws, w8t)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert first[0].abs().max() > 0
 
 
 def test_int8_matmul_kernel_refuses_what_it_does_not_take(cuda_device):

@@ -201,13 +201,22 @@ def test_int8_matmul_is_inference_only_and_checks_shapes():
 def test_launch_plan_fits_shared_memory_and_fills_the_card():
     for m, k, n in ((1992, 512, 1024), (1992, 1024, 4096), (1992, 4096, 1024),
                     (1499, 1024, 1024), (249, 4096, 1024), (1, 128, 128)):
-        block_m, tiles = tq.launch_plan(m, k, n)
-        assert block_m in (32, 64) and 1 <= tiles <= n // 128
-        assert block_m * (k + 16) + 2 * 128 * 144 + 4 * block_m <= 232448
-        groups = -(-(n // 128) // tiles)
-        assert groups * tiles >= n // 128        # every column tile is owned
+        plan = tq.launch_plan(m, k, n)
+        tiles, row_blocks = plan.grid
+        assert tiles * tq.BLOCK_N == n           # every column tile is owned
+        assert (row_blocks - 1) * tq.BLOCK_M < m <= row_blocks * tq.BLOCK_M
+        assert plan.cluster in (1, 2, 4, 8) and tiles % plan.cluster == 0
+        assert plan.workspace == (tiles // plan.cluster, row_blocks * 128, k)
+        # two blocks an SM (228 KB each, 1 KB of it the system's), and at
+        # the serving batch about a block an SM
+        assert tq.SHARED_BYTES <= tq.SHARED_LIMIT
+        assert 2 * (tq.SHARED_BYTES + 1024) <= 228 * 1024
+        if m == 1992:
+            assert tiles * row_blocks >= 128
+    # the s32 sums bound K: 127 * 127 * K < 2^31
+    assert tq.launch_plan(8, tq.MAX_K, 128).grid == (1, 1)
     with pytest.raises(ValueError, match="too deep"):
-        tq.launch_plan(8, 8192, 128)
+        tq.launch_plan(8, tq.MAX_K + 128, 128)
     assert tq.PackedWeight()(torch.zeros(4, 4, dtype=torch.int8)) is None
     assert tq.pack_weight(torch.arange(6, dtype=torch.int8).reshape(2, 3)) \
         .tolist() == [[0, 3], [1, 4], [2, 5]]
