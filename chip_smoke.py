@@ -9,9 +9,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and hold every instantiation of the attention forward (kernels 2, 3, 3b)
    and of the backward kernels 4a and 4b to no spills and at least 8
    resident warps an SM, and every instantiation of the frontend kernels
-   (layer 0, layers 1-6) and of the int8 kernel (f32, bf16) to no spills,
-   printing registers, shared memory and resident blocks of each (and for
-   the int8 kernel the clusters of each size resident on the card);
+   (layer 0, layers 1-6), of the int8 kernel (f32, bf16) and of the RNN-T
+   lattice (route A at U1 32, 81 and 128, route B) to no spills, printing
+   registers, shared memory and resident blocks of each (and for the int8
+   kernel the clusters of each size resident on the card);
 2. hold each kernel against its plain PyTorch version at main-path shapes,
    in bf16 and in f32 (TF32 off); the frontend at wav (8, 80000), at the
    30 s song window (1, 480000) and on a (3, 16123) view one sample into
@@ -69,7 +70,11 @@ Phases run in the order 1-5, 8, 9, 6, 7, 10, 11, 12.
 Phases 2 and 5 also hold and time the two RNN-T kernels (the lattice on
 alpha and on beta panels, the gradient) against their plain versions at the
 training shape (8, 749, 81, 1000) and at (4, 64, 17, 32), and time autograd
-through the plain ``transducer_loss`` beside them. Phase 2 also holds the
+through the plain ``transducer_loss`` beside them. The lattice is held and
+timed by route: route A (what ``lattice_plan`` gives up to U1 128) beside
+route B (the first port's design, forced through the launch helper's
+``plan``), the two equal bit for bit on the valid region; phase 5 also times
+alpha at U1 128 and 129, where the routes meet. Phase 2 also holds the
 int8 kernel's integers bit for bit against the plain quantizer at six
 shapes (the attention projections of ``quantize_attn`` among them); phase 5
 also times it at the four shapes of int8 serving, as the profiler's device
@@ -387,6 +392,22 @@ def check_int8_build(report):
             f"clusters resident by size {r['clusters']}")
         if r["local_bytes"] != 0:
             raise AssertionError(f"int8 kernel spills: {r}")
+
+
+def check_lattice_build(report):
+    """The RNN-T lattice kernel (row 6a), route A (a block of warps a batch
+    row) at U1 32, 81 and 128 and route B (the first port's design) there
+    and at U1 1500: no spills (ptxas, where the source was built now, and
+    the local memory the runtime reports); prints registers, shared memory,
+    threads and resident blocks of each."""
+    check_ptxas_spills(report, "transducer_lattice")
+    for r in tl.lattice_kernel_attributes():
+        log(f"  rnnt_lattice route {r['route']} U1={r['u1']}: "
+            f"{r['registers']} registers, {r['local_bytes']} bytes local, "
+            f"{r['smem_bytes']} bytes shared a block, {r['threads']} "
+            f"threads, {r['blocks_per_sm']} blocks an SM")
+        if r["local_bytes"] != 0:
+            raise AssertionError(f"rnnt_lattice kernel spills: {r}")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1518,6 +1539,15 @@ def rnnt_grad_args(case, alpha, beta, g):
             case["t_len"], case["u_len"], g, RNNT_BLANK, False)
 
 
+def lattice_routes(panels, reverse):
+    """The plans a lattice of these panels is held and timed by: the
+    route ``lattice_plan`` gives (first), and route B beside route A where
+    U1 takes route A."""
+    b, rows, u1 = panels[2].shape
+    plan = tl.lattice_plan(b, rows, u1, reverse)
+    return [plan] + ([tl._block_plan(b, u1)] if plan.route == "warp" else [])
+
+
 def check_rnnt(gen, errs):
     """6a on alpha panels (whole grid) and on the masked beta panels (each
     row's valid region) against ``lattice_plain``; 6b against
@@ -1533,25 +1563,38 @@ def check_rnnt(gen, errs):
                 ("beta", case["beta_panels"], True, rnnt_valid(case, 1))):
             # beta's grid has one more row, T(b), whose only live cell is
             # the seed: rnnt_valid(case, 1) marks rows below T(b) only
-            got = tl.rnnt_lattice(*panels, reverse=reverse)
-            torch.cuda.synchronize()
             want = tl.lattice_plain(*panels, reverse=reverse)
-            err, size = (got - want).abs(), want.abs()
-            if live is not None:
-                err, size = err[live], size[live]
-            ok = (torch.isfinite(got).all().item()
-                  and (err <= RNNT_TOL["lattice_atol"]
-                       + RNNT_TOL["lattice_rtol"] * size).all().item())
-            log(f"  rnnt_lattice {name} {shape[:3]}: max_abs_err="
-                f"{err.max().item():.3e} at values up to "
-                f"{size.max().item():.1f} (atol "
-                f"{RNNT_TOL['lattice_atol']:.0e} + rtol "
-                f"{RNNT_TOL['lattice_rtol']:.0e}) -> {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"rnnt_lattice {name} disagrees with "
-                                     f"its plain version")
-            lattices[name] = got
-            worst = max(worst, err.max().item())
+            got = {}
+            for plan in lattice_routes(panels, reverse):
+                out = tl._launch(*panels, reverse, plan=plan)[0]
+                torch.cuda.synchronize()
+                err, size = (out - want).abs(), want.abs()
+                if live is not None:
+                    err, size = err[live], size[live]
+                ok = (torch.isfinite(out).all().item()
+                      and (err <= RNNT_TOL["lattice_atol"]
+                           + RNNT_TOL["lattice_rtol"] * size).all().item())
+                log(f"  rnnt_lattice {name} {shape[:3]} route {plan.route}: "
+                    f"max_abs_err={err.max().item():.3e} at values up to "
+                    f"{size.max().item():.1f} (atol "
+                    f"{RNNT_TOL['lattice_atol']:.0e} + rtol "
+                    f"{RNNT_TOL['lattice_rtol']:.0e}) -> "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"rnnt_lattice {name} route "
+                                         f"{plan.route} disagrees with its "
+                                         f"plain version")
+                got[plan.route] = out
+                worst = max(worst, err.max().item())
+            if len(got) == 2:
+                mask = torch.ones_like(want, dtype=torch.bool) \
+                    if live is None else live
+                same = torch.equal(got["warp"][mask], got["block"][mask])
+                log(f"  rnnt_lattice {name} {shape[:3]}: route A and route B "
+                    f"bit for bit on the valid region: {same}")
+                if not same:
+                    raise AssertionError("the lattice routes differ")
+            lattices[name] = got[lattice_routes(panels, reverse)[0].route]
         g = torch.linspace(0.5, 1.5, b, device="cuda")
         args = rnnt_grad_args(case, lattices["alpha"], lattices["beta"], g)
         got = tl.rnnt_grad(*args)
@@ -1605,6 +1648,49 @@ def check_rnnt(gen, errs):
         torch.cuda.empty_cache()
 
 
+def lattice_route_timings(case, gen):
+    """6a by route: alpha and beta at the training shape through route A
+    and through route B (the first port's design, forced by the launch
+    helper's ``plan``), in turns (A, B, B, A), and alpha at U1 = 128 and
+    129, the widest of route A and the narrowest of route B, on panels of
+    V = 16 logits with the training batch's lengths. Each: the device time
+    a launch (torch.profiler) and the time through the wrapper (CUDA
+    events), the mean of its passes. Returns {(lattice, route): ...} at
+    the training shape."""
+    def timed(panels, reverse, plan):
+        fn = functools.partial(tl._launch, *panels, reverse, plan=plan)
+        return kernel_device_ms(fn, "rnnt_lattice"), time_ms(fn, iters=10,
+                                                             warmup=2)
+
+    got = {}
+    for name, panels, reverse in (("alpha", case["alpha_panels"], False),
+                                  ("beta", case["beta_panels"], True)):
+        plans = lattice_routes(panels, reverse)
+        for plan in plans + plans[::-1]:
+            got.setdefault((name, plan.route), []).append(
+                timed(panels, reverse, plan))
+    b, t, _, _, t_rel, u_lens = RNNT_CASES[0]
+    for u in (tl.WARP_MAX_U1 - 1, tl.WARP_MAX_U1):
+        wide = rnnt_case(gen, b, t, u, 16, t_rel,
+                         [round(n * u / 80) for n in u_lens])
+        for plan in lattice_routes(wide["alpha_panels"], False):
+            got[(f"alpha U1={u + 1}", plan.route)] = [
+                timed(wide["alpha_panels"], False, plan)]
+        del wide
+    out = {}
+    for (name, route), runs in got.items():
+        dev = [d for d, _ in runs if d is not None]
+        r = dict(device_ms=sum(dev) / len(dev) if dev else None,
+                 ms=sum(w for _, w in runs) / len(runs))
+        out[(name, route)] = r
+        dev_txt = ("not measured" if r["device_ms"] is None
+                   else f"{r['device_ms']:.4f}")
+        log(f"  rnnt_lattice {name} route {'A' if route == 'warp' else 'B'}"
+            f": device {dev_txt} ms a launch, through the wrapper "
+            f"{r['ms']:.4f} ms")
+    return out
+
+
 def rnnt_timings(gen):
     """6a (alpha; beta beside it) and 6b at the training shape, beside their
     plain versions, the whole fused loss forward + backward through the
@@ -1623,17 +1709,18 @@ def rnnt_timings(gen):
     live = int((tl.rnnt_grad(*args).abs().amax(-1) > 0).sum())
     rows = {}
     b_ms, b_by = bound(0, 4 * 4 * cells, PEAK_F32)
-    beta_ms = time_ms(lambda: tl.rnnt_lattice(*case["beta_panels"],
-                                              reverse=True), iters=10,
-                      warmup=2)
+    by_route = lattice_route_timings(case, gen)
+    alpha_a, beta_a = by_route[("alpha", "warp")], by_route[("beta", "warp")]
+    beta_dev = ("not measured" if beta_a["device_ms"] is None
+                else f"{beta_a['device_ms']:.4f} ms")
     rows["rnnt_lattice"] = dict(
-        ms=time_ms(lambda: tl.rnnt_lattice(*case["alpha_panels"]), iters=10,
-                   warmup=2),
+        ms=alpha_a["ms"], device_ms=alpha_a["device_ms"],
         plain_ms=time_ms(lambda: tl.lattice_plain(*case["alpha_panels"]),
                          iters=2, warmup=1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"alpha panels ({b}, {t}, {u + 1}) f32, {t + u} dependent "
-              f"steps (beta: {beta_ms:.4f} ms, {t + u + 1} steps)")
+        shape=f"alpha panels ({b}, {t}, {u + 1}) f32, route A, {t + u} "
+              f"dependent steps (beta: {beta_a['ms']:.4f} ms, device "
+              f"{beta_dev}, {t + u + 1} steps)")
     # per live cell: V logits, lse, alpha and two betas read; per cell: V
     # gradients written
     b_ms, b_by = bound(6 * live * v, 4 * (live * (v + 4) + cells * v),
@@ -2050,6 +2137,7 @@ def main():
     check_attention_build(report)
     check_frontend_build(report)
     check_int8_build(report)
+    check_lattice_build(report)
 
     log("phase 2: each kernel against its plain version, bf16 and f32")
     bridge, head = lv60_modules()

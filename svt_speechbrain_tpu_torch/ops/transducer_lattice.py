@@ -16,6 +16,13 @@ PyTorch version and a launch counter:
   straight from the masked skip and emit panels: the flips, the shift and the
   padding rows of the JAX ``_beta`` are index arithmetic in the kernel (the
   plain version builds them with ``torch.flip``, as the JAX package does).
+  Two routes, by U1 alone (``lattice_plan``): up to ``WARP_MAX_U1`` a
+  block of warps a batch row holds the diagonal in registers, a cell a
+  thread, while helper warps stage the panels ahead of the wavefront
+  through a ring in shared memory and store the finished rows; wider
+  lattices take the first port's design, the diagonal in shared memory.
+  The kernel's source decides each route's threads and shared memory; the
+  plan reads them from the library.
 - ``rnnt_grad`` (plain: ``rnnt_grad_plain``) is the closed-form gradient of
   the loss w.r.t. the logits, ``_nll_logits_bwd`` (``:276``): the transition
   posteriors scattered to the blank and the target labels, fused with the
@@ -32,6 +39,7 @@ package.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -39,10 +47,15 @@ from svt_speechbrain_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 SHARED_LIMIT = 232448        # bytes of shared memory a block may take
+WARP_MAX_U1 = 128            # route A takes U1 up to this (`kWarpMaxU1`)
+ROUTES = ("warp", "block")   # A, B; their codes in the C interface are 0, 1
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "svt_rnnt_lattice": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "svt_rnnt_lattice_block": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "svt_rnnt_lattice_plan": [_I, _I, ctypes.POINTER(_I)],
+    "svt_rnnt_lattice_attributes": [_I, _I, ctypes.POINTER(_I)],
     "svt_rnnt_grad": [_P] * 10 + [_I] * 7 + [_P]}
 
 
@@ -96,6 +109,103 @@ def lattice_plain(a, b, seed, reverse=False):
     return out
 
 
+class LatticePlan(NamedTuple):
+    """How ``csrc/transducer_lattice.cu`` runs one lattice: the route
+    (``"warp"``, A: ``svt_rnnt_lattice``; ``"block"``, B:
+    ``svt_rnnt_lattice_block``), threads and blocks of the grid, dynamic
+    shared memory a block in bytes, and for route A the anti-diagonals its
+    ring holds (0 for route B)."""
+    route: str
+    threads: int
+    blocks: int
+    smem: int
+    ring: int
+
+
+def _plan(route, batch, u1, lib):
+    """The plan of ``route`` for U1 with the geometry the library's build
+    gives (``svt_rnnt_lattice_plan``): the kernel's macros decide it, and
+    the launch uses the same numbers."""
+    lib = lib or _build.load("transducer_lattice", _SIGNATURES)
+    out = (ctypes.c_int * 3)()
+    _build.check(lib.svt_rnnt_lattice_plan(ROUTES.index(route), u1, out),
+                 "rnnt_lattice plan")
+    return LatticePlan(route, out[0], batch, out[1], out[2])
+
+
+def _block_plan(batch, u1, lib=None):
+    """Route B for any U1: a block a batch row, a thread a label position
+    (at most 1024), two diagonals of f32 in shared memory."""
+    return _plan("block", batch, u1, lib)
+
+
+def lattice_plan(batch, rows, u1, reverse, lib=None):
+    """The launch of one lattice. The route is decided by U1 alone
+    (``rows`` and ``reverse`` change nothing: a ring covers the diagonal's
+    U1 rows either way): up to ``WARP_MAX_U1``, route A, a block a batch
+    row of ceil(U1 / 32) compute warps, a cell a thread, and helper warps
+    that stage the panels through a ring of anti-diagonals and store the
+    rows; wider, route B. Threads, shared memory and the ring come from
+    ``lib`` (default: the built kernel), so a tuning build of other macros
+    gets its own.
+
+    Example
+    -------
+    >>> lattice_plan(8, 749, 81, False)             # doctest: +SKIP
+    LatticePlan(route='warp', threads=224, blocks=8, smem=108288, ring=94)
+    >>> lattice_plan(8, 749, 129, True).route       # doctest: +SKIP
+    'block'
+    """
+    route = "warp" if u1 <= WARP_MAX_U1 else "block"
+    return _plan(route, batch, u1, lib)
+
+
+def lattice_kernel_attributes(lib=None, u1s=(32, 81, 128, 1500)):
+    """What ptxas and the occupancy calculator made of each instantiation
+    the lattice launches: for each U1 in ``u1s``, the route ``lattice_plan``
+    gives it (and route B beside route A). Dicts with ``route``, ``u1``,
+    ``registers`` (per thread), ``local_bytes`` (per thread: 0 means no
+    spills), ``smem_bytes`` (dynamic, a block), ``threads`` and
+    ``blocks_per_sm``."""
+    lib = lib or _build.load("transducer_lattice", _SIGNATURES)
+    rows = []
+    for u1 in u1s:
+        routes = ["block"]
+        if lattice_plan(1, 2, u1, False, lib).route == "warp":
+            routes.insert(0, "warp")
+        for route in routes:
+            out = (ctypes.c_int * 5)()
+            _build.check(lib.svt_rnnt_lattice_attributes(
+                ROUTES.index(route), u1, out), "rnnt_lattice attributes")
+            rows.append(dict(route=route, u1=u1, registers=out[0],
+                             local_bytes=out[1], smem_bytes=out[2],
+                             threads=out[3], blocks_per_sm=out[4]))
+    return rows
+
+
+def _launch(a, b, seed, reverse, plan=None, lib=None):
+    """One launch of the lattice kernel on CUDA panels already checked:
+    ``(out, plan)``. ``plan`` (default ``lattice_plan``) may force route B
+    where route A would run, to time the two in one process."""
+    bsz, rows, u1 = seed.shape
+    lib = lib or _build.load("transducer_lattice", _SIGNATURES)
+    plan = plan or lattice_plan(bsz, rows, u1, reverse, lib)
+    if plan.smem > SHARED_LIMIT:
+        raise ValueError(f"U + 1 = {u1} is too long for the lattice kernel: "
+                         f"two diagonals of f32 must fit in {SHARED_LIMIT} "
+                         f"bytes of shared memory")
+    out = torch.empty_like(seed)
+    if out.numel() == 0:
+        return out, plan
+    launch = (lib.svt_rnnt_lattice if plan.route == "warp"
+              else lib.svt_rnnt_lattice_block)
+    err = launch(a.data_ptr(), b.data_ptr(), seed.data_ptr(), out.data_ptr(),
+                 bsz, rows, u1, int(reverse), _build.stream_handle())
+    _build.check(err, "rnnt_lattice kernel launch")
+    rnnt_lattice.launches += 1
+    return out, plan
+
+
 def rnnt_lattice(a, b, seed, reverse=False):
     """The lattice ``out`` of the module docstring, per batch row, f32.
 
@@ -106,34 +216,25 @@ def rnnt_lattice(a, b, seed, reverse=False):
         out[t, u] = logaddexp(out[t+1, u] + a[t, u], out[t, u+1] + b[t, u],
                               seed[t, u]).
 
-    CUDA tensors: one kernel launch (``rnnt_lattice.launches`` counts it),
-    or an error for what the kernel does not take. CPU tensors:
-    ``lattice_plain``."""
+    CUDA tensors: one kernel launch on the route of ``lattice_plan``
+    (``rnnt_lattice.launches`` counts it), or an error for what the kernel
+    does not take. CPU tensors: ``lattice_plain``."""
+    _check_panels(a, b, seed, reverse)
+    if seed.device.type == "cpu":
+        return lattice_plain(a, b, seed, reverse)
+    return _launch(a, b, seed, reverse)[0]
+
+
+def _check_panels(a, b, seed, reverse):
     want = (seed.shape[0], seed.shape[1] - int(reverse), seed.shape[2])
     if seed.dim() != 3 or a.shape != want or b.shape != want:
         raise ValueError(f"panel shapes do not match: a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)}, seed {tuple(seed.shape)}, "
                          f"reverse={reverse}")
-    if seed.device.type == "cpu":
-        return lattice_plain(a, b, seed, reverse)
-    if seed.device.type != "cuda":
+    if seed.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {seed.device}")
-    _check_f32(seed.device, a=a, b=b, seed=seed)
-    bsz, rows, u1 = seed.shape
-    if 8 * u1 > SHARED_LIMIT:
-        raise ValueError(f"U + 1 = {u1} is too long for the lattice kernel: "
-                         f"two diagonals of f32 must fit in {SHARED_LIMIT} "
-                         f"bytes of shared memory")
-    out = torch.empty_like(seed)
-    if out.numel() == 0:
-        return out
-    lib = _build.load("transducer_lattice", _SIGNATURES)
-    err = lib.svt_rnnt_lattice(a.data_ptr(), b.data_ptr(), seed.data_ptr(),
-                               out.data_ptr(), bsz, rows, u1, int(reverse),
-                               _build.stream_handle())
-    _build.check(err, "rnnt_lattice kernel launch")
-    rnnt_lattice.launches += 1
-    return out
+    if seed.device.type == "cuda":
+        _check_f32(seed.device, a=a, b=b, seed=seed)
 
 
 rnnt_lattice.launches = 0

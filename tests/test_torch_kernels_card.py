@@ -587,28 +587,59 @@ def _valid(t_len, u_len, rows, u1, extra_row=0):
 # f32 logaddexp chains of up to T + U steps in two orders of evaluation
 # (expf/log1pf of the card's libm against PyTorch's): the lattice values
 # reach |x| of several thousand at T 749, where one f32 ulp is 4.9e-4, so
-# the lattices are held relative to their size
+# the lattices are held relative to their size. U1 of 1, 5, 33, 81, 128
+# (the widest of route A), 129 (the narrowest of route B only) and 1500.
 RNNT_SHAPES = [(3, 12, 5, 7), (2, 1, 4, 6), (2, 9, 0, 5), (2, 40, 32, 12),
-               (2, 749, 80, 16), (1, 6, 1499, 8)]
+               (2, 749, 80, 16), (1, 6, 1499, 8),
+               (2, 60, tl.WARP_MAX_U1 - 1, 8), (2, 60, tl.WARP_MAX_U1, 8)]
 
 
 @pytest.mark.parametrize("b,t,u,v", RNNT_SHAPES)
 def test_rnnt_lattice_kernel_matches_plain(cuda_device, b, t, u, v):
     """6a on alpha panels (forward) and on the masked beta panels
-    (reverse), U1 of 1, 5, 33, 81 and 1500, T of 1 and 749, ragged
-    lengths: equal to ``lattice_plain`` on each row's valid region."""
+    (reverse), U1 of 1, 5, 33, 81, 128, 129 and 1500, T of 1 and 749, ragged
+    lengths, by each route that takes U1 (``lattice_plan``'s, and route B
+    beside route A up to ``WARP_MAX_U1``): equal to ``lattice_plain`` on
+    each row's valid region, and the two routes equal bit for bit there
+    (route A's seed shortcut is exact)."""
     logits, targets, t_rel, u_rel = _rnnt_problem(cuda_device, b, t, u, v, 11)
     _, t_len, u_len, fwd, rev = _rnnt_panels(logits, targets, t_rel, u_rel)
     for panels, reverse in ((fwd, False), (rev, True)):
-        before = tl.rnnt_lattice.launches
-        got = tl.rnnt_lattice(*panels, reverse=reverse)
-        torch.cuda.synchronize()
-        assert tl.rnnt_lattice.launches == before + 1
+        rows = panels[2].shape[1]
+        plan = tl.lattice_plan(b, rows, u + 1, reverse)
+        assert plan.route == ("warp" if u + 1 <= tl.WARP_MAX_U1 else "block")
+        plans = [plan] + ([tl._block_plan(b, u + 1)]
+                          if plan.route == "warp" else [])
         want = tl.lattice_plain(*panels, reverse=reverse)
-        live = _valid(t_len, u_len, got.shape[1], u + 1, int(reverse))
-        assert torch.isfinite(got).all()
-        err = (got - want).abs()[live]
-        assert (err <= 1e-5 + 2e-6 * want.abs()[live]).all(), err.max()
+        live = _valid(t_len, u_len, rows, u + 1, int(reverse))
+        got = {}
+        for p in plans:
+            before = tl.rnnt_lattice.launches
+            out, used = tl._launch(*panels, reverse, plan=p)
+            torch.cuda.synchronize()
+            assert tl.rnnt_lattice.launches == before + 1 and used == p
+            assert torch.isfinite(out).all()
+            err = (out - want).abs()[live]
+            assert (err <= 1e-5 + 2e-6 * want.abs()[live]).all(), (
+                p.route, err.max())
+            got[p.route] = out
+        if len(got) == 2:
+            assert torch.equal(got["warp"][live], got["block"][live])
+        before = tl.rnnt_lattice.launches
+        assert torch.equal(tl.rnnt_lattice(*panels, reverse=reverse),
+                           got[plan.route])
+        assert tl.rnnt_lattice.launches == before + 1
+
+
+def test_rnnt_lattice_kernels_do_not_spill(cuda_device):
+    """Every instantiation of 6a that the plan launches (route A, route B):
+    no local memory, and the shared memory ``lattice_plan`` gives."""
+    for r in tl.lattice_kernel_attributes():
+        assert r["local_bytes"] == 0, r
+        plan = (tl.lattice_plan(1, 2, r["u1"], False) if r["route"] == "warp"
+                else tl._block_plan(1, r["u1"]))
+        assert (r["smem_bytes"], r["threads"]) == (plan.smem, plan.threads), r
+        assert r["blocks_per_sm"] >= 1, r
 
 
 @pytest.mark.parametrize("from_log_probs", [False, True])
