@@ -63,9 +63,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    greedy of a 2-layer f32 model on the card against the CPU;
 12. one f32 RNN-T training step of the 2-layer lv60-width model (batch 2 of
    5 s rows, U = 20) on the card against the CPU: the loss, the gradient
-   w.r.t. the logits and every parameter's clipped gradient.
+   w.r.t. the logits and every parameter's clipped gradient;
+13. the MIR-ST500 recipe (``svt_speechbrain_tpu_torch/recipes/MIR_ST500``)
+   on a synthetic set written by its ``prepare_benchmarks`` into a
+   temporary folder (6 train songs of 14-23 s, 23 utterances; 2 valid and
+   2 test songs), its objects built as its yaml builds them: lv60 at full
+   width and depth, f32, batch 8, eval batch 1, 3 epochs (linear probe,
+   two finetune epochs), then ``evaluate`` from the checkpoint of least
+   valid loss;
+   rows 1 and 2 held against their plain versions at the evaluation's
+   shapes first; asserts the frontend and short attention kernels in every
+   evaluated utterance and no kernel in a training step, a finite, falling
+   train loss, one checkpoint kept, every test song scored; prints epoch
+   walls, step and utterance times, RTFx of ``evaluate``, the device's busy
+   share in it, checkpoint bytes and seconds, peak memory;
+14. the recipe at 2 lv60-width layers, dropouts 0: ``evaluate`` on the
+   seeded weights, one epoch (full finetune) and ``evaluate`` again, on
+   the card and on the CPU from the same weights: per-step losses,
+   evaluation logits, NewBob rates, and every
+   song's notes and scores (a song with a frame probability within 1e-5 of
+   a threshold has its notes printed, not held).
 
-Phases run in the order 1-5, 8, 9, 6, 7, 10, 11, 12.
+Phases run in the order 1-5, 8, 9, 6, 7, 10-14.
 
 Phases 2 and 5 also hold and time the two RNN-T kernels (the lattice on
 alpha and on beta panels, the gradient) against their plain versions at the
@@ -93,8 +112,10 @@ import copy
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -135,6 +156,21 @@ from svt_speechbrain_tpu_torch.ops import quant  # noqa: E402
 from svt_speechbrain_tpu_torch.ops import transducer_lattice as tl  # noqa: E402
 from svt_speechbrain_tpu_torch.pretrained.interfaces import (  # noqa: E402
     SingingTranscriber)
+from svt_speechbrain_tpu_torch.dataio.dataio import (  # noqa: E402
+    read_audio, write_audio)
+from svt_speechbrain_tpu_torch.nnet.schedulers import (  # noqa: E402
+    NewBobScheduler)
+from svt_speechbrain_tpu_torch.recipes.MIR_ST500 import (  # noqa: E402
+    prepare_benchmarks, train_audio_ssl as mir_recipe)
+from svt_speechbrain_tpu_torch.utils.amt import onset_peaks  # noqa: E402
+from svt_speechbrain_tpu_torch.utils.checkpoints import (  # noqa: E402
+    Checkpointer)
+from svt_speechbrain_tpu_torch.utils.epoch_loop import (  # noqa: E402
+    EpochCounter)
+from svt_speechbrain_tpu_torch.utils.metric_stats import (  # noqa: E402
+    MetricStats)
+from svt_speechbrain_tpu_torch.utils.train_logger import (  # noqa: E402
+    FileTrainLogger)
 
 SEED = 0
 SR = 16000
@@ -284,6 +320,25 @@ TRAIN_RATE = 0.1
 TRAIN_SECONDS = 30.0
 TRAIN_BATCH = 8
 FRAME_RATE = 49.8
+# phases 13 and 14: the MIR-ST500 recipe on synthetic songs (seconds of each
+# song by split); phase 13's train songs make 23 utterances of <= 7.5 s,
+# 3 batches of 8, and its eval songs end in utterances of 2.6 to 6.5 s, which
+# padding to whole seconds leaves with padded frames
+RECIPE_SONGS = {"train": (14, 17, 19, 21, 22, 23), "valid": (12.6, 13.3),
+                "test": (11.5, 16.2)}
+CARD_VS_CPU_SONGS = {"train": (12, 13), "valid": (11,), "test": (12,)}
+# the 2-layer recipe's evaluation logits, card vs CPU, before and after one
+# epoch: the f32 frontend kernel (three TF32 products) and the f32 short
+# attention kernel against the CPU's plain versions, on weights that one
+# epoch of updates (in other summation orders) moved. Measured on an H100
+# (chip_smoke.py phase 14): 2.675e-06 and 2.861e-06 in two runs; the
+# tolerance is about 7x that
+TOL_RECIPE_LOGITS = 2e-5
+# a frame decision this close to a tie (a probability against its threshold,
+# an onset against its peak window, the top two octave or class logits) may
+# go the other way on the other device: if one does, its song's notes are
+# printed, not held (the logits differ by about 3e-6, card against CPU)
+NEAR_THRESHOLD = 1e-5
 
 
 def log(msg):
@@ -2113,6 +2168,508 @@ def rnnt_card_vs_cpu_step(rng):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phases 13-14
+def recipe_hparams(**overrides):
+    """The MIR-ST500 recipe's hyperparameters: the values of
+    ``svt_speechbrain_tpu_torch/recipes/MIR_ST500/hparams/train_audio_ssl.yaml``
+    built in Python, since the card machine need not have PyYAML.
+    ``overrides`` replace top-level values before the references resolve,
+    as ``load_hyperyaml``'s do; ``tests/test_torch_engine.py`` holds the
+    result equal to ``load_hyperyaml``'s."""
+    hp = {}
+
+    def put(key, make):
+        hp[key] = overrides[key] if key in overrides else make()
+
+    def criterion(loss, reduction="mean"):
+        return functools.partial(loss, reduction=reduction,
+                                 allowed_len_diff=60, label_smoothing=0.0)
+
+    def loader_opts(batch_size):
+        return {"batch_size": hp[batch_size], "num_workers": hp["num_workers"],
+                "pad_multiples": hp["pad_multiples"]}
+
+    for key, value in (("seed", 1986), ("attempt", 1), ("dur_threshold", 5),
+                       ("ssl_model", "wav2vec2-large-lv60")):
+        put(key, lambda: value)
+    put("output_folder", lambda: (
+        f"results/{hp['ssl_model']}/train_audio_ssl_dur{hp['dur_threshold']}"
+        f"_attempt{hp['attempt']}/{hp['seed']}"))
+    put("save_folder", lambda: f"{hp['output_folder']}/save")
+    put("csv_folder", lambda: f"data/dur_{hp['dur_threshold']}s")
+    put("train_log", lambda: f"{hp['output_folder']}/train_log.txt")
+    put("wav2vec2_hub", lambda: f"facebook/{hp['ssl_model']}")
+    put("wav2vec2_local", lambda: f"ssl_model/{hp['ssl_model']}")
+    hp["data_folder"] = overrides["data_folder"]
+    put("ckpt_interval_minutes", lambda: 25)
+    put("train_csv", lambda: f"{hp['csv_folder']}/mir_st500_train.csv")
+    put("valid_csv", lambda: f"{hp['csv_folder']}/mir_st500_valid.csv")
+    put("test_csv", lambda: [f"{hp['csv_folder']}/{name}.csv" for name in
+                             ("mir_st500_test", "tonas", "ismir2014")])
+    for key, value in (
+            ("number_of_epochs", 10), ("lr", 0.0003), ("lr_wav2vec", 0.00005),
+            ("sorting", "ascending"), ("precision", "fp32"),
+            ("sample_rate", 16000), ("frame_rate", 49.8),
+            ("linear_prob_epochs", 2), ("pretrain", False),
+            ("pretrain_folder", "../pretrain_model"),
+            ("onset_threshold", 0.4), ("offset_threshold", 0.5),
+            ("onset_tolerance", 0.05), ("pitch_tolerance", 50),
+            ("batch_size", 8), ("test_batch_size", 1), ("num_workers", 8),
+            ("pad_multiples", {"sig": 16000, "anno": 50})):
+        put(key, lambda: copy.deepcopy(value))
+    put("train_dataloader_opts", lambda: loader_opts("batch_size"))
+    put("valid_dataloader_opts", lambda: loader_opts("test_batch_size"))
+    put("test_dataloader_opts", lambda: loader_opts("test_batch_size"))
+    for key, value in (("freeze_wav2vec", False), ("pitch_octave_num", 4),
+                       ("pitch_class_num", 12), ("feat_dim", 1024),
+                       ("output_neurons", 20)):
+        put(key, lambda: value)
+    put("epoch_counter", lambda: EpochCounter(limit=hp["number_of_epochs"]))
+    put("wav2vec2", lambda: HuggingFaceWav2Vec2(
+        source=hp["wav2vec2_hub"], output_norm=True,
+        freeze=hp["freeze_wav2vec"], save_path=hp["wav2vec2_local"]))
+    put("model", lambda: Linear(input_size=hp["feat_dim"],
+                                n_neurons=hp["output_neurons"]))
+    put("modules", lambda: {"wav2vec2": hp["wav2vec2"], "model": hp["model"]})
+    put("log_softmax", lambda: Softmax(apply_log=True))
+    put("onset_positive_weight", lambda: 15.0)
+    put("offset_positive_weight", lambda: 1.0)
+    put("onset_criterion", lambda: criterion(losses.bce_loss))
+    put("offset_criterion", lambda: criterion(losses.bce_loss))
+    put("octave_criterion", lambda: criterion(losses.nll_loss))
+    put("pitch_criterion", lambda: criterion(losses.nll_loss))
+    put("lr_annealing_model", lambda: NewBobScheduler(
+        initial_value=hp["lr"], improvement_threshold=0.0025,
+        annealing_factor=0.8, patient=0))
+    put("lr_annealing_wav2vec", lambda: NewBobScheduler(
+        initial_value=hp["lr_wav2vec"], improvement_threshold=0.0025,
+        annealing_factor=0.9, patient=0))
+    put("checkpointer", lambda: Checkpointer(
+        checkpoints_dir=hp["save_folder"], recoverables={
+            "scheduler_model": hp["lr_annealing_model"],
+            "scheduler_wav2vec": hp["lr_annealing_wav2vec"],
+            "counter": hp["epoch_counter"]}))
+    put("train_logger", lambda: FileTrainLogger(save_file=hp["train_log"],
+                                                precision=3))
+    put("onset_stats", lambda: functools.partial(
+        MetricStats, metric=criterion(losses.bce_loss, "batch")))
+    put("offset_stats", lambda: functools.partial(
+        MetricStats, metric=criterion(losses.bce_loss, "batch")))
+    return hp
+
+
+def make_recipe_set(root, rng, seconds):
+    """A MIR-ST500-shaped set under ``root``: per split, songs of sine notes
+    plus noise as 16 kHz WAVs (``<split>/<song>/vocals.wav``), one
+    ``Annotations.json``, frame annotations and a CSV per split through the
+    recipe's ``prepare_benchmarks``. Returns {split: csv path}."""
+    gt, csvs = {}, {}
+    for split, durations in seconds.items():
+        folder = os.path.join(root, split)
+        for i, duration in enumerate(durations):
+            name = f"{split}{i}"
+            notes, t = [], 0.2
+            while t < duration - 0.6:
+                dur = float(rng.uniform(0.2, 0.6))
+                notes.append([round(t, 3), round(t + dur, 3),
+                              int(rng.integers(40, 80))])
+                t += dur + float(rng.uniform(0.05, 0.4))
+            gt[name] = notes
+            time_s = np.arange(int(duration * SR)) / SR
+            sig = np.zeros(len(time_s), np.float32)
+            for on, off, midi in notes:
+                mask = (time_s >= on) & (time_s < off)
+                sig[mask] += 0.5 * np.sin(2 * np.pi * 440.0 * 2 ** (
+                    (midi - 69) / 12) * time_s[mask]).astype(np.float32)
+            sig += 0.01 * rng.standard_normal(len(sig)).astype(np.float32)
+            os.makedirs(os.path.join(folder, name))
+            write_audio(os.path.join(folder, name, "vocals.wav"), sig, SR)
+    with open(os.path.join(root, "Annotations.json"), "w") as f:
+        json.dump(gt, f)
+    os.makedirs(os.path.join(root, "csv"))
+    for split in seconds:
+        folder = os.path.join(root, split)
+        prepare_benchmarks.prepare_frame_anno(
+            os.path.join(root, "Annotations.json"), folder)
+        csvs[split] = os.path.join(root, "csv", f"{split}.csv")
+        prepare_benchmarks.prepare_csv_benchmarks(folder, csvs[split])
+    return csvs
+
+
+class TimedAMT(mir_recipe.AMT):
+    """The recipe's brain, recording each training step (frozen modules,
+    loss, wall, launches), each evaluated utterance (stage, wall, audio
+    seconds, launches, logits of the real frames), each epoch's wall, the
+    learning rates after each validation, each song's notes and scores, and
+    the checkpoint save and recovery times. Walls end in a synchronise on
+    the card; the launch counts are read before and after, never reset."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.steps, self.evals, self.epochs, self.songs = [], [], [], []
+        self.valid_lrs, self.saves, self.recovers = [], [], []
+        self._song_logits = []
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def _timed(self, fn, *args):
+        before = ops.launch_counts()
+        self._sync()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self._sync()
+        wall = time.perf_counter() - t0
+        after = ops.launch_counts()
+        return out, wall, {k: after[k] - before[k] for k in after}
+
+    def fit_batch(self, batch):
+        loss, wall, counts = self._timed(super().fit_batch, batch)
+        self.steps.append(dict(probe=bool(self.frozen_modules), loss=loss,
+                               wall=wall, counts=counts))
+        return loss
+
+    def evaluate_batch(self, batch, stage):
+        loss, wall, counts = self._timed(super().evaluate_batch, batch, stage)
+        sig = batch.sig
+        self.evals[-1].update(stage=stage.name, wall=wall, counts=counts,
+                              audio_s=float(sig.lengths[0]) * sig.data.shape[1]
+                              / SR)
+        return loss
+
+    def on_evaluate_batch_end(self, batch, predictions, loss, stage):
+        frames = self._true_frames(batch, predictions[0].shape[1])
+        logits = np.concatenate(
+            [predictions[0][0, :frames, None], predictions[1][0, :frames, None],
+             predictions[2][0, :frames], predictions[3][0, :frames]], -1)
+        self.evals.append(dict(id=batch.id[0], logits=logits))
+        self._song_logits.append(logits)
+        super().on_evaluate_batch_end(batch, predictions, loss, stage)
+
+    def on_stage_start(self, stage, epoch=None):
+        if stage == Stage.TRAIN:
+            self._sync()
+            self._epoch_t0 = time.perf_counter()
+        super().on_stage_start(stage, epoch)
+
+    def on_stage_end(self, stage, stage_loss, epoch=None):
+        if stage != Stage.VALID:
+            return super().on_stage_end(stage, stage_loss, epoch)
+        t0 = time.perf_counter()
+        super().on_stage_end(stage, stage_loss, epoch)
+        self.saves.append(time.perf_counter() - t0)
+        self.valid_lrs.append({o: self.get_learning_rate(o)
+                               for o in self.optimizers})
+        self.epochs.append(dict(epoch=epoch, valid_loss=stage_loss,
+                                train_loss=self.train_stats["loss"],
+                                wall=time.perf_counter() - self._epoch_t0))
+
+    def on_evaluate_start(self, max_key=None, min_key=None):
+        t0 = time.perf_counter()
+        super().on_evaluate_start(max_key=max_key, min_key=min_key)
+        self.recovers.append(time.perf_counter() - t0)
+
+    def on_song_end(self, batch, est_np):
+        self.songs.append([batch.id[0].rsplit("_", 1)[0], est_np,
+                           np.concatenate(self._song_logits)])
+        self._song_logits = []
+
+    def _score_song(self, est_np, ref_intervals, ref_pitchs):
+        super()._score_song(est_np, ref_intervals, ref_pitchs)
+        self.songs[-1].append({f"{n}_{k}": getattr(self, f"{n}_{k}").val
+                               for n in self.metric_names
+                               for k in ("precis", "recall", "f1")})
+
+
+def recipe_brain(root, csvs, arch, tree, device, **overrides):
+    """The recipe's objects (``recipe_hparams``) over ``csvs`` with
+    ``tree``'s weights: (brain, hparams, (train, valid, test sets))."""
+    if arch:
+        overrides["wav2vec2"] = HuggingFaceWav2Vec2(
+            source="facebook/wav2vec2-large-lv60", output_norm=True,
+            save_path="ssl_model/wav2vec2-large-lv60", arch_overrides=arch)
+    hp = recipe_hparams(
+        data_folder=root, output_folder=os.path.join(root, f"out_{device}"),
+        train_csv=csvs["train"], valid_csv=csvs["valid"],
+        test_csv=[csvs["test"]], **overrides)
+    load_jax_params(tree, hp["modules"]["wav2vec2"], hp["modules"]["model"])
+    data = mir_recipe.dataio_prepare(hp)
+    brain = TimedAMT(modules=hp["modules"], hparams=hp,
+                     run_opts={"device": device, "noprogressbar": True},
+                     checkpointer=hp["checkpointer"])
+    return brain, hp, data
+
+
+def fit_and_evaluate(brain, hp, data):
+    train, valid, tests = data
+    brain.fit(hp["epoch_counter"], train, valid,
+              train_loader_kwargs=hp["train_dataloader_opts"],
+              valid_loader_kwargs=hp["valid_dataloader_opts"])
+    (test_set,) = tests.values()
+    t0 = time.perf_counter()
+    test_loss = brain.evaluate(test_set, min_key="loss",
+                               test_loader_kwargs=hp["test_dataloader_opts"])
+    return test_set, test_loss, time.perf_counter() - t0
+
+
+def check_eval_shapes(brain, eval_sets):
+    """Rows 1 and 2 against their plain versions in f32 at each shape the
+    recipe's evaluation gives them: the frontend on an utterance padded to
+    whole seconds (1, samples), the short attention on (1, 16, T, 64) with
+    the utterance's frame count as the key length."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    config = brain.modules.wav2vec2.config
+    packed = brain.modules.wav2vec2.encoder.feature_extractor.packed(
+        torch.float32)
+    shapes = set()
+    for ds in eval_sets:
+        for i in range(len(ds)):
+            n = len(ds[i]["sig"])
+            shapes.add((n, -(-n // SR) * SR))
+    for n, padded in sorted(shapes):
+        wav = torch.zeros(1, padded, device="cuda")
+        wav[0, :n] = torch.randn(n, generator=gen, device="cuda")
+        got = cf.fused_conv_frontend(wav, packed)
+        want = cf.conv_frontend_reference(wav, packed)
+        frames, valid = config.output_length(padded), config.output_length(n)
+        q, k, v, lens = attention_inputs((1, 16, frames, 64), [valid],
+                                         torch.float32, gen)
+        got_a = fa.flash_attention_short(q, k, v, lens)
+        want_a = fa.attention_reference(q, k, v, lens)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        err_a = (got_a - want_a).abs().max().item()
+        ok = (got.shape == (1, frames, 512) and err <= TOL[("conv_frontend",
+                                                            "f32")]
+              and err_a <= TOL[("flash_attention_short", "f32")])
+        log(f"  eval shape: wav (1, {padded}) holding {n} samples -> "
+            f"conv_frontend max_abs_err={err:.3e}; flash_attention_short "
+            f"(1, 16, {frames}, 64) length {valid}: max_abs_err={err_a:.3e} "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("a kernel disagrees with its plain version "
+                                 "at the recipe's evaluation shapes")
+
+
+def recipe_phase(rng):
+    """Phase 13: the recipe at lv60 full width and depth (seeded random
+    weights, f32): 3 epochs of ``fit`` (a linear probe, then two finetune
+    epochs: on random weights the recipe's first Adam step overshoots, and
+    the train loss falls from the second finetune epoch on) with
+    validation, then ``evaluate`` of the test set from the checkpoint of
+    least valid loss. Returns (launches, summary)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_recipe_")
+    try:
+        csvs = make_recipe_set(root, rng, RECIPE_SONGS)
+        tree = init_params(Wav2Vec2Config(),
+                           torch.Generator().manual_seed(SEED + 6),
+                           HEAD_OUTPUTS)
+        brain, hp, data = recipe_brain(root, csvs, {}, tree, "cuda",
+                                       number_of_epochs=3,
+                                       linear_prob_epochs=1)
+        n_layers = brain.modules.wav2vec2.config.num_layers
+        log(f"  {len(data[0])} train utterances (batch "
+            f"{hp['batch_size']}), {len(data[1])} valid and "
+            f"{len(data[2]['test'])} test utterances (batch 1), "
+            f"{n_layers} layers, f32, {hp['num_workers']} loader workers")
+        check_eval_shapes(brain, data[1:2] + tuple(data[2].values()))
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        test_set, test_loss, eval_s = fit_and_evaluate(brain, hp, data)
+        counts = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  launches over fit and evaluate: {counts}")
+        for e in brain.epochs:
+            log(f"  epoch {e['epoch']}: {e['wall']:.2f} s wall, train loss "
+                f"{e['train_loss']:.6f}, valid loss {e['valid_loss']:.6f}")
+        for i, st in enumerate(brain.steps):
+            log(f"  step {i + 1} ({'probe' if st['probe'] else 'finetune'}): "
+                f"loss={st['loss']:.6f} {st['wall'] * 1e3:.1f} ms "
+                f"launches={ {k: v for k, v in st['counts'].items() if v} }")
+            if not np.isfinite(st["loss"]):
+                raise AssertionError(f"nonfinite training loss {st['loss']}")
+            expect_counts(st["counts"], {}, "recipe training step")
+        for ev in brain.evals:
+            expect_counts(ev["counts"], {"conv_frontend": 7,
+                                         "flash_attention_short": n_layers},
+                          f"evaluation of {ev['id']} ({ev['stage']})")
+        train_losses = [e["train_loss"] for e in brain.epochs]
+        if not train_losses[-1] < train_losses[0]:
+            raise AssertionError(f"the train loss did not fall: "
+                                 f"{train_losses}")
+        ckpts = hp["checkpointer"].list_checkpoints()
+        best = min(e["valid_loss"] for e in brain.epochs)
+        if len(ckpts) != 1 or ckpts[0].meta["loss"] != best:
+            raise AssertionError(f"kept {[c.meta for c in ckpts]}, want one "
+                                 f"checkpoint of valid loss {best}")
+        n_test_songs = len(RECIPE_SONGS["test"])
+        if brain.COn_f1.count != n_test_songs:
+            raise AssertionError(f"{brain.COn_f1.count} test songs scored, "
+                                 f"want {n_test_songs}")
+        ckpt_bytes = sum(os.path.getsize(f)
+                         for f in ckpts[0].paramfiles.values())
+        tests = [e for e in brain.evals if e["stage"] == "TEST"]
+        test_audio = sum(e["audio_s"] for e in tests)
+        test_walls = [e["wall"] for e in tests]
+        seconds = ", ".join("%.2f" % e["audio_s"] for e in tests)
+        log(f"  test: loss {test_loss:.6f}, {len(tests)} utterances "
+            f"({seconds} s), "
+            f"COnPOff/COnP/COn F1 {brain.COnPOff_f1.avg:.4f} / "
+            f"{brain.COnP_f1.avg:.4f} / {brain.COn_f1.avg:.4f}")
+        steps = {kind: [s["wall"] for s in brain.steps
+                        if s["probe"] == (kind == "probe")]
+                 for kind in ("probe", "finetune")}
+        summary = dict(
+            epoch_s=[round(e["wall"], 3) for e in brain.epochs],
+            probe_step_ms=float(np.median(steps["probe"])) * 1e3,
+            finetune_step_ms=float(np.median(steps["finetune"])) * 1e3,
+            eval_ms_per_utterance=float(np.median(
+                [e["wall"] for e in brain.evals])) * 1e3,
+            evaluate_s=eval_s, evaluate_rtfx=test_audio / eval_s,
+            test_batches_rtfx=test_audio / sum(test_walls),
+            ckpt_bytes=ckpt_bytes, ckpt_save_s=brain.saves,
+            ckpt_recover_s=list(brain.recovers), peak_gb=peak_gb,
+            train_loss=train_losses, test_loss=test_loss)
+        log("  where the device time goes in evaluate's batches "
+            "(torch.profiler, the test set again without its recovery):")
+        saved, brain.checkpointer = brain.checkpointer, None
+        idle = profile_run(lambda: brain.evaluate(
+            test_set, test_loader_kwargs=hp["test_dataloader_opts"]))
+        brain.checkpointer = saved
+        summary["evaluate_busy"] = None if idle is None else 1 - idle
+        log(f"  median steps: probe {summary['probe_step_ms']:.1f} ms, "
+            f"finetune {summary['finetune_step_ms']:.1f} ms; eval "
+            f"{summary['eval_ms_per_utterance']:.1f} ms an utterance; "
+            f"evaluate {eval_s:.2f} s for {test_audio:.2f} s of audio (RTFx "
+            f"{summary['evaluate_rtfx']:.1f}, its batches alone "
+            f"{summary['test_batches_rtfx']:.1f}); checkpoint "
+            f"{ckpt_bytes / 2 ** 30:.3f} GiB, saved in "
+            f"{[round(t, 2) for t in brain.saves]} s (with the epoch's log "
+            f"and keep-only), recovered in "
+            f"{[round(t, 2) for t in brain.recovers]} s; peak "
+            f"{peak_gb:.2f} GiB")
+        return counts, summary
+    finally:
+        shutil.rmtree(root)
+
+
+def frame_decisions(logits):
+    """What ``frame2note`` decides from a song's logits (frames, 20): onset
+    peaks, offsets, octave and pitch class; and the frames where a decision
+    rests on a near tie (within NEAR_THRESHOLD): a probability against its
+    threshold, an onset against another in its peak window, or the top two
+    octave or class logits."""
+    probs = 1.0 / (1.0 + np.exp(-logits[:, :2].astype(np.float64)))
+    onset, offset = probs[:, 0], probs[:, 1]
+    octave, pitch = logits[:, 2:7], logits[:, 7:]
+    decided = np.stack([
+        onset_peaks(onset, HPARAMS["onset_threshold"]),
+        offset >= HPARAMS["offset_threshold"],
+        octave.argmax(-1), pitch.argmax(-1)], -1)
+    n = len(onset)
+    near = ((np.abs(onset - HPARAMS["onset_threshold"]) < NEAR_THRESHOLD)
+            | (np.abs(offset - HPARAMS["offset_threshold"]) < NEAR_THRESHOLD))
+    for i in range(n):
+        window = np.r_[onset[max(0, i - 3):i], onset[i + 1:min(i + 4, n - 1)]]
+        if window.size and np.abs(window - onset[i]).min() < NEAR_THRESHOLD:
+            near[i] = True
+    for part in (octave, pitch):
+        top2 = np.sort(part, -1)[:, -2:]
+        near |= top2[:, 1] - top2[:, 0] < NEAR_THRESHOLD
+    return decided, near
+
+
+def bias_the_onsets(tree, arch, wav):
+    """Seeded random weights put every onset probability far under the 0.4
+    threshold (0.11-0.23 on a TINY model), so no note would be decoded and
+    the notes card against CPU would hold nothing. Raise the head's onset
+    bias so that the median onset logit over ``wav`` (one song, on the CPU)
+    is 0, a probability of 0.5: onset peaks then cross the threshold."""
+    bridge = HuggingFaceWav2Vec2(source="facebook/wav2vec2-large-lv60",
+                                 arch_overrides=arch)
+    head = Linear(HEAD_OUTPUTS, bridge.config.hidden_size)
+    load_jax_params(tree, bridge, head)
+    with torch.inference_mode():
+        onset = head(bridge(torch.from_numpy(wav)[None],
+                            wav_lens=torch.ones(1)))[0, :, 0]
+    shift = -onset.median().item()
+    tree["model"]["b"][0] += shift
+    log(f"  onset bias of the head raised by {shift:.4f} (the median onset "
+        f"logit over a {len(wav) / SR:.1f} s song, std "
+        f"{onset.std().item():.4f})")
+
+
+def recipe_card_vs_cpu(rng):
+    """Phase 14: ``evaluate`` of a 2-layer lv60-width model on its seeded
+    weights (which detect notes), one epoch of ``fit`` (full finetune) and
+    ``evaluate`` again, dropouts 0, on the card and on the CPU from the
+    same weights: per-step losses, evaluation logits, NewBob rates, every
+    song's notes and scores."""
+    arch = dict(num_layers=2, hidden_dropout=0.0, attention_dropout=0.0,
+                activation_dropout=0.0, feat_proj_dropout=0.0)
+    tree = init_params(Wav2Vec2Config(**arch),
+                       torch.Generator().manual_seed(SEED + 7), HEAD_OUTPUTS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_recipe_")
+    try:
+        csvs = make_recipe_set(root, rng, CARD_VS_CPU_SONGS)
+        bias_the_onsets(tree, arch, read_audio(
+            os.path.join(root, "test", "test0", "vocals.wav")))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            brain, hp, data = recipe_brain(
+                root, csvs, arch, tree, dev, number_of_epochs=1,
+                linear_prob_epochs=0, batch_size=4, num_workers=2)
+            t0 = time.perf_counter()
+            brain.evaluate(data[2]["test"],
+                           test_loader_kwargs=hp["test_dataloader_opts"])
+            _, test_loss, _ = fit_and_evaluate(brain, hp, data)
+            runs[dev] = brain
+            log(f"  {dev}: {time.perf_counter() - t0:.1f} s, step losses "
+                f"{[round(s['loss'], 6) for s in brain.steps]}, test loss "
+                f"{test_loss:.6f}, learning rates {brain.valid_lrs}")
+        card, cpu = runs["cuda"], runs["cpu"]
+        loss_rel = max(abs(a["loss"] / b["loss"] - 1)
+                       for a, b in zip(card.steps, cpu.steps))
+        logit_err = max(np.abs(a["logits"] - b["logits"]).max()
+                        for a, b in zip(card.evals, cpu.evals))
+        ok = (len(card.steps) == len(cpu.steps) > 1
+              and loss_rel <= TOL_STEP["loss_rel"]
+              and [e["id"] for e in card.evals] == [e["id"] for e in cpu.evals]
+              and logit_err <= TOL_RECIPE_LOGITS
+              and card.valid_lrs == cpu.valid_lrs)
+        log(f"  card vs CPU: {len(card.steps)} steps, loss rel err "
+            f"{loss_rel:.3e} (tol {TOL_STEP['loss_rel']:.0e}); "
+            f"{len(card.evals)} evaluated utterances, logits max abs err "
+            f"{logit_err:.3e} (tol {TOL_RECIPE_LOGITS:.0e}); learning rates "
+            f"equal: {card.valid_lrs == cpu.valid_lrs}")
+        for (name, notes, logits, scores), (_, want, want_logits,
+                                            want_scores) in zip(card.songs,
+                                                                cpu.songs):
+            decided, _ = frame_decisions(logits)
+            want_decided, near = frame_decisions(want_logits)
+            differ = np.flatnonzero((decided != want_decided).any(-1))
+            if len(differ):
+                log(f"  {name}: frames {differ.tolist()} decide otherwise on "
+                    f"the card (near ties: {near[differ].tolist()}; card "
+                    f"{decided[differ].tolist()}, CPU "
+                    f"{want_decided[differ].tolist()}): notes {len(notes)} "
+                    f"on the card, {len(want)} on the CPU, not held")
+                ok = ok and bool(near[differ].all())
+                continue
+            same = (notes.shape == want.shape and (notes == want).all()
+                    and scores == want_scores)
+            log(f"  {name}: {len(notes)} notes, COnPOff/COnP/COn F1 "
+                f"{scores['COnPOff_f1']:.4f}/{scores['COnP_f1']:.4f}/"
+                f"{scores['COn_f1']:.4f}, card = CPU: {same}")
+            ok = ok and same
+        if not ok:
+            raise AssertionError("the recipe on the card disagrees with the "
+                                 "CPU")
+    finally:
+        shutil.rmtree(root)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2232,6 +2789,15 @@ def main():
     log("phase 12: one f32 RNN-T training step, 2 lv60-width layers, card vs "
         "CPU")
     rnnt_card_vs_cpu_step(rng)
+
+    log("phase 13: the MIR-ST500 recipe, lv60 full width and depth: fit 3 "
+        "epochs (probe, 2 finetune), then evaluate from the best checkpoint")
+    _, recipe_summary = recipe_phase(rng)
+    log(f"  recipe summary: {json.dumps(recipe_summary)}")
+
+    log("phase 14: the recipe at 2 lv60-width layers, one epoch and "
+        "evaluate, card vs CPU")
+    recipe_card_vs_cpu(rng)
 
     kernels = []
     for key, r in rows.items():

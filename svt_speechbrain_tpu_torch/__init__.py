@@ -6,16 +6,23 @@ and plain tensor functions. Every Pallas kernel on the ported path is a
 hand-written Hopper (``sm_90a``) CUDA kernel under ``csrc/``, built with
 ``nvcc`` at first use and bound with ``ctypes`` (``ops/_build.py``).
 
-- ``nnet``      — Linear, activations, normalization, Conv1d, attention.
+- ``nnet``      — Linear, activations, normalization, Conv1d, attention,
+  losses, schedulers, the transducer pieces.
 - ``ops``       — the CUDA kernel wrappers and their plain PyTorch versions.
 - ``models``    — wav2vec2-large-lv60 ("layer" extractor, pre-LN encoder).
-- ``utils``     — the AMT frame/note decode library (numpy).
+- ``core``      — the engine: ``Brain`` (``fit``, ``evaluate``), the
+  command line and the experiment folder; ``config`` reads its yaml.
+- ``dataio``    — CSV datasets, WAV I/O, padded batches, samplers, loaders.
+- ``tasks``     — the AMT brains; ``recipes`` — the MIR-ST500 recipe.
+- ``utils``     — checkpoints, epoch counter, train logger, metric stats,
+  and the AMT frame/note decode library (numpy).
 - ``inference`` — ``BatchedAMTTranscriber``, chunked batched serving.
 - ``flagship``  — the flagship AMT forward (wav2vec2 + 20-logit head).
 - ``convert_jax`` — JAX parameter trees → the port's modules, and seeded
   random trees of the same shapes.
 
-Importing this package imports torch and numpy only.
+Importing this package imports torch and numpy only; the yaml loader
+imports PyYAML when it reads a file.
 """
 from __future__ import annotations
 

@@ -27,7 +27,9 @@ parameters (weights transposed); an ``Embedding``'s ``table`` and a
 
 ``init_params`` draws a tree of the same shapes and distributions as the
 JAX ``init``s from a ``torch.Generator`` (JAX's PRNG gives other numbers;
-the machine with the card has no JAX).
+the machine with the card has no JAX); ``init_modules`` fills a dict of
+modules with such draws from one seed, as the JAX ``Brain`` initialises
+its modules when it is built.
 """
 from __future__ import annotations
 
@@ -37,7 +39,9 @@ import re
 import numpy as np
 import torch
 
+from svt_speechbrain_tpu_torch.models.wav2vec2 import HuggingFaceWav2Vec2
 from svt_speechbrain_tpu_torch.nnet.cnn import jax_to_torch_conv_weight
+from svt_speechbrain_tpu_torch.nnet.linear import Linear
 
 
 _RNN_LEAF = re.compile(r"(?:^|/)l(\d+)(_rev)?/([wb])_(ih|hh)$")
@@ -197,6 +201,31 @@ def init_params(config, generator, head_outputs=20):
     wav2vec2 = init_wav2vec2(config, generator)
     return {"wav2vec2": wav2vec2,
             "model": init_linear(generator, config.hidden_size, head_outputs)}
+
+
+def seeded_tree(module, generator):
+    """The seeded JAX-shaped tree of one module (``init_wav2vec2`` for a
+    ``HuggingFaceWav2Vec2``, ``init_linear`` for a ``Linear``), or None if
+    it holds no parameters."""
+    if isinstance(module, HuggingFaceWav2Vec2):
+        return init_wav2vec2(module.config, generator)
+    if isinstance(module, Linear):
+        return init_linear(generator, *module.w.shape)
+    if isinstance(module, torch.nn.Module) and any(module.parameters()):
+        raise NotImplementedError(
+            f"no seeded initialisation for {type(module).__name__}")
+    return None
+
+
+def init_modules(modules, seed):
+    """Fill every module of ``modules`` (a dict, in its order) with seeded
+    random parameters from one ``torch.Generator``: what the JAX ``Brain``
+    does with its PRNG when it is built (its numbers differ)."""
+    generator = torch.Generator().manual_seed(seed)
+    for module in modules.values():
+        tree = seeded_tree(module, generator)
+        if tree is not None:
+            load_module_tree(module, tree)
 
 
 def _unconvert(name, tensor):

@@ -1,17 +1,23 @@
-"""The training engine, on one device (port of the training part of
-``svt_speechbrain_tpu/core.py:195-715``).
+"""The training engine, on one device (port of ``svt_speechbrain_tpu/core.py``).
 
 A ``Brain`` subclass overrides ``compute_forward(batch, stage, rng)`` and
-``compute_objectives(predictions, batch, stage)``; ``fit_batch`` runs one
-optimization step as the JAX engine's jitted train step does:
+``compute_objectives(predictions, batch, stage)``, and is driven by ``fit``
+(epochs of ``fit_batch`` over a train loader, each followed by
+``evaluate_batch`` over a valid loader) and ``evaluate`` (a test loader).
+Loaders are ``dataio.dataloader.SaveableDataLoader``s of ``PaddedBatch``es,
+built by ``make_dataloader`` with the stage's defaults.
 
-1. the batch goes to the device, with ``valid_rows`` (all ones: one device,
-   so no batch padding) for the models' whole-batch statistics;
+``fit_batch`` runs one optimization step as the JAX engine's jitted train
+step does:
+
+1. the batch goes to the device (keys in ``host_only_keys`` stay on the
+   host), with ``valid_rows`` (all ones: one device, so no batch padding)
+   for the models' whole-batch statistics;
 2. the forward runs under train with the step's generators (``StepRNG``),
    through ``torch.func.functional_call`` with the compute parameters:
    frozen modules' parameters detached (the ``stop_gradient`` of static
    freezing), and with ``precision="bf16"`` every f32 parameter cast to
-   bf16 (``_cast_for_compute``; a cast, not autocast, whose per-op rules
+   bf16 (``_compute_params``; a cast, not autocast, whose per-op rules
    differ — f32 batch arrays stay f32, as in the JAX engine);
 3. the backward; the global norm of the trainable gradients; a clip by
    min(1, max_grad_norm / (norm + 1e-6)) (torch ``clip_grad_norm_``'s
@@ -20,24 +26,52 @@ optimization step as the JAX engine's jitted train step does:
    ``nonfinite_patience`` steps have been skipped;
 5. one step of each optimizer that owns a trainable module.
 
-``fit``/``evaluate``, checkpoints, dataloaders and distribution wait for
-later slices.
+``evaluate_batch`` runs the forward and the objectives under
+``torch.inference_mode`` with the same compute parameters, brings the
+predictions to the host in one copy and hands them, as numpy, to
+``on_evaluate_batch_end``.
+
+A ``checkpointer`` gets every module, every optimizer (``<name>_opt``), the
+train loader's position and the brain's counters with both generators'
+states, so that a run recovered from a checkpoint continues with the numbers
+of an uninterrupted one. ``grad_accumulation_factor`` other than 1 is
+refused, and one process is all that runs (data parallelism is ROADMAP.md
+queue 1 item 16).
 """
 from __future__ import annotations
 
+import argparse
+import inspect
 import logging
 import math
+import os
+import shutil
+import sys
+import time
+from datetime import date
 from enum import Enum, auto
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 from torch import nn
 
 from svt_speechbrain_tpu_torch import resolve_device
-from svt_speechbrain_tpu_torch.dataio.batch import PaddedData
+from svt_speechbrain_tpu_torch.config import convert_to_yaml
+from svt_speechbrain_tpu_torch.dataio.batch import PaddedBatch, PaddedData
+from svt_speechbrain_tpu_torch.dataio.dataloader import (LoopedLoader,
+                                                         SaveableDataLoader,
+                                                         make_dataloader)
+from svt_speechbrain_tpu_torch.dataio.sampler import ReproducibleRandomSampler
 from svt_speechbrain_tpu_torch.nnet.dropout import StepRNG
+from svt_speechbrain_tpu_torch.parallel.distributed import (if_main_process,
+                                                            run_on_main)
+from svt_speechbrain_tpu_torch.utils.logger import (
+    format_order_of_magnitude, get_environment_description, setup_logging)
 
 logger = logging.getLogger(__name__)
+
+INTRA_EPOCH_CKPT_FLAG = "brain_intra_epoch_ckpt"
 
 
 class Stage(Enum):
@@ -46,6 +80,137 @@ class Stage(Enum):
     TRAIN = auto()
     VALID = auto()
     TEST = auto()
+
+
+def create_experiment_directory(experiment_directory, hyperparams_to_save=None,
+                                overrides={}, save_env_desc=True):
+    """Create the experiment folder (``core.py:85``), on the main process:
+    the hyperparameter file with a header naming it and the overrides, a
+    copy of the calling script, ``log.txt`` (logging is set up to it) and
+    ``env.log``."""
+    caller = inspect.getmodule(inspect.currentframe().f_back)
+
+    def _create():
+        os.makedirs(experiment_directory, exist_ok=True)
+        if hyperparams_to_save is not None:
+            with open(hyperparams_to_save) as f:
+                resolved_yaml = f.read()
+            with open(os.path.join(experiment_directory, "hyperparams.yaml"),
+                      "w") as w:
+                w.write(f"# Generated {date.today()} from:\n")
+                w.write(f"# {os.path.abspath(hyperparams_to_save)}\n")
+                w.write("# yamllint disable\n")
+                if overrides:
+                    w.write("# Overrides:\n")
+                    for line in str(overrides).splitlines():
+                        w.write(f"#   {line}\n")
+                w.write(resolved_yaml)
+        callingfile = getattr(caller, "__file__", None)
+        if callingfile and os.path.exists(callingfile):
+            shutil.copy(os.path.realpath(callingfile), experiment_directory)
+        setup_logging(os.path.join(experiment_directory, "log.txt"))
+        sys.excepthook = _logging_excepthook
+        logger.info("Beginning experiment!")
+        logger.info(f"Experiment folder: {experiment_directory}")
+        if save_env_desc:
+            with open(os.path.join(experiment_directory, "env.log"), "w") as fo:
+                fo.write(get_environment_description())
+
+    run_on_main(_create)
+
+
+def _logging_excepthook(exc_type, exc_value, exc_traceback):
+    """Log an uncaught exception into the experiment's log."""
+    logger.error("Exception:", exc_info=(exc_type, exc_value, exc_traceback))
+
+
+# flags of the JAX command line that configure TPU meshes or XLA: refused
+_TPU_ONLY = {"fsdp": "--fsdp (parameter sharding)",
+             "jit_module_keys": "--jit_module_keys (XLA compilation)"}
+
+
+def parse_arguments(arg_list=None):
+    """Parse ``experiment.py params.yaml --overrides`` (``core.py:133``) into
+    (param_file, run_opts dict, overrides yaml string); run options not
+    given are left out, so the hyperparameter file's values apply.
+    ``--device`` is ``cuda`` unless named. The JAX package's TPU flags
+    (``--fsdp``, ``--jit_module_keys``, ``--distributed_backend ici``) and a
+    data-parallel count above 1 are refused.
+
+    Example
+    -------
+    >>> param_file, run_opts, overrides = parse_arguments(
+    ...     ["hparams.yaml", "--device", "cpu", "--lr=0.1"])
+    >>> param_file, run_opts["device"], "precision" in run_opts, overrides
+    ('hparams.yaml', 'cpu', False, 'lr: 0.1')
+    """
+    if arg_list is None:
+        arg_list = sys.argv[1:]
+    parser = argparse.ArgumentParser(description="Run an experiment")
+    parser.add_argument("param_file", type=str,
+                        help="A yaml-formatted file using the extended YAML "
+                             "syntax.")
+    parser.add_argument("--debug", default=False, action="store_true",
+                        help="Run the experiment with only a few batches for "
+                             "all datasets, to ensure code runs without "
+                             "crashing.")
+    parser.add_argument("--debug_batches", type=int, default=2,
+                        help="Number of batches to run in debug mode.")
+    parser.add_argument("--debug_epochs", type=int, default=2,
+                        help="Number of epochs to run in debug mode.")
+    parser.add_argument("--log_config", type=str,
+                        help="Logging config file path")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="Torch device to run on (cuda, cuda:1, cpu)")
+    parser.add_argument("--data_parallel_count", type=int, default=-1,
+                        help="Number of devices (one is ported)")
+    parser.add_argument("--fsdp", default=False, action="store_true",
+                        help="TPU parameter sharding: refused")
+    parser.add_argument("--distributed_launch", default=False,
+                        action="store_true",
+                        help="Set up a process group (one process is ported)")
+    parser.add_argument("--distributed_backend", type=str, default="nccl",
+                        help="torch.distributed backend")
+    parser.add_argument("--find_unused_parameters", default=False,
+                        action="store_true",
+                        help="Kept for CLI compatibility with the reference")
+    parser.add_argument("--jit_module_keys", type=str, nargs="*",
+                        help="XLA compilation of modules: refused")
+    parser.add_argument("--precision", type=str, default=None,
+                        choices=["fp32", "bf16"], help="Compute precision")
+    parser.add_argument("--auto_mix_prec", default=None, action="store_true",
+                        help="Alias for --precision bf16")
+    parser.add_argument("--max_grad_norm", type=float, default=None,
+                        help="Gradient norm clipping threshold")
+    parser.add_argument("--nonfinite_patience", type=int, default=None,
+                        help="Number of batches to accept nonfinite loss "
+                             "values")
+    parser.add_argument("--noprogressbar", default=None, action="store_true",
+                        help="Disable the progress bar")
+    parser.add_argument("--ckpt_interval_minutes", type=float, default=None,
+                        help="Save intra-epoch checkpoints every N minutes")
+    parser.add_argument("--grad_accumulation_factor", type=int, default=None,
+                        help="Number of batches to accumulate gradients over")
+
+    run_opts, overrides = parser.parse_known_args(arg_list)
+    run_opts = vars(run_opts)
+    for flag, what in _TPU_ONLY.items():
+        if run_opts[flag]:
+            parser.error(f"{what} configures the JAX package on a TPU and has "
+                         f"no meaning in the PyTorch port")
+    if run_opts["distributed_backend"] == "ici":
+        parser.error("--distributed_backend ici is the TPU interconnect; the "
+                     "PyTorch port takes a torch.distributed backend")
+    if run_opts["data_parallel_count"] > 1:
+        parser.error("--data_parallel_count above 1: data parallelism is not "
+                     "ported yet (ROADMAP.md queue 1 item 16)")
+    param_file = run_opts.pop("param_file")
+    overrides = convert_to_yaml(overrides)
+    run_opts = {k: v for k, v in run_opts.items()
+                if v is not None and k not in _TPU_ONLY}
+    if run_opts.pop("auto_mix_prec", None):
+        run_opts["precision"] = "bf16"
+    return param_file, run_opts, overrides
 
 
 class _Forward(nn.Module):
@@ -61,20 +226,38 @@ class _Forward(nn.Module):
         return self.fn(*args)
 
 
+def _progress(iterable, enable):
+    """``iterable`` under a tqdm bar when ``enable`` (tqdm is imported only
+    then), else itself."""
+    if not enable:
+        return iterable
+    from tqdm import tqdm
+
+    return tqdm(iterable, dynamic_ncols=True)
+
+
 class Brain:
-    """Training engine on one device (``core.py:195``).
+    """Training and evaluation engine on one device (``core.py:195``).
 
     Arguments
     ---------
     modules : dict[str, torch.nn.Module]
         Named modules, with their weights; moved to the device.
+    opt_class : callable or None
+        ``opt_class(params)`` builds the one optimizer over every module
+        when ``init_optimizers`` is not overridden.
     hparams : dict
         Experiment config, exposed as ``self.hparams.<key>``; ``seed``
-        seeds the step generators.
+        seeds the step generators and the train loader's shuffling.
     run_opts : dict
         ``device`` (CUDA unless a device is named), ``precision``
-        ("fp32" | "bf16"), ``max_grad_norm``, ``nonfinite_patience``;
-        run_opts take precedence over hparams, then the defaults.
+        ("fp32" | "bf16"), ``max_grad_norm``, ``nonfinite_patience``,
+        ``debug``/``debug_batches``/``debug_epochs``, ``noprogressbar``,
+        ``ckpt_interval_minutes``; run_opts take precedence over hparams,
+        then the defaults.
+    checkpointer : utils.checkpoints.Checkpointer or None
+        Gets the modules, the optimizers, the train loader's position and
+        the brain's counters and generator states.
 
     Example
     -------
@@ -92,22 +275,25 @@ class Brain:
     ...         self.add_optimizer("opt", torch.optim.SGD, ["model"], lr=0.3)
     >>> model = Linear(2, 4)
     >>> brain = SimpleBrain({"model": model}, hparams={"seed": 0},
-    ...                     run_opts={"device": "cpu"})
-    >>> brain.init_optimizers()
+    ...                     run_opts={"device": "cpu", "noprogressbar": True})
     >>> gen = torch.Generator().manual_seed(0)
-    >>> x = torch.randn(8, 5, 4, generator=gen)
-    >>> lens = torch.ones(8)
-    >>> batch = {"sig": PaddedData(x, lens),
-    ...          "anno": PaddedData(x[..., :2] + x[..., 2:], lens)}
-    >>> curve = [brain.fit_batch(batch) for _ in range(20)]
-    >>> curve[-1] < 0.2 * curve[0]
+    >>> data = []
+    >>> for i in range(16):
+    ...     x = torch.randn(5, 4, generator=gen)
+    ...     data.append({"id": str(i), "sig": x, "anno": x[:, :2] + x[:, 2:]})
+    >>> from svt_speechbrain_tpu_torch.utils.epoch_loop import EpochCounter
+    >>> brain.fit(EpochCounter(10), data, train_loader_kwargs={"batch_size": 8})
+    >>> brain.train_loss < 0.2 * brain.evaluate(data[:1]) + 0.05
     True
     """
 
     run_opt_defaults = {"device": None, "precision": "fp32",
-                        "max_grad_norm": 5.0, "nonfinite_patience": 3}
+                        "max_grad_norm": 5.0, "nonfinite_patience": 3,
+                        "debug": False, "debug_batches": 2, "debug_epochs": 2,
+                        "noprogressbar": False, "ckpt_interval_minutes": 0}
 
-    def __init__(self, modules=None, hparams=None, run_opts=None):
+    def __init__(self, modules=None, opt_class=None, hparams=None,
+                 run_opts=None, checkpointer=None):
         run_opts = run_opts or {}
         hparams = hparams or {}
         for arg, default in self.run_opt_defaults.items():
@@ -125,17 +311,33 @@ class Brain:
                 f"is not ported yet (ROADMAP.md queue 1, item 10); only 1 "
                 f"is accepted")
         self.device = resolve_device(self.device)
+        self.opt_class = opt_class
+        self.checkpointer = checkpointer
         self.hparams = SimpleNamespace(**hparams)
         self.modules = nn.ModuleDict(modules or {}).to(self.device)
         self._forward = _Forward(self.modules, self.compute_forward)
-        seed = int(hparams.get("seed", 1986))
-        self.generator = torch.Generator(self.device).manual_seed(seed)
-        self.host_generator = torch.Generator().manual_seed(seed)
+        self.seed = int(hparams.get("seed", 1986))
+        self.generator = torch.Generator(self.device).manual_seed(self.seed)
+        self.host_generator = torch.Generator().manual_seed(self.seed)
         self.optimizers = {}
         self.frozen_modules = frozenset()
+        self.avg_train_loss = 0.0
+        self.step = 0
         self.optimizer_step = 0
         self.nonfinite_count = 0
         self.last_grad_norm = None
+        self.train_sampler = None
+        # batch keys that never go to the device (per-song references)
+        self.host_only_keys = set()
+        if checkpointer is not None:
+            checkpointer.add_recoverable("brain", _BrainCounters(self))
+            for name, module in self.modules.items():
+                checkpointer.add_recoverable(name, module)
+        total = sum(p.numel() for p in self.modules.parameters())
+        if total > 0:
+            num, units = format_order_of_magnitude(total)
+            logger.info(f"{num}{units} trainable parameters in "
+                        f"{type(self).__name__}")
 
     # ------------------------------------------------------------ overrides
     def compute_forward(self, batch, stage, rng=None):
@@ -147,16 +349,46 @@ class Brain:
         """Loss computation: (predictions, device batch, stage) → scalar."""
         raise NotImplementedError
 
+    def on_stage_start(self, stage, epoch=None):
+        """Called at the start of each TRAIN/VALID/TEST stage."""
+
+    def on_stage_end(self, stage, stage_loss, epoch=None):
+        """Called at the end of each stage."""
+
+    def on_fit_start(self):
+        """Called once at the start of ``fit``: the optimizers, then the
+        newest checkpoint if there is one (``core.py:404``)."""
+        self.init_optimizers()
+        if self.checkpointer is not None:
+            self.checkpointer.recover_if_possible()
+
+    def on_evaluate_start(self, max_key=None, min_key=None):
+        """Recover the best checkpoint by key (``core.py:411``)."""
+        if self.checkpointer is not None:
+            self.checkpointer.recover_if_possible(max_key=max_key,
+                                                  min_key=min_key)
+
+    def on_evaluate_batch_end(self, batch, predictions, loss, stage):
+        """Host-side evaluation hook: ``batch`` as the loader gave it,
+        ``predictions`` as numpy, ``loss`` a float."""
+
     # ----------------------------------------------------------- optimizers
     def init_optimizers(self):
-        """Register optimizers with ``add_optimizer``."""
+        """Register optimizers with ``add_optimizer``; by default one
+        ``opt_class`` over every module."""
+        if self.opt_class is not None:
+            self.add_optimizer("opt", self.opt_class, list(self.modules.keys()))
 
-    def add_optimizer(self, name, factory, module_names, lr):
+    def add_optimizer(self, name, factory, module_names, lr=None):
         """An optimizer ``factory(params, lr=lr)`` (a ``torch.optim`` class
-        or a ``functools.partial`` of one) over ``module_names``' params."""
+        or a ``functools.partial`` of one; ``factory(params)`` without
+        ``lr``) over ``module_names``' params, checkpointed as
+        ``<name>_opt``."""
         params = [p for n in module_names for p in self.modules[n].parameters()]
-        self.optimizers[name] = {"opt": factory(params, lr=lr),
-                                 "modules": tuple(module_names)}
+        opt = factory(params) if lr is None else factory(params, lr=lr)
+        self.optimizers[name] = {"opt": opt, "modules": tuple(module_names)}
+        if self.checkpointer is not None:
+            self.checkpointer.add_recoverable(f"{name}_opt", opt)
 
     def set_learning_rate(self, opt_name, lr):
         for group in self.optimizers[opt_name]["opt"].param_groups:
@@ -173,7 +405,29 @@ class Brain:
             raise ValueError(f"unknown modules {sorted(unknown)}")
         self.frozen_modules = frozenset(names)
 
-    # ------------------------------------------------------------ the step
+    # ------------------------------------------------------------- batching
+    def make_dataloader(self, dataset, stage, ckpt_prefix="dataloader-",
+                        **loader_kwargs):
+        """A loader with the stage's defaults (``core.py:479``): a seeded
+        ``ReproducibleRandomSampler`` for a shuffled train set, pinned
+        batches on CUDA, and the position checkpointed as
+        ``<ckpt_prefix><STAGE>``."""
+        loader_kwargs = dict(loader_kwargs)
+        if stage == Stage.TRAIN:
+            if loader_kwargs.pop("shuffle", False) and \
+                    loader_kwargs.get("sampler") is None:
+                loader_kwargs["sampler"] = ReproducibleRandomSampler(
+                    dataset, seed=self.seed)
+            self.train_sampler = loader_kwargs.get("sampler")
+        loader_kwargs.setdefault("pin_memory", self.device.type == "cuda")
+        dataloader = make_dataloader(dataset, **loader_kwargs)
+        if (self.checkpointer is not None and ckpt_prefix is not None
+                and isinstance(dataloader, (SaveableDataLoader,
+                                            LoopedLoader))):
+            self.checkpointer.add_recoverable(ckpt_prefix + stage.name,
+                                              dataloader)
+        return dataloader
+
     def _batch_to_device(self, batch):
         def move(x):
             if isinstance(x, PaddedData):
@@ -183,7 +437,10 @@ class Brain:
                 x = x.float()
             return x.to(self.device, non_blocking=True)
 
-        out = {key: move(val) for key, val in batch.items()}
+        if isinstance(batch, PaddedBatch):
+            batch = batch.tensors()
+        out = {key: move(val) for key, val in batch.items()
+               if key not in self.host_only_keys}
         first = next(iter(out.values()))
         rows = (first.data if isinstance(first, PaddedData) else first).shape[0]
         out["valid_rows"] = torch.ones(rows, device=self.device)
@@ -205,8 +462,9 @@ class Brain:
         return [p for n, m in self.modules.items()
                 if n not in self.frozen_modules for p in m.parameters()]
 
+    # ------------------------------------------------------------ the steps
     def fit_batch(self, batch):
-        """One optimization step (``core.py:593-715``); returns the loss.
+        """One optimization step (``core.py:692``); returns the loss.
         The step's gradient norm (before clipping) is kept in
         ``self.last_grad_norm``."""
         batch = self._batch_to_device(batch)
@@ -243,3 +501,167 @@ class Brain:
                 cfg["opt"].step()
         self.optimizer_step += 1
         return loss_val
+
+    def evaluate_batch(self, batch, stage):
+        """Evaluation on one batch (``core.py:717``): the forward and the
+        objectives under ``torch.inference_mode``, the predictions and the
+        loss brought to the host in one copy, then the host hook; returns
+        the loss."""
+        arrays = self._batch_to_device(batch)
+        with torch.inference_mode():
+            preds = torch.func.functional_call(
+                self._forward, self._compute_params(), (arrays, stage, None))
+            loss = self.compute_objectives(preds, arrays, stage)
+            preds_np, loss_val = _to_host(preds, loss)
+        self.on_evaluate_batch_end(batch, preds_np, loss_val, stage)
+        return loss_val
+
+    # ------------------------------------------------------------ the loops
+    def fit(self, epoch_counter, train_set, valid_set=None, progressbar=None,
+            train_loader_kwargs={}, valid_loader_kwargs={}):
+        """Epochs of training and validation (``core.py:728``)."""
+        if not isinstance(train_set, (SaveableDataLoader, LoopedLoader)):
+            train_set = self.make_dataloader(train_set, stage=Stage.TRAIN,
+                                             **train_loader_kwargs)
+        if valid_set is not None and not isinstance(
+                valid_set, (SaveableDataLoader, LoopedLoader)):
+            valid_set = self.make_dataloader(valid_set, stage=Stage.VALID,
+                                             ckpt_prefix=None,
+                                             **valid_loader_kwargs)
+        self.on_fit_start()
+        if progressbar is None:
+            progressbar = not self.noprogressbar
+        enable = progressbar and if_main_process()
+
+        for epoch in epoch_counter:
+            self.on_stage_start(Stage.TRAIN, epoch)
+            if self.train_sampler is not None and hasattr(self.train_sampler,
+                                                          "set_epoch"):
+                self.train_sampler.set_epoch(epoch)
+            # step and average start at 0 (reset after the last epoch) or
+            # where an intra-epoch checkpoint left them, so a recovered
+            # epoch averages as an uninterrupted one (the JAX loop resets
+            # them here)
+            last_ckpt_time = time.time()
+            bar = _progress(train_set, enable)
+            for batch in bar:
+                self.step += 1
+                loss = self.fit_batch(batch)
+                self.avg_train_loss = self.update_average(loss,
+                                                          self.avg_train_loss)
+                if enable:
+                    bar.set_postfix(train_loss=self.avg_train_loss)
+                if self.debug and self.step == self.debug_batches:
+                    break
+                if (self.checkpointer is not None
+                        and self.ckpt_interval_minutes > 0
+                        and time.time() - last_ckpt_time
+                        >= self.ckpt_interval_minutes * 60.0):
+                    run_on_main(self._save_intra_epoch_ckpt)
+                    last_ckpt_time = time.time()
+            self.on_stage_end(Stage.TRAIN, self.avg_train_loss, epoch)
+            self.train_loss = self.avg_train_loss
+            self.avg_train_loss = 0.0
+            self.step = 0
+
+            if valid_set is not None:
+                self.on_stage_start(Stage.VALID, epoch)
+                avg_valid_loss = 0.0
+                for batch in _progress(valid_set, enable):
+                    self.step += 1
+                    loss = self.evaluate_batch(batch, stage=Stage.VALID)
+                    avg_valid_loss = self.update_average(loss, avg_valid_loss)
+                    if self.debug and self.step == self.debug_batches:
+                        break
+                self.step = 0
+                run_on_main(self.on_stage_end,
+                            args=[Stage.VALID, avg_valid_loss, epoch])
+
+            if self.debug and epoch == self.debug_epochs:
+                break
+
+    def _save_intra_epoch_ckpt(self):
+        """Intra-epoch checkpoint (``core.py:789``): only the newest is kept."""
+        self.checkpointer.save_and_keep_only(
+            end_of_epoch=False, num_to_keep=1,
+            ckpt_predicate=lambda c: INTRA_EPOCH_CKPT_FLAG in c.meta,
+            meta={INTRA_EPOCH_CKPT_FLAG: True}, verbosity=logging.DEBUG)
+
+    def evaluate(self, test_set, max_key=None, min_key=None, progressbar=None,
+                 test_loader_kwargs={}):
+        """The test loop (``core.py:796``), from the best checkpoint by
+        ``max_key``/``min_key``; returns the average loss."""
+        if progressbar is None:
+            progressbar = not self.noprogressbar
+        if not isinstance(test_set, (SaveableDataLoader, LoopedLoader)):
+            test_set = self.make_dataloader(test_set, Stage.TEST,
+                                            **dict(test_loader_kwargs,
+                                                   ckpt_prefix=None))
+        self.on_evaluate_start(max_key=max_key, min_key=min_key)
+        self.on_stage_start(Stage.TEST, epoch=None)
+        self.step = 0
+        avg_test_loss = 0.0
+        for batch in _progress(test_set, progressbar and if_main_process()):
+            self.step += 1
+            loss = self.evaluate_batch(batch, stage=Stage.TEST)
+            avg_test_loss = self.update_average(loss, avg_test_loss)
+            if self.debug and self.step == self.debug_batches:
+                break
+        run_on_main(self.on_stage_end, args=[Stage.TEST, avg_test_loss, None])
+        self.step = 0
+        return avg_test_loss
+
+    def update_average(self, loss, avg_loss):
+        """Running average over ``self.step`` values (``core.py:821``);
+        a nonfinite loss is left out."""
+        if np.isfinite(loss):
+            avg_loss -= avg_loss / self.step
+            avg_loss += loss / self.step
+        return avg_loss
+
+
+def _to_host(preds, loss):
+    """(predictions, loss) → (numpy predictions of the same structure, float
+    loss), with every floating tensor and the loss in one device-to-host
+    copy (as f32; bf16 logits keep their order)."""
+    parts = list(preds) if isinstance(preds, (tuple, list)) else [preds]
+    floats = [i for i, p in enumerate(parts)
+              if torch.is_tensor(p) and p.is_floating_point()]
+    flat = torch.cat([parts[i].reshape(-1).float() for i in floats]
+                     + [loss.reshape(1).float()]).cpu().numpy()
+    offset = 0
+    out = []
+    for i, p in enumerate(parts):
+        if i in floats:
+            out.append(flat[offset:offset + p.numel()].reshape(p.shape))
+            offset += p.numel()
+        else:
+            out.append(p.cpu().numpy() if torch.is_tensor(p) else p)
+    loss_val = float(flat[-1])
+    if isinstance(preds, (tuple, list)):
+        return tuple(out), loss_val
+    return out[0], loss_val
+
+
+class _BrainCounters:
+    """The brain's checkpointable counters (``core.py:829``) and the states
+    of its two generators (dropout masks and attention seeds), so that a
+    recovered run draws the masks an uninterrupted one would."""
+
+    def __init__(self, brain):
+        self.brain = brain
+
+    def state_dict(self):
+        return {"step": self.brain.step,
+                "avg_train_loss": float(self.brain.avg_train_loss),
+                "optimizer_step": self.brain.optimizer_step,
+                "generator": self.brain.generator.get_state(),
+                "host_generator": self.brain.host_generator.get_state()}
+
+    def load_state_dict(self, data, end_of_epoch=True):
+        del end_of_epoch
+        self.brain.step = data["step"]
+        self.brain.avg_train_loss = data["avg_train_loss"]
+        self.brain.optimizer_step = data["optimizer_step"]
+        self.brain.generator.set_state(data["generator"])
+        self.brain.host_generator.set_state(data["host_generator"])

@@ -1,1 +1,1 @@
-"""Batch containers of the port (counterpart of ``svt_speechbrain_tpu.dataio``)."""
+"""Data loading of the port (counterpart of ``svt_speechbrain_tpu.dataio``)."""

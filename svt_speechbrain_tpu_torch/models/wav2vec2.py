@@ -23,6 +23,7 @@ ported yet and raise ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 import torch.nn.functional as F
@@ -276,7 +277,8 @@ class HuggingFaceWav2Vec2(nn.Module):
 
     def __init__(self, source=None, config: Wav2Vec2Config | None = None,
                  output_norm=True, normalize_wav=True, freeze=False,
-                 freeze_feature_extractor=False, arch_overrides=None):
+                 freeze_feature_extractor=False, arch_overrides=None,
+                 save_path=None):
         super().__init__()
         if config is None:
             name = (source or "wav2vec2-large-lv60").lower()
@@ -291,6 +293,7 @@ class HuggingFaceWav2Vec2(nn.Module):
                            for k, v in arch_overrides.items()})
         self.config = config
         self.source = source
+        self.save_path = save_path
         self.output_norm = output_norm
         # the HF processor's do_normalize: True for lv60 (the "base" models,
         # which set it False, are not ported)
@@ -303,6 +306,19 @@ class HuggingFaceWav2Vec2(nn.Module):
         self.encoder = Wav2Vec2Encoder(config)
         if freeze_feature_extractor:
             self.encoder.feature_extractor.requires_grad_(False)
+
+    def load_pretrained(self):
+        """The bridge's state dict converted from a local HF checkpoint at
+        ``save_path`` (or at ``source`` when that is a path), or None when
+        there is none (``wav2vec2.py:684``); nothing is downloaded."""
+        from svt_speechbrain_tpu_torch.models.convert_hf import load_wav2vec2
+
+        for candidate in (self.save_path, self.source):
+            if candidate and os.path.exists(candidate):
+                encoder, _ = load_wav2vec2(candidate, self.config)
+                return {f"encoder.{k}": v
+                        for k, v in encoder.state_dict().items()}
+        return None
 
     def forward(self, wav, wav_lens=None, rng=None, train=False,
                 row_mask=None):

@@ -6,10 +6,9 @@ chunked pipeline, its streaming session and its multiplexed server.
 The modules of the port own their parameters, so an interface holds
 modules only: ``init_params(seed)`` fills them with seeded draws, and
 ``convert_jax.load_jax_params`` or ``models.convert_hf.load_wav2vec2``
-installs trained ones. ``from_hparams`` and ``transcribe_file`` need the
-hyperparameter loader, the checkpoint fetcher and the audio reader, which
-come with the engine (ROADMAP.md queue 1 item 10) and raise
-``NotImplementedError`` until then. The other interfaces of the JAX module
+installs trained ones. ``from_hparams`` and ``transcribe_file`` wait for
+the checkpoint fetcher, ``pretrained/fetching.py`` (ROADMAP.md queue 1 item
+10), and raise ``NotImplementedError`` until then. The other interfaces of the JAX module
 (``EncoderClassifier``, the ASR ones, ``SpeakerRecognition``, ``VAD``,
 ...) wait for their models.
 """
@@ -17,35 +16,16 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 
-import torch
-
 from svt_speechbrain_tpu_torch import resolve_device
-from svt_speechbrain_tpu_torch.convert_jax import (init_linear,
-                                                   init_wav2vec2,
-                                                   load_module_tree)
+from svt_speechbrain_tpu_torch.convert_jax import init_modules
 from svt_speechbrain_tpu_torch.inference import (BatchedAMTTranscriber,
                                                  StreamingAMTTranscriber,
                                                  StreamingServer)
 from svt_speechbrain_tpu_torch.models.quantize import quantize_wav2vec2
-from svt_speechbrain_tpu_torch.models.wav2vec2 import HuggingFaceWav2Vec2
-from svt_speechbrain_tpu_torch.nnet.linear import Linear
 
-_ENGINE_ITEM = ("the hyperparameter loader, the checkpoint fetcher and the "
-                "audio reader are not ported yet (ROADMAP.md queue 1 item "
-                "10, the engine)")
-
-
-def _seeded_tree(module, generator):
-    """The seeded JAX-shaped tree of one module, or None if it holds no
-    parameters."""
-    if isinstance(module, HuggingFaceWav2Vec2):
-        return init_wav2vec2(module.config, generator)
-    if isinstance(module, Linear):
-        return init_linear(generator, *module.w.shape)
-    if isinstance(module, torch.nn.Module) and any(module.parameters()):
-        raise NotImplementedError(
-            f"no seeded initialisation for {type(module).__name__}")
-    return None
+_ENGINE_ITEM = ("pretrained/fetching.py is not ported yet, and "
+                "from_hparams and transcribe_file wait for it (ROADMAP.md "
+                "queue 1 item 10)")
 
 
 class Pretrained:
@@ -81,11 +61,7 @@ class Pretrained:
         """Fill every module with seeded random parameters (one
         ``torch.Generator``, modules in their given order); returns the
         modules' namespace."""
-        generator = torch.Generator().manual_seed(seed)
-        for module in vars(self.mods).values():
-            tree = _seeded_tree(module, generator)
-            if tree is not None:
-                load_module_tree(module, tree)
+        init_modules(vars(self.mods), seed)
         return self.mods
 
     @classmethod

@@ -8,7 +8,13 @@ import pytest
 
 MODULES = [
     "svt_speechbrain_tpu_torch",
+    "svt_speechbrain_tpu_torch.config",
     "svt_speechbrain_tpu_torch.core",
+    "svt_speechbrain_tpu_torch.dataio.batch",
+    "svt_speechbrain_tpu_torch.dataio.dataio",
+    "svt_speechbrain_tpu_torch.dataio.dataloader",
+    "svt_speechbrain_tpu_torch.dataio.dataset",
+    "svt_speechbrain_tpu_torch.dataio.sampler",
     "svt_speechbrain_tpu_torch.decoders.transducer",
     "svt_speechbrain_tpu_torch.convert_jax",
     "svt_speechbrain_tpu_torch.flagship",
@@ -26,13 +32,24 @@ MODULES = [
     "svt_speechbrain_tpu_torch.nnet.losses",
     "svt_speechbrain_tpu_torch.nnet.normalization",
     "svt_speechbrain_tpu_torch.nnet.rnn",
+    "svt_speechbrain_tpu_torch.nnet.schedulers",
     "svt_speechbrain_tpu_torch.nnet.transducer_joint",
     "svt_speechbrain_tpu_torch.ops.conv_frontend",
     "svt_speechbrain_tpu_torch.ops.flash_attention",
     "svt_speechbrain_tpu_torch.ops.quant",
     "svt_speechbrain_tpu_torch.ops.transducer_lattice",
+    "svt_speechbrain_tpu_torch.parallel.distributed",
     "svt_speechbrain_tpu_torch.pretrained.interfaces",
+    "svt_speechbrain_tpu_torch.tasks.amt",
     "svt_speechbrain_tpu_torch.utils.amt",
+    "svt_speechbrain_tpu_torch.utils.checkpoints",
+    "svt_speechbrain_tpu_torch.utils.data_pipeline",
+    "svt_speechbrain_tpu_torch.utils.data_utils",
+    "svt_speechbrain_tpu_torch.utils.depgraph",
+    "svt_speechbrain_tpu_torch.utils.epoch_loop",
+    "svt_speechbrain_tpu_torch.utils.logger",
+    "svt_speechbrain_tpu_torch.utils.metric_stats",
+    "svt_speechbrain_tpu_torch.utils.train_logger",
     "svt_speechbrain_tpu_torch.utils.transcription_eval",
 ]
 

@@ -27,6 +27,15 @@ from svt_speechbrain_tpu_torch.decoders import TransducerBeamSearcher
 from svt_speechbrain_tpu_torch.nnet import embedding, rnn, transducer_joint
 from svt_speechbrain_tpu_torch.nnet.loss.transducer_loss import TransducerLoss
 from svt_speechbrain_tpu_torch.ops import transducer_lattice
+from svt_speechbrain_tpu_torch import config, core
+from svt_speechbrain_tpu_torch.dataio import (batch, dataio, dataloader,
+                                             dataset, sampler)
+from svt_speechbrain_tpu_torch.nnet import schedulers
+from svt_speechbrain_tpu_torch.parallel import distributed
+from svt_speechbrain_tpu_torch.recipes.MIR_ST500 import (prepare_benchmarks,
+                                                        train_audio_ssl)
+from svt_speechbrain_tpu_torch.utils import (checkpoints, epoch_loop, logger,
+                                             metric_stats, train_logger)
 model = build_flagship(tiny=True, device="cpu")
 with torch.no_grad():
     outs = model(torch.zeros(1, 8000))
@@ -106,3 +115,55 @@ def test_brain_raises_without_cuda_unless_cpu_is_named():
             cls({"model": Linear(2, 2)}, run_opts={"precision": "bf16"})
         assert cls({"model": Linear(2, 2)},
                    run_opts={"device": "cpu"}).device == torch.device("cpu")
+
+
+_WITHOUT_YAML_OR_TQDM = """
+import sys
+sys.modules["yaml"] = None      # an import of either now raises ImportError
+sys.modules["tqdm"] = None
+import tempfile
+import numpy as np
+import torch
+import chip_smoke
+from svt_speechbrain_tpu_torch.core import Stage
+from svt_speechbrain_tpu_torch.models.wav2vec2 import (HuggingFaceWav2Vec2,
+                                                      TINY_ARCH)
+from svt_speechbrain_tpu_torch.recipes.MIR_ST500 import train_audio_ssl
+root = tempfile.mkdtemp()
+csvs = chip_smoke.make_recipe_set(root, np.random.default_rng(0), {
+    "train": (6, 7), "valid": (6,), "test": (6,)})
+hp = chip_smoke.recipe_hparams(
+    data_folder=root, output_folder=root + "/out", train_csv=csvs["train"],
+    valid_csv=csvs["valid"], test_csv=[csvs["test"]], num_workers=2,
+    batch_size=2, feat_dim=64, wav2vec2=HuggingFaceWav2Vec2(
+        source="tiny-test", arch_overrides=TINY_ARCH))
+train, valid, tests = train_audio_ssl.dataio_prepare(hp)
+brain = train_audio_ssl.AMT(modules=hp["modules"], hparams=hp,
+                            run_opts={"device": "cpu"},
+                            checkpointer=hp["checkpointer"])
+brain.init_optimizers()
+brain.on_stage_start(Stage.TRAIN, 1)
+loss = brain.fit_batch(next(iter(brain.make_dataloader(
+    train, Stage.TRAIN, **hp["train_dataloader_opts"]))))
+brain.on_stage_start(Stage.VALID, 1)
+eval_loss = brain.evaluate_batch(next(iter(brain.make_dataloader(
+    valid, Stage.VALID, **hp["valid_dataloader_opts"]))), Stage.VALID)
+assert np.isfinite(loss) and np.isfinite(eval_loss), (loss, eval_loss)
+assert "yaml" not in [m.split(".")[0] for m in sys.modules if sys.modules[m]]
+print("FIT-AND-EVALUATE-OK", loss, eval_loss)
+"""
+
+
+def test_engine_and_recipe_run_without_yaml_or_tqdm():
+    """The engine, the data loading and the recipe import and run one TINY
+    training step and one evaluated utterance, through loader worker
+    processes, with PyYAML and tqdm unavailable (the card machine need not
+    have them): the recipe's objects come from ``chip_smoke.py``'s Python
+    hparams."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    res = subprocess.run([sys.executable, "-c", _WITHOUT_YAML_OR_TQDM],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "FIT-AND-EVALUATE-OK" in res.stdout, res.stdout
