@@ -84,7 +84,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    song's notes and scores (a song with a frame probability within 1e-5 of
    a threshold has its notes printed, not held).
 
-Phases run in the order 1-5, 8, 9, 6, 7, 10-14.
+15. the N20EMv2 audio-only recipe (``svt_speechbrain_tpu_torch/recipes/
+   N20EMv2/audio_only``) on a synthetic set written by its
+   ``prepare_n20emv2`` (7 songs of 11-19 s with accompaniment stems, one
+   MIR-ST500 song mixed into the train set by ``mix_train``), its accomp
+   and white sweeps written by ``synthesis_noise`` on the card; lv60 at full
+   width and depth, f32, batch 8, the yaml's values: a linear-probe and a
+   finetune epoch, ``evaluate`` from the checkpoint of greatest valid
+   COnPOff F1 with the ``save_model`` export, then ``extract_ssl_feats``
+   over every split, clean and at accomp -10, 0 and +10 dB; rows 1 and 2
+   held against their plain versions at the evaluation's shapes first;
+   asserts 7 frontend and 24 short-attention launches in every evaluated
+   utterance and none in a training step, the kept checkpoints, the
+   export, COff scored, every dump (frames, 1024) and finite; prints epoch
+   walls, step medians, ms an utterance, the extraction's RTFx, peak
+   memory;
+16. the RCA fusion stage at the published width (``FusionRCA`` alpha 0.5, 8
+   heads, d_ffn 3072, d_model 1024; head ``Linear(1024, 20)``) on phase
+   15's dumps and seeded 50 fps, 1024-wide video dumps: ``train_rca_av`` and
+   ``train_rca_a`` (2 epochs, batch 8, the head warm-started from phase
+   15's export, ``evaluate``), ``run_noise_sweep`` of both over clean and
+   accomp at -10, 0, +10 dB; kernel 5 held bit for bit against its plain
+   version at every shape that int8 serving of the test set gives it (f32;
+   T and 2T of each utterance's padded frame count T,
+   ``fusion_int8_shapes``) and timed at those of a whole 5 s utterance;
+   the trained AV fusion served in int8 by ``quantize_fusion`` (FFN only,
+   then with ``quantize_attn``), asserting that kernel 5 launched at
+   exactly the shapes held, 4 and 12 times an utterance, and reporting
+   how far its frame decisions and notes keep to the float ones; one f32
+   batch of 2 utterances card vs CPU (loss and logits).
+
+Phases run in the order 1-5, 8, 9, 6, 7, 10-16.
 
 Phases 2 and 5 also hold and time the two RNN-T kernels (the lattice on
 alpha and on beta panels, the gradient) against their plain versions at the
@@ -129,8 +159,8 @@ from svt_speechbrain_tpu_torch.dataio.batch import PaddedData  # noqa: E402
 from svt_speechbrain_tpu_torch.flagship import (HEAD_OUTPUTS,  # noqa: E402
                                                 build_modules)
 from svt_speechbrain_tpu_torch.convert_jax import (  # noqa: E402
-    init_embedding, init_linear, init_params, init_rnn, init_wav2vec2,
-    load_jax_params, load_module_tree)
+    init_embedding, init_linear, init_modules, init_params, init_rnn,
+    init_wav2vec2, load_jax_params, load_module_tree)
 from svt_speechbrain_tpu_torch.decoders import (  # noqa: E402
     TransducerBeamSearcher)
 from svt_speechbrain_tpu_torch.models.wav2vec2 import (  # noqa: E402
@@ -147,8 +177,9 @@ from svt_speechbrain_tpu_torch.nnet.transducer_joint import (  # noqa: E402
 from svt_speechbrain_tpu_torch.tasks.amt import AudioAMT  # noqa: E402
 from svt_speechbrain_tpu_torch.inference import (  # noqa: E402
     BatchedAMTTranscriber)
+from svt_speechbrain_tpu_torch.models.fusion import FusionRCA  # noqa: E402
 from svt_speechbrain_tpu_torch.models.quantize import (  # noqa: E402
-    quantize_wav2vec2)
+    quantize_fusion, quantize_wav2vec2)
 from svt_speechbrain_tpu_torch.ops import _build  # noqa: E402
 from svt_speechbrain_tpu_torch.ops import conv_frontend as cf  # noqa: E402
 from svt_speechbrain_tpu_torch.ops import flash_attention as fa  # noqa: E402
@@ -157,11 +188,16 @@ from svt_speechbrain_tpu_torch.ops import transducer_lattice as tl  # noqa: E402
 from svt_speechbrain_tpu_torch.pretrained.interfaces import (  # noqa: E402
     SingingTranscriber)
 from svt_speechbrain_tpu_torch.dataio.dataio import (  # noqa: E402
-    read_audio, write_audio)
+    merge_csvs, read_audio, write_audio)
 from svt_speechbrain_tpu_torch.nnet.schedulers import (  # noqa: E402
     NewBobScheduler)
 from svt_speechbrain_tpu_torch.recipes.MIR_ST500 import (  # noqa: E402
     prepare_benchmarks, train_audio_ssl as mir_recipe)
+from svt_speechbrain_tpu_torch.recipes.N20EMv2.audio_only import (  # noqa: E402
+    extract_ssl_feats, prepare_n20emv2, train_audio_ssl as n20em_recipe)
+from svt_speechbrain_tpu_torch.recipes.N20EMv2.audio_visual import (  # noqa: E402
+    prepare_n20emv2 as av_prep, run_noise_sweep, synthesis_noise,
+    train_rca_a, train_rca_av)
 from svt_speechbrain_tpu_torch.utils.amt import onset_peaks  # noqa: E402
 from svt_speechbrain_tpu_torch.utils.checkpoints import (  # noqa: E402
     Checkpointer)
@@ -339,6 +375,37 @@ TOL_RECIPE_LOGITS = 2e-5
 # go the other way on the other device: if one does, its song's notes are
 # printed, not held (the logits differ by about 3e-6, card against CPU)
 NEAR_THRESHOLD = 1e-5
+# phases 15 and 16: the N20EMv2 audio recipe on synthetic songs (seconds by
+# split) with accompaniment stems, and one MIR-ST500 song mixed into its
+# train set: 15 train utterances of <= 7 s, 2 batches of 8; 2 valid and 6
+# test utterances
+N20EM_SONGS = {"train": (12, 14, 17, 19), "valid": (11,), "test": (13, 16)}
+N20EM_MIR_SONGS = {"train": (13,)}
+# the accomp SNRs whose features phase 15 extracts and phase 16 sweeps
+# (``synthesis_noise`` writes all five)
+N20EM_SNRS = (-10, 0, 10)
+VIDEO_RATE = 50
+# kernel-5 launches in one forward of the RCA fusion: ffn1 and ffn2 of its
+# 2 layers, and with ``quantize_attn`` also the 4 projections of each
+# layer's shared attention
+FUSION_INT8_LAUNCHES = {False: 4, True: 12}
+
+
+def fusion_int8_shapes(frames, quantize_attn=True):
+    """(M, K, N) of kernel 5 in one batch-1 forward of the int8 RCA fusion
+    (``quantize_fusion``) over an utterance padded to ``frames`` frames:
+    ffn1 and ffn2 at T; with ``quantize_attn`` also the key and value
+    projections at T and the stacked queries' and the output's at 2T."""
+    shapes = [(frames, 1024, 3072), (frames, 3072, 1024)]
+    if quantize_attn:
+        shapes += [(frames, 1024, 1024), (2 * frames, 1024, 1024)]
+    return shapes
+# one f32 batch of 2 utterances through the full-width fusion and head,
+# card against CPU: 2 layers of f32 products (TF32 off) and softmaxes in
+# other summation orders; the loss relative, the logits absolute. Measured
+# on an H100 (phase 16): loss 0, logits 2.146e-06; the logits' tolerance is
+# about 9x that
+TOL_FUSION = {"loss_rel": 1e-5, "logits": 2e-5}
 
 
 def log(msg):
@@ -613,29 +680,36 @@ def int8_inputs(m, k, n, dtype, gen):
     return x.to(dtype), w8, ws
 
 
+def hold_int8(m, k, n, tag, dtype, gen, where=""):
+    """Kernel 5 at (M, K, N) in ``dtype`` against its plain version: the
+    integers and scales bit for bit, the output within ``INT8_RTOL``.
+    Returns the output's max abs error."""
+    x, w8, ws = int8_inputs(m, k, n, dtype, gen)
+    out, x8, xs = quant.int8_matmul_quantized(x, w8, ws, quant.pack_weight(w8))
+    torch.cuda.synchronize()
+    want_x8, want_xs = quant.quantize_activation(x)
+    want = quant.int8_matmul_plain(x, w8, ws).float()
+    err = (out.float() - want).abs()
+    ties = ((x[0].float() * 2).abs() % 2 == 1).sum().item()
+    ints_ok = torch.equal(x8, want_x8) and torch.equal(xs, want_xs)
+    ok = (ints_ok and out.dtype == dtype and ties > k // 4
+          and (err <= INT8_RTOL[tag] * want.abs()).all().item())
+    log(f"  int8_matmul{where} {tag} M={m} K={k} N={n}: integers and scales "
+        f"bit for bit={ints_ok} ({ties} exact ties in row 0), "
+        f"max_abs_err={err.max().item():.3e} (rel tol "
+        f"{INT8_RTOL[tag]:.1e}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"int8_matmul {tag} disagrees with its plain "
+                             f"version at M={m} K={k} N={n}")
+    return err.max().item()
+
+
 def check_int8(gen, errs):
     for m, k, n in INT8_SHAPES:
         for tag, dtype in DTYPES.items():
-            x, w8, ws = int8_inputs(m, k, n, dtype, gen)
-            out, x8, xs = quant.int8_matmul_quantized(x, w8, ws,
-                                                      quant.pack_weight(w8))
-            torch.cuda.synchronize()
-            want_x8, want_xs = quant.quantize_activation(x)
-            want = quant.int8_matmul_plain(x, w8, ws).float()
-            err = (out.float() - want).abs()
-            ties = ((x[0].float() * 2).abs() % 2 == 1).sum().item()
-            ints_ok = torch.equal(x8, want_x8) and torch.equal(xs, want_xs)
-            ok = (ints_ok and out.dtype == dtype and ties > k // 4
-                  and (err <= INT8_RTOL[tag] * want.abs()).all().item())
-            log(f"  int8_matmul {tag} M={m} K={k} N={n}: integers and scales "
-                f"bit for bit={ints_ok} ({ties} exact ties in row 0), "
-                f"max_abs_err={err.max().item():.3e} (rel tol "
-                f"{INT8_RTOL[tag]:.1e}) -> {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"int8_matmul {tag} disagrees with its "
-                                     f"plain version")
+            err = hold_int8(m, k, n, tag, dtype, gen)
             if (m, k, n) == INT8_ROW:
-                errs[("int8_matmul", tag)] = err.max().item()
+                errs[("int8_matmul", tag)] = err
 
 
 # ---------------------------------------------------------------- phase 3/4
@@ -917,13 +991,7 @@ def timings(bridge, gen):
         pos_ms = time_ms(lambda: pos_conv(x), iters=5)
     log(f"  context: positional conv (F.conv1d, k=128, groups=16) on "
         f"(8, 249, 1024) bf16: {pos_ms:.4f} ms")
-    for name, r in rows.items():
-        if isinstance(name, tuple):
-            name = " ".join(name)
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"  {name} {r['shape']}: ms={r['ms']:.4f} plain_ms="
-            f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-            f"({r['bound_by']}) library_ms={lib}")
+    log_rows(rows)
     for tag in DTYPES:
         dq, dkv = (rows[(name, tag)] for name in TRAIN_KERNELS[1:])
         log(f"  backward {tag}, like for like: 4a + 4b = "
@@ -931,6 +999,16 @@ def timings(bridge, gen):
             f"dK and dV in one call; the library_ms of both rows) "
             f"{dq['library_ms']:.4f} ms")
     return rows
+
+
+def log_rows(rows):
+    for name, r in rows.items():
+        if isinstance(name, tuple):
+            name = " ".join(name)
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"  {name} {r['shape']}: ms={r['ms']:.4f} plain_ms="
+            f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']}) library_ms={lib}")
 
 
 def frontend_layer_timings(extractor, gen):
@@ -976,8 +1054,9 @@ def _ms(t):
     return "not measured" if t is None else f"{t:.4f}"
 
 
-def int8_timings(gen):
-    """Kernel 5 in bf16 at the four shapes of int8 serving: its device time
+def int8_timings(gen, shapes=INT8_TIMED, dtype=torch.bfloat16):
+    """Kernel 5 in bf16 at the four shapes of int8 serving (or in ``dtype``
+    at ``shapes``; a row is named by its shape and type): its device time
     a launch (torch.profiler) beside its time through the wrapper, its
     bound (x, w8, w_scale read once, the output written once; 2·M·K·N
     operations against the int8 tensor-core peak), its plain version and
@@ -985,12 +1064,13 @@ def int8_timings(gen):
     ``torch._int_mm`` alone (device time a launch / through the call). The
     kernels line takes the ffn1 shape."""
     rows = {}
-    for m, k, n in INT8_TIMED:
-        x, w8, ws = int8_inputs(m, k, n, torch.bfloat16, gen)
+    size = torch.finfo(dtype).bits // 8
+    for m, k, n in shapes:
+        x, w8, ws = int8_inputs(m, k, n, dtype, gen)
         w8t = quant.pack_weight(w8)
         w = (w8.float() * ws).bfloat16()
-        b_ms, b_by = bound(2 * m * k * n, m * k * 2 + k * n + n * 4
-                           + m * n * 2, PEAK_INT8)
+        b_ms, b_by = bound(2 * m * k * n, m * k * size + k * n + n * 4
+                           + m * n * size, PEAK_INT8)
         lib = None
         if hasattr(torch, "_int_mm"):
             try:
@@ -1008,15 +1088,15 @@ def int8_timings(gen):
             plain_ms=time_ms(lambda: quant.int8_matmul_plain(x, w8, ws),
                              iters=5, warmup=2),
             bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-            shape=f"x ({m}, {k}) bf16, w8 ({k}, {n})")
-        matmul = lambda: torch.matmul(x, w)  # noqa: E731
+            shape=f"x ({m}, {k}) {str(dtype)[6:]}, w8 ({k}, {n})")
+        matmul = lambda: torch.matmul(x.bfloat16(), w)  # noqa: E731
         bf16 = (kernel_device_ms(matmul, ""), time_ms(matmul))
         x8 = quant.quantize_activation(x)[0]
         int_mm = lambda: torch._int_mm(x8, w8)  # noqa: E731
         alone = ((kernel_device_ms(int_mm, ""), time_ms(int_mm))
                  if lib is not None else (float("nan"), float("nan")))
         dev = row["device_ms"]
-        log(f"  int8_matmul M={m} K={k} N={n}: device "
+        log(f"  int8_matmul {row['shape']}: device "
             + ("not measured" if dev is None else
                f"{dev:.4f} ms a launch, {dev / b_ms:.2f}x its bound "
                f"{b_ms:.4f} ({b_by}), {2 * m * k * n / dev / 1e9:.1f} TOP/s")
@@ -1030,7 +1110,8 @@ def int8_timings(gen):
                f"; the library route (eager quantize + torch._int_mm + "
                f"epilogue) equal to the plain version: {same}"))
         rows["int8_matmul" if (m, k, n) == INT8_ROW
-             else f"int8_matmul K={k} N={n}"] = row
+             and dtype == torch.bfloat16 else
+             f"int8_matmul M={m} K={k} N={n} {str(dtype)[6:]}"] = row
     return rows
 
 
@@ -2258,6 +2339,25 @@ def recipe_hparams(**overrides):
     return hp
 
 
+def synthetic_song(rng, duration):
+    """(notes, 16 kHz float32 samples) of a song of ``duration`` seconds:
+    random notes of 0.2-0.6 s as sines, plus a little noise."""
+    notes, t = [], 0.2
+    while t < duration - 0.6:
+        dur = float(rng.uniform(0.2, 0.6))
+        notes.append([round(t, 3), round(t + dur, 3),
+                      int(rng.integers(40, 80))])
+        t += dur + float(rng.uniform(0.05, 0.4))
+    time_s = np.arange(int(duration * SR)) / SR
+    sig = np.zeros(len(time_s), np.float32)
+    for on, off, midi in notes:
+        mask = (time_s >= on) & (time_s < off)
+        sig[mask] += 0.5 * np.sin(2 * np.pi * 440.0 * 2 ** (
+            (midi - 69) / 12) * time_s[mask]).astype(np.float32)
+    sig += 0.01 * rng.standard_normal(len(sig)).astype(np.float32)
+    return notes, sig
+
+
 def make_recipe_set(root, rng, seconds):
     """A MIR-ST500-shaped set under ``root``: per split, songs of sine notes
     plus noise as 16 kHz WAVs (``<split>/<song>/vocals.wav``), one
@@ -2268,20 +2368,7 @@ def make_recipe_set(root, rng, seconds):
         folder = os.path.join(root, split)
         for i, duration in enumerate(durations):
             name = f"{split}{i}"
-            notes, t = [], 0.2
-            while t < duration - 0.6:
-                dur = float(rng.uniform(0.2, 0.6))
-                notes.append([round(t, 3), round(t + dur, 3),
-                              int(rng.integers(40, 80))])
-                t += dur + float(rng.uniform(0.05, 0.4))
-            gt[name] = notes
-            time_s = np.arange(int(duration * SR)) / SR
-            sig = np.zeros(len(time_s), np.float32)
-            for on, off, midi in notes:
-                mask = (time_s >= on) & (time_s < off)
-                sig[mask] += 0.5 * np.sin(2 * np.pi * 440.0 * 2 ** (
-                    (midi - 69) / 12) * time_s[mask]).astype(np.float32)
-            sig += 0.01 * rng.standard_normal(len(sig)).astype(np.float32)
+            gt[name], sig = synthetic_song(rng, duration)
             os.makedirs(os.path.join(folder, name))
             write_audio(os.path.join(folder, name, "vocals.wav"), sig, SR)
     with open(os.path.join(root, "Annotations.json"), "w") as f:
@@ -2296,13 +2383,17 @@ def make_recipe_set(root, rng, seconds):
     return csvs
 
 
-class TimedAMT(mir_recipe.AMT):
-    """The recipe's brain, recording each training step (frozen modules,
-    loss, wall, launches), each evaluated utterance (stage, wall, audio
-    seconds, launches, logits of the real frames), each epoch's wall, the
-    learning rates after each validation, each song's notes and scores, and
-    the checkpoint save and recovery times. Walls end in a synchronise on
-    the card; the launch counts are read before and after, never reset."""
+class Timed:
+    """A mixin for a recipe's brain, recording each training step (frozen
+    modules, loss, wall, launches), each evaluated utterance (stage, wall,
+    audio seconds, launches, logits of the real frames), each epoch's wall,
+    the learning rates after each validation, each song's notes and scores,
+    and the checkpoint save and recovery times. Walls end in a synchronise
+    on the card; the launch counts are read before and after, never reset.
+    ``timed_input`` is the batch key whose length gives the audio seconds,
+    at ``timed_rate`` items a second."""
+
+    timed_input, timed_rate = "sig", SR
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -2332,10 +2423,10 @@ class TimedAMT(mir_recipe.AMT):
 
     def evaluate_batch(self, batch, stage):
         loss, wall, counts = self._timed(super().evaluate_batch, batch, stage)
-        sig = batch.sig
+        sig = batch[self.timed_input]
         self.evals[-1].update(stage=stage.name, wall=wall, counts=counts,
                               audio_s=float(sig.lengths[0]) * sig.data.shape[1]
-                              / SR)
+                              / self.timed_rate)
         return loss
 
     def on_evaluate_batch_end(self, batch, predictions, loss, stage):
@@ -2362,6 +2453,7 @@ class TimedAMT(mir_recipe.AMT):
         self.valid_lrs.append({o: self.get_learning_rate(o)
                                for o in self.optimizers})
         self.epochs.append(dict(epoch=epoch, valid_loss=stage_loss,
+                                f1=self.COnPOff_f1.avg,
                                 train_loss=self.train_stats["loss"],
                                 wall=time.perf_counter() - self._epoch_t0))
 
@@ -2371,6 +2463,7 @@ class TimedAMT(mir_recipe.AMT):
         self.recovers.append(time.perf_counter() - t0)
 
     def on_song_end(self, batch, est_np):
+        super().on_song_end(batch, est_np)
         self.songs.append([batch.id[0].rsplit("_", 1)[0], est_np,
                            np.concatenate(self._song_logits)])
         self._song_logits = []
@@ -2380,6 +2473,10 @@ class TimedAMT(mir_recipe.AMT):
         self.songs[-1].append({f"{n}_{k}": getattr(self, f"{n}_{k}").val
                                for n in self.metric_names
                                for k in ("precis", "recall", "f1")})
+
+
+class TimedAMT(Timed, mir_recipe.AMT):
+    """The MIR-ST500 recipe's brain, timed."""
 
 
 def recipe_brain(root, csvs, arch, tree, device, **overrides):
@@ -2401,14 +2498,17 @@ def recipe_brain(root, csvs, arch, tree, device, **overrides):
     return brain, hp, data
 
 
-def fit_and_evaluate(brain, hp, data):
+def fit_and_evaluate(brain, hp, data, max_key=None):
+    """``fit``, then ``evaluate`` of the test set from the checkpoint of
+    least valid loss, or of greatest ``max_key``."""
     train, valid, tests = data
     brain.fit(hp["epoch_counter"], train, valid,
               train_loader_kwargs=hp["train_dataloader_opts"],
               valid_loader_kwargs=hp["valid_dataloader_opts"])
     (test_set,) = tests.values()
     t0 = time.perf_counter()
-    test_loss = brain.evaluate(test_set, min_key="loss",
+    test_loss = brain.evaluate(test_set, max_key=max_key,
+                               min_key=None if max_key else "loss",
                                test_loader_kwargs=hp["test_dataloader_opts"])
     return test_set, test_loss, time.perf_counter() - t0
 
@@ -2670,6 +2770,540 @@ def recipe_card_vs_cpu(rng):
         shutil.rmtree(root)
 
 
+# ------------------------------------------------------------ phases 15-16
+def n20em_hparams(extract=False, **overrides):
+    """The N20EMv2 audio recipe's hyperparameters without PyYAML: the values
+    of ``svt_speechbrain_tpu_torch/recipes/N20EMv2/audio_only/hparams/
+    train_audio_ssl.yaml`` (``extract_ssl_feats.yaml`` with ``extract``),
+    which are the MIR-ST500 recipe's (``recipe_hparams``) with the family's
+    own: its folders and CSVs, ``mix_train``, the noise switch, the
+    ``save_model`` export, COff and the ``max_COnPOff_f1`` policy.
+    ``tests/test_torch_recipe_n20emv2.py`` holds the result equal to
+    ``load_hyperyaml``'s."""
+    o = dict(overrides)
+    seed, attempt = o.get("seed", 1986), o.get("attempt", 1)
+    dur = o.get("dur_threshold", 5)
+    ssl = o.get("ssl_model", "wav2vec2-large-lv60")
+    name = "n20emv2_audio_extract" if extract else "n20emv2_audio"
+    o.setdefault("output_folder",
+                 f"results/{ssl}/{name}_dur{dur}_attempt{attempt}/{seed}")
+    csv = o.setdefault("csv_folder", f"data/dur_{dur}s")
+    o.setdefault("train_csv", f"{csv}/n20em_train.csv")
+    o.setdefault("valid_csv", f"{csv}/n20em_valid.csv")
+    o.setdefault("test_csv", [f"{csv}/n20em_test.csv"])
+    if extract:
+        o.setdefault("sorting", "random")
+    family = {"mix_train": not extract,
+              "mix_train_csv": f"{csv}/mix_train.csv", "noise_type": "babble",
+              "snr_db": -10, "add_noise": False, "save_model": extract,
+              "save_model_folder": "../save_model", "compute_coff": True,
+              "ckpt_policy": "max_COnPOff_f1"}
+    hp = recipe_hparams(**{k: v for k, v in o.items() if k not in family})
+    hp.update({k: o.get(k, v) for k, v in family.items()})
+    return hp
+
+
+# entries of the MIR-ST500 recipe's hyperparameters that the fusion
+# recipes do not have (the first five are objects ``recipe_hparams`` is
+# told not to build)
+MIR_ONLY = ("wav2vec2", "model", "modules", "checkpointer",
+            "lr_annealing_wav2vec", "attempt", "ssl_model", "wav2vec2_hub",
+            "wav2vec2_local", "lr_wav2vec", "sample_rate",
+            "linear_prob_epochs", "freeze_wav2vec")
+
+
+def rca_hparams(system="av", **overrides):
+    """The RCA fusion recipes' hyperparameters without PyYAML: the values
+    of ``svt_speechbrain_tpu_torch/recipes/N20EMv2/audio_visual/hparams/
+    train_rca_av.yaml`` (``train_rca_a.yaml`` for ``system`` "a", which
+    differs in its output folder only), which are the MIR-ST500 recipe's
+    (``recipe_hparams``) less its wav2vec2 entries, with the family's own:
+    the noise switch, the two streams' rates, the fusion and head, COff and
+    the ``max_COnPOff_f1`` policy. ``overrides`` replace top-level values
+    before the references resolve; ``tests/test_torch_recipe_n20emv2.py``
+    holds the result equal to ``load_hyperyaml``'s."""
+    o = dict(overrides)
+    family = {"noise_type": "accomp", "snr_db": -10, "add_noise": False,
+              "audio_sample_rate": 49.8, "video_sample_rate": 50,
+              "compute_coff": True, "ckpt_policy": "max_COnPOff_f1"}
+    family.update({k: o[k] for k in family if k in o})
+    tag = "audio_visual_rca" if system == "av" else "audio_rca"
+    o.setdefault("output_folder", (
+        f"results/{tag}/{family['noise_type']}/noise_{family['add_noise']}_"
+        f"{family['noise_type']}_{family['snr_db']}db_lr"
+        f"{o.get('lr', 0.0003)}/{o.get('seed', 1986)}"))
+    csv = o.setdefault("csv_folder", f"data/dur_{o.get('dur_threshold', 5)}s")
+    o.setdefault("train_csv", f"{csv}/n20em_train.csv")
+    o.setdefault("valid_csv", f"{csv}/n20em_valid.csv")
+    o.setdefault("test_csv", [f"{csv}/n20em_test.csv"])
+    o.setdefault("pretrain", True)
+    o.setdefault("pretrain_folder", "../save_model")
+    o.setdefault("pad_multiples", {"sig1": 50, "sig2": 50, "anno": 50})
+    hp = recipe_hparams(**dict(o, **dict.fromkeys(MIR_ONLY[:5])))
+    for key in MIR_ONLY:
+        del hp[key]
+    hp.update(family)
+
+    def put(key, make):
+        hp[key] = o[key] if key in o else make()
+
+    put("head", lambda: Linear(input_size=hp["feat_dim"],
+                               n_neurons=hp["output_neurons"]))
+    put("fusion", lambda: FusionRCA(alpha=0.5, nhead=8, d_ffn=3072,
+                                    d_model=hp["feat_dim"]))
+    put("modules", lambda: {"head": hp["head"], "fusion": hp["fusion"]})
+    put("checkpointer", lambda: Checkpointer(
+        checkpoints_dir=hp["save_folder"], recoverables={
+            "scheduler_model": hp["lr_annealing_model"],
+            "counter": hp["epoch_counter"]}))
+    return hp
+
+
+def make_n20em_set(root, rng):
+    """An N20EMv2-shaped set under ``root``: ``annotations.json`` and
+    ``data/<song>/{vocals,accomp}.wav`` (sine notes plus noise; Gaussian
+    accompaniment), prepared by the recipe's ``prepare_n20emv2`` at 5 s
+    utterances, a MIR-ST500 part (``make_recipe_set``) merged into
+    ``mix_train.csv``, and the accomp and white sweeps written by
+    ``synthesis_noise`` on the card. Returns the CSV folder."""
+    annotations = {}
+    for split, durations in N20EM_SONGS.items():
+        for i, duration in enumerate(durations):
+            name = f"n20em_{split}{i}"
+            notes, sig = synthetic_song(rng, duration)
+            annotations[name] = {"midi": notes, "split": split}
+            folder = os.path.join(root, "data", name)
+            os.makedirs(folder)
+            write_audio(os.path.join(folder, "vocals.wav"), sig, SR)
+            write_audio(os.path.join(folder, "accomp.wav"),
+                        (0.1 * rng.standard_normal(len(sig))).astype(
+                            np.float32), SR)
+    with open(os.path.join(root, "annotations.json"), "w") as f:
+        json.dump(annotations, f)
+    prepare_n20emv2.prepare_frame_anno(root)
+    prepare_n20emv2.prepare_csv_n20emv2(root, os.path.join(root, "csv"), 5)
+    csv_dir = os.path.join(root, "csv", "dur_5s")
+    mir = make_recipe_set(os.path.join(root, "mir"), rng, N20EM_MIR_SONGS)
+    shutil.copy(mir["train"], os.path.join(csv_dir, "mir_st500_train.csv"))
+    merge_csvs(csv_dir, ["mir_st500_train.csv", "n20em_train.csv"],
+               "mix_train.csv")
+    synthesis_noise.synthesis_accomp(root)
+    synthesis_noise.synthesis_white(root)
+    return csv_dir
+
+
+class TimedN20EM(Timed, n20em_recipe.AMT):
+    """The N20EMv2 audio recipe's brain, timed."""
+
+
+class TimedFusion(Timed, train_rca_av.AMT):
+    """The AV fusion recipe's brain, timed (audio frames at 49.8 a
+    second)."""
+
+    timed_input, timed_rate = "sig1", FRAME_RATE
+
+
+class TimedFusionA(Timed, train_rca_a.AMT):
+    """The audio-only control's brain, timed."""
+
+    timed_input, timed_rate = "sig1", FRAME_RATE
+
+
+def check_dumps(root, snrs):
+    """Every N20EMv2 song's clean and noisy feature dumps: (frames, 1024),
+    f32, finite, and as long as its frame annotations (within a frame)."""
+    with open(os.path.join(root, "annotations.json")) as f:
+        songs = list(json.load(f))
+    shapes = []
+    for song in songs:
+        folder = os.path.join(root, "data", song, "noise_data")
+        anno = np.load(os.path.join(root, "data", song, "frame_anno.npy"))
+        for snr in (None,) + tuple(snrs):
+            path = os.path.join(folder, "clean_feats.npy" if snr is None else
+                                f"accomp/SNR_{snr}dB_feats.npy")
+            feats = np.load(path)
+            if (feats.dtype != np.float32 or feats.shape[1] != 1024
+                    or abs(feats.shape[0] - len(anno)) > 1
+                    or not np.isfinite(feats).all()):
+                raise AssertionError(f"{path}: {feats.dtype} {feats.shape}, "
+                                     f"{len(anno)} annotated frames")
+            shapes.append(feats.shape[0])
+    return len(songs), shapes
+
+
+def n20em_phase(root, rng):
+    """Phase 15: the N20EMv2 audio recipe at lv60 full width and depth
+    (seeded random weights, f32, the yaml's values): a linear-probe and a
+    finetune epoch with ``mix_train``, ``evaluate`` of the test set from the
+    checkpoint of greatest valid COnPOff F1 with the ``save_model`` export,
+    then ``extract_ssl_feats`` over every split, clean and at accomp -10, 0
+    and +10 dB. Returns (launches, summary)."""
+    t0 = time.perf_counter()
+    csv_dir = make_n20em_set(root, rng)
+    log(f"  set written, prepared and its accomp and white sweeps "
+        f"synthesized on the card in {time.perf_counter() - t0:.1f} s")
+    tree = init_params(Wav2Vec2Config(),
+                       torch.Generator().manual_seed(SEED + 8), HEAD_OUTPUTS)
+    run_opts = {"device": "cuda", "noprogressbar": True}
+    common = dict(data_folder=root, output_folder=os.path.join(root, "out"),
+                  csv_folder=csv_dir, noise_type="accomp",
+                  save_model_folder=os.path.join(root, "save_model"))
+    hp = n20em_hparams(number_of_epochs=2, linear_prob_epochs=1,
+                       save_model=True, **common)
+    load_jax_params(tree, hp["modules"]["wav2vec2"], hp["modules"]["model"])
+    data = n20em_recipe.dataio_prepare(hp)
+    brain = TimedN20EM(modules=hp["modules"], hparams=hp, run_opts=run_opts,
+                       checkpointer=hp["checkpointer"])
+    n_layers = brain.modules.wav2vec2.config.num_layers
+    log(f"  {len(data[0])} train utterances (mix_train, batch "
+        f"{hp['batch_size']}), {len(data[1])} valid and "
+        f"{len(data[2]['n20em_test'])} test utterances (batch 1), "
+        f"{n_layers} layers, f32")
+    check_eval_shapes(brain, (data[0], data[1], data[2]["n20em_test"]))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    test_set, test_loss, eval_s = fit_and_evaluate(brain, hp, data,
+                                                   max_key="COnPOff_f1")
+    extracted = []
+    for snr in (None,) + N20EM_SNRS:
+        ehp = n20em_hparams(extract=True, add_noise=snr is not None,
+                            snr_db=-10 if snr is None else snr,
+                            save_model=False, **common)
+        t0 = time.perf_counter()
+        ebrain = extract_ssl_feats.extract(ehp, run_opts, TimedN20EM)
+        extracted.append((snr, ebrain, time.perf_counter() - t0))
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  launches over fit, evaluate and the extractions: {counts}")
+
+    for e in brain.epochs:
+        log(f"  epoch {e['epoch']}: {e['wall']:.2f} s wall, train loss "
+            f"{e['train_loss']:.6f}, valid loss {e['valid_loss']:.6f}")
+    for i, st in enumerate(brain.steps):
+        log(f"  step {i + 1} ({'probe' if st['probe'] else 'finetune'}): "
+            f"loss={st['loss']:.6f} {st['wall'] * 1e3:.1f} ms")
+        if not np.isfinite(st["loss"]):
+            raise AssertionError(f"nonfinite training loss {st['loss']}")
+        expect_counts(st["counts"], {}, "N20EMv2 training step")
+    evals = brain.evals + [ev for _, b, _ in extracted for ev in b.evals]
+    for ev in evals:
+        expect_counts(ev["counts"], {"conv_frontend": 7,
+                                     "flash_attention_short": n_layers},
+                      f"evaluation of {ev['id']} ({ev['stage']})")
+    ckpts = hp["checkpointer"].list_checkpoints()
+    best = max(e["f1"] for e in brain.epochs)
+    if not ckpts or any(c.meta.get("COnPOff_f1") != best for c in ckpts):
+        raise AssertionError(f"kept {[c.meta for c in ckpts]}, want the "
+                             f"checkpoints of valid COnPOff F1 {best}")
+    exported = sorted(os.listdir(hp["save_model_folder"]))
+    if exported != ["model.pt", "wav2vec2.pt"]:
+        raise AssertionError(f"save_model exported {exported}")
+    n_test = len(N20EM_SONGS["test"])
+    if brain.COff_f1.count != n_test:
+        raise AssertionError(f"COff scored for {brain.COff_f1.count} test "
+                             f"songs, want {n_test}")
+    n_songs, frames = check_dumps(root, N20EM_SNRS)
+    log(f"  test: loss {test_loss:.6f}, COnPOff/COnP/COn/COff F1 "
+        f"{brain.COnPOff_f1.avg:.4f} / {brain.COnP_f1.avg:.4f} / "
+        f"{brain.COn_f1.avg:.4f} / {brain.COff_f1.avg:.4f}; checkpoints kept "
+        f"{[c.meta['COnPOff_f1'] for c in ckpts]} (valid F1 by epoch "
+        f"{[e['f1'] for e in brain.epochs]}); exported {exported}")
+    x_audio = sum(ev["audio_s"] for _, b, _ in extracted for ev in b.evals)
+    x_wall = sum(w for _, _, w in extracted)
+    x_batches = sum(ev["wall"] for _, b, _ in extracted for ev in b.evals)
+    log(f"  checkpoint saves (with the epoch's log and keep-only) "
+        f"{[round(t, 2) for t in brain.saves]} s, recovery "
+        f"{[round(t, 2) for t in brain.recovers]} s; the extraction's "
+        f"recoveries by condition "
+        f"{ {str(snr): [round(t, 2) for t in b.recovers] for snr, b, _ in extracted} } s")
+    log(f"  extraction: {len(extracted)} conditions x 3 splits, "
+        f"{n_songs} songs each, dumps of {min(frames)}-{max(frames)} frames "
+        f"x 1024, all finite; {x_audio:.1f} s of audio in {x_wall:.2f} s "
+        f"(RTFx {x_audio / x_wall:.1f}; its batches alone "
+        f"{x_audio / x_batches:.1f}); walls by condition "
+        f"{ {str(snr): round(w, 2) for snr, _, w in extracted} }")
+    steps = {kind: [st["wall"] for st in brain.steps
+                    if st["probe"] == (kind == "probe")]
+             for kind in ("probe", "finetune")}
+    summary = dict(
+        epoch_s=[round(e["wall"], 3) for e in brain.epochs],
+        probe_step_ms=float(np.median(steps["probe"])) * 1e3,
+        finetune_step_ms=float(np.median(steps["finetune"])) * 1e3,
+        eval_ms_per_utterance=float(np.median(
+            [ev["wall"] for ev in evals])) * 1e3,
+        evaluate_s=eval_s, extraction_s=x_wall,
+        extraction_rtfx=x_audio / x_wall,
+        extraction_batches_rtfx=x_audio / x_batches, peak_gb=peak_gb,
+        evaluated_utterances=len(evals), test_loss=test_loss)
+    log(f"  median steps: probe {summary['probe_step_ms']:.1f} ms, finetune "
+        f"{summary['finetune_step_ms']:.1f} ms; eval "
+        f"{summary['eval_ms_per_utterance']:.1f} ms an utterance over "
+        f"{len(evals)} utterances; peak {peak_gb:.2f} GiB")
+    return counts, summary
+
+
+def video_dumps(root, rng):
+    """Seeded 50 fps, 1024-wide video dumps beside each N20EMv2 song's clean
+    audio dump, as long as the song."""
+    with open(os.path.join(root, "annotations.json")) as f:
+        songs = list(json.load(f))
+    for song in songs:
+        folder = os.path.join(root, "data", song, "noise_data")
+        frames = np.load(os.path.join(folder, "clean_feats.npy")).shape[0]
+        video = rng.standard_normal((round(frames / FRAME_RATE * VIDEO_RATE),
+                                     1024)).astype(np.float32)
+        np.save(os.path.join(folder, "video_feats.npy"), video)
+
+
+def fusion_batch_card_vs_cpu(modules, hp, train_set):
+    """One f32 batch of 2 train utterances through the trained fusion and
+    head, on the card and on the CPU: the loss and the logits."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        brain = train_rca_av.AMT(
+            modules={k: copy.deepcopy(m).to(dev) for k, m in modules.items()},
+            hparams=hp, run_opts={"device": dev, "noprogressbar": True})
+        loader = brain.make_dataloader(
+            train_set, Stage.VALID, ckpt_prefix=None,
+            **dict(hp["train_dataloader_opts"], batch_size=2, num_workers=0))
+        arrays = brain._batch_to_device(next(iter(loader)))
+        with torch.inference_mode():
+            preds = brain.compute_forward(arrays, Stage.VALID)
+            loss = brain.compute_objectives(preds, arrays, Stage.VALID)
+        out[dev] = (float(loss), torch.cat([p.reshape(p.shape[0], p.shape[1],
+                                                      -1) for p in preds[:4]],
+                                           -1).cpu())
+    (loss_g, logits_g), (loss_c, logits_c) = out["cuda"], out["cpu"]
+    rel = abs(loss_g / loss_c - 1)
+    err = (logits_g - logits_c).abs().max().item()
+    ok = rel <= TOL_FUSION["loss_rel"] and err <= TOL_FUSION["logits"]
+    log(f"  f32 batch {tuple(logits_g.shape)} card vs CPU: loss {loss_g:.6f} "
+        f"/ {loss_c:.6f} (rel err {rel:.3e}, tol "
+        f"{TOL_FUSION['loss_rel']:.0e}), logits max abs err {err:.3e} (tol "
+        f"{TOL_FUSION['logits']:.0e}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the fusion on the card disagrees with the CPU")
+    return rel, err
+
+
+def served_frames(test_set, pad):
+    """The padded frame count T of each utterance of ``test_set`` as the
+    evaluation's loader gives it (batch 1, ``sig1`` padded to ``pad``)."""
+    return sorted({-(-len(test_set[i]["sig1"]) // pad) * pad
+                   for i in range(len(test_set))})
+
+
+def check_fusion_int8(frames, gen):
+    """Kernel 5 in f32 held against its plain version at every product of
+    the int8 fusion's forward over utterances of ``frames`` padded frames.
+    Returns the shapes held."""
+    held = sorted({s for t in frames for s in fusion_int8_shapes(t)})
+    for m, k, n in held:
+        hold_int8(m, k, n, "f32", torch.float32, gen, " (fusion)")
+    return held
+
+
+class Int8Shapes:
+    """Within ``with``: the (M, K, N) of every kernel-5 launch."""
+
+    def __enter__(self):
+        self.seen, self._launch = set(), quant._launch
+
+        def launch(x, w8, *args, **kwargs):
+            self.seen.add((x.numel() // w8.shape[0], *w8.shape))
+            return self._launch(x, w8, *args, **kwargs)
+
+        quant._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        quant._launch = self._launch
+
+
+def fusion_int8_kernel(hp, test_set):
+    """Kernel 5 held against its plain version at every shape that int8
+    serving of ``test_set`` gives it, and timed at those of a whole
+    ``dur_threshold`` utterance. Returns (the test set's padded frame
+    counts, the shapes held, timing rows)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    pad = hp["pad_multiples"]["sig1"]
+    frames = served_frames(test_set, pad)
+    log(f"  kernel 5 at the int8 fusion's shapes, f32, for the test set's "
+        f"padded frame counts {frames}:")
+    held = check_fusion_int8(frames, gen)
+    whole = -(-round(hp["dur_threshold"] * hp["audio_sample_rate"]) // pad
+              ) * pad
+    log(f"  kernel 5 timed at the products of a whole "
+        f"{hp['dur_threshold']} s utterance (T {whole}), f32, as served:")
+    rows = int8_timings(gen, fusion_int8_shapes(whole), torch.float32)
+    log_rows(rows)
+    return frames, held, rows
+
+
+def int8_fusion_serving(brain, hp, test_set, frames):
+    """The trained AV fusion served in int8 (``quantize_fusion``, FFN only
+    and with ``quantize_attn``) by the recipe's ``evaluate`` on the test
+    set, against its float evaluation (the brain's TEST records), asserting
+    that kernel 5 launched at exactly the shapes ``fusion_int8_shapes``
+    gives for the padded frame counts ``frames`` (those held in
+    ``fusion_int8_kernel``): kernel-5 launches an utterance, ms an
+    utterance, frame decisions and notes."""
+    float_evals = [ev for ev in brain.evals if ev["stage"] == "TEST"]
+    float_songs = {name: notes for name, notes, *_ in brain.songs[
+        -len(N20EM_SONGS["test"]):]}
+    out = {}
+    for qa in (False, True):
+        qbrain = TimedFusion(
+            modules={"head": brain.modules.head,
+                     "fusion": quantize_fusion(brain.modules.fusion,
+                                               quantize_attn=qa)},
+            hparams=hp, run_opts={"device": "cuda", "noprogressbar": True})
+        with Int8Shapes() as launched:
+            qbrain.evaluate(test_set,
+                            test_loader_kwargs=hp["test_dataloader_opts"])
+        want = {s for t in frames for s in fusion_int8_shapes(t, qa)}
+        if launched.seen != want:
+            raise AssertionError(f"int8 fusion launched kernel 5 at "
+                                 f"{sorted(launched.seen)}, the shapes held "
+                                 f"are {sorted(want)}")
+        log(f"  int8 fusion ({'quantize_attn' if qa else 'FFN'}) launched "
+            f"kernel 5 at {sorted(launched.seen)}, each held above")
+        for ev in qbrain.evals:
+            expect_counts(ev["counts"],
+                          {"int8_matmul": FUSION_INT8_LAUNCHES[qa]},
+                          f"int8 fusion ({'quantize_attn' if qa else 'FFN'})"
+                          f" of {ev['id']}")
+        agree = np.concatenate([
+            (np.stack(decisions(_probs(q["logits"])), -1)
+             == np.stack(decisions(_probs(f["logits"])), -1)).all(-1)
+            for q, f in zip(qbrain.evals, float_evals)]).mean()
+        notes = {name: (len(float_songs[name]), len(est))
+                 for name, est, *_ in qbrain.songs}
+        ms = float(np.median([ev["wall"] for ev in qbrain.evals])) * 1e3
+        log(f"  int8 fusion {'with quantize_attn' if qa else 'FFN only'}: "
+            f"{FUSION_INT8_LAUNCHES[qa]} kernel-5 launches in each of "
+            f"{len(qbrain.evals)} utterances, {ms:.1f} ms an utterance; "
+            f"frames whose onset, offset and pitch-class decisions all equal "
+            f"the float ones {agree:.4f}; notes float/int8 {notes}")
+        out["quantize_attn" if qa else "ffn"] = dict(
+            ms_per_utterance=ms, decision_agree=float(agree), notes=notes)
+    return out
+
+
+def _probs(logits):
+    """Frame logits (frames, 20) → the (onset, offset, octave, class)
+    columns ``decisions`` reads: probabilities and the class argmax."""
+    p = 1.0 / (1.0 + np.exp(-logits[:, :2].astype(np.float64)))
+    return np.concatenate([p, logits[:, 2:7].argmax(-1)[:, None],
+                           logits[:, 7:].argmax(-1)[:, None]], -1)
+
+
+def fusion_phase(root, rng):
+    """Phase 16: the RCA fusion at the published width (FusionRCA alpha 0.5,
+    8 heads, d_ffn 3072, d_model 1024, head Linear(1024 → 20)) on phase
+    15's lv60 dumps and seeded 50 fps video dumps: ``train_rca_av`` and
+    ``train_rca_a`` (2 epochs, batch 8, the head warm-started from phase
+    15's export, then ``evaluate``), ``run_noise_sweep`` of both (clean and
+    accomp at N20EM_SNRS), int8 serving of the AV fusion, and one f32 batch
+    card vs CPU. Returns (launches, summary)."""
+    video_dumps(root, rng)
+    av_prep.prepare_csv_n20emv2_feat(root, os.path.join(root, "csv_av"), 5)
+    common = dict(data_folder=root,
+                  csv_folder=os.path.join(root, "csv_av", "dur_5s"),
+                  pretrain_folder=os.path.join(root, "save_model"),
+                  number_of_epochs=2)
+    run_opts = {"device": "cuda", "noprogressbar": True}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    runs, sweep_rows, sweep_s = {}, [], 0.0
+    for system, cls in (("av", TimedFusion), ("a", TimedFusionA)):
+        folder = os.path.join(root, f"rca_{system}")
+        hp = rca_hparams(system, output_folder=folder, **common)
+        init_modules(hp["modules"], hp["seed"])
+        data = train_rca_av.dataio_prepare(hp)
+        brain = cls(modules=hp["modules"], hparams=hp, run_opts=run_opts,
+                    checkpointer=hp["checkpointer"])
+        test_set, test_loss, eval_s = fit_and_evaluate(brain, hp, data,
+                                                       max_key="COnPOff_f1")
+        runs[system] = (brain, hp, data, test_set)
+        for i, st in enumerate(brain.steps):
+            if not np.isfinite(st["loss"]):
+                raise AssertionError(f"nonfinite fusion loss {st['loss']}")
+            expect_counts(st["counts"], {}, f"{system} fusion training step")
+        for ev in brain.evals:
+            expect_counts(ev["counts"], {}, f"{system} fusion evaluation")
+        t0 = time.perf_counter()
+        sweep_rows += run_noise_sweep.sweep(
+            lambda cond, system=system, folder=folder: rca_hparams(
+                system, output_folder=folder, **common, **cond),
+            systems=[system], noise_types=["accomp"], snrs=N20EM_SNRS,
+            run_opts={"device": "cuda"})
+        sweep_s += time.perf_counter() - t0
+        log(f"  {system}: epochs "
+            f"{[(e['epoch'], round(e['wall'], 2), round(e['train_loss'], 4), round(e['valid_loss'], 4)) for e in brain.epochs]} "
+            f"(epoch, wall s, train, valid loss); steps "
+            f"{[round(st['wall'] * 1e3, 1) for st in brain.steps]} ms; test "
+            f"loss {test_loss:.6f}, COnPOff/COn F1 "
+            f"{brain.COnPOff_f1.avg:.4f} / {brain.COn_f1.avg:.4f}; eval "
+            f"{np.median([e['wall'] for e in brain.evals]) * 1e3:.1f} ms an "
+            f"utterance; evaluate {eval_s:.2f} s; checkpoint saves "
+            f"{[round(t, 2) for t in brain.saves]} s, recovery "
+            f"{[round(t, 2) for t in brain.recovers]} s")
+    run_noise_sweep.write_rows(sweep_rows,
+                               os.path.join(root, "noise_sweep.jsonl"))
+    want_rows = 2 * (1 + len(N20EM_SNRS))
+    if len(sweep_rows) != want_rows:
+        raise AssertionError(f"{len(sweep_rows)} sweep rows, want "
+                             f"{want_rows}")
+    log(f"  noise sweep: {len(sweep_rows)} conditions in {sweep_s:.2f} s")
+    # profiled on the control's brain, which nothing reads after: one more
+    # training step, and its test set again without the recovery
+    a_brain, a_hp, a_data, a_test = runs["a"]
+    log("  where the device time goes in one training step of the control "
+        "at batch 8 (torch.profiler):")
+    batch = next(iter(a_brain.make_dataloader(
+        a_data[0], Stage.TRAIN, ckpt_prefix=None,
+        **dict(a_hp["train_dataloader_opts"], num_workers=0))))
+    a_brain.on_stage_start(Stage.TRAIN, 3)
+    step_idle = profile_run(lambda: a_brain.fit_batch(batch))
+    log("  where the device time goes in the control's evaluation loop "
+        "(torch.profiler, the test set without its recovery):")
+    a_brain.checkpointer = None
+    eval_idle = profile_run(lambda: a_brain.evaluate(
+        a_test, test_loader_kwargs=a_hp["test_dataloader_opts"]))
+    av_brain, av_hp, av_data, av_test = runs["av"]
+    counts_float = ops.launch_counts()
+    expect_counts(counts_float, {}, "fusion training, evaluation and sweep")
+    frames, held, int8_rows = fusion_int8_kernel(av_hp, av_test)
+    ops.reset_launch_counts()    # nothing launched before; now serving only
+    int8 = int8_fusion_serving(av_brain, av_hp, av_test, frames)
+    counts = ops.launch_counts()
+    n_utt = len(av_test)
+    want = n_utt * (FUSION_INT8_LAUNCHES[False] + FUSION_INT8_LAUNCHES[True])
+    expect_counts(counts, {"int8_matmul": want}, "phase 16")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss_rel, logit_err = fusion_batch_card_vs_cpu(
+        dict(av_brain.modules.items()), av_hp, av_data[0])
+    summary = dict(
+        train_step_ms={s: float(np.median([st["wall"] for st in
+                                           runs[s][0].steps])) * 1e3
+                       for s in runs},
+        epoch_s={s: [round(e["wall"], 3) for e in runs[s][0].epochs]
+                 for s in runs},
+        eval_ms_per_utterance={s: float(np.median(
+            [e["wall"] for e in runs[s][0].evals])) * 1e3 for s in runs},
+        sweep_s=sweep_s, sweep_rows=len(sweep_rows), int8=int8,
+        int8_held_shapes=held,
+        int8_kernel={name: {k: r[k] for k in ("ms", "device_ms", "plain_ms",
+                                              "bound_ms", "library_ms")}
+                     for name, r in int8_rows.items()},
+        card_vs_cpu=dict(loss_rel=loss_rel, logits_max_abs=logit_err),
+        train_step_busy=None if step_idle is None else 1 - step_idle,
+        evaluate_busy=None if eval_idle is None else 1 - eval_idle,
+        peak_gb=peak_gb)
+    return counts, summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2798,6 +3432,21 @@ def main():
     log("phase 14: the recipe at 2 lv60-width layers, one epoch and "
         "evaluate, card vs CPU")
     recipe_card_vs_cpu(rng)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_n20em_")
+    try:
+        log("phase 15: the N20EMv2 audio recipe, lv60 full width and depth: "
+            "probe and finetune epochs with mix_train, evaluate, feature "
+            "dumps clean and at accomp -10, 0, +10 dB")
+        n20em_counts, n20em_summary = n20em_phase(root, rng)
+        log(f"  N20EMv2 summary: {json.dumps(n20em_summary)}")
+        log("phase 16: RCA fusion at the published width on phase 15's "
+            "dumps: AV and A recipes, the noise sweep, int8 serving, card vs "
+            "CPU")
+        fusion_counts, fusion_summary = fusion_phase(root, rng)
+        log(f"  fusion summary: {json.dumps(fusion_summary)}")
+    finally:
+        shutil.rmtree(root)
 
     kernels = []
     for key, r in rows.items():

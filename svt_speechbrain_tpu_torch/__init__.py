@@ -9,11 +9,14 @@ hand-written Hopper (``sm_90a``) CUDA kernel under ``csrc/``, built with
 - ``nnet``      — Linear, activations, normalization, Conv1d, attention,
   losses, schedulers, the transducer pieces.
 - ``ops``       — the CUDA kernel wrappers and their plain PyTorch versions.
-- ``models``    — wav2vec2-large-lv60 ("layer" extractor, pre-LN encoder).
+- ``models``    — wav2vec2-large-lv60 ("layer" extractor, pre-LN encoder),
+  the RCA fusion network, int8 quantization.
+- ``processing`` — signal processing (SNR mixing for the noisy sets).
 - ``core``      — the engine: ``Brain`` (``fit``, ``evaluate``), the
   command line and the experiment folder; ``config`` reads its yaml.
 - ``dataio``    — CSV datasets, WAV I/O, padded batches, samplers, loaders.
-- ``tasks``     — the AMT brains; ``recipes`` — the MIR-ST500 recipe.
+- ``tasks``     — the AMT brains; ``recipes`` — the MIR-ST500 recipe and
+  the N20EMv2 audio-only and audio-visual (fusion) recipes.
 - ``utils``     — checkpoints, epoch counter, train logger, metric stats,
   and the AMT frame/note decode library (numpy).
 - ``inference`` — ``BatchedAMTTranscriber``, chunked batched serving.

@@ -19,6 +19,13 @@ place of a float matrix, the module that owns the matrix is turned into its
 int8 form first; int8 leaves stay int8, so both packages run the same
 integers. ``export_jax_params`` gives such a tree back.
 
+The RCA fusion network (``models/fusion.py``) loads through
+``load_module_tree`` as it is: its JAX tree (``fusion/layer{1,2}/
+{self_att/{wq..bo},pos_ffn/{ffn1,ffn2}/{w,b},norm1,norm2}``) has the
+port's parameter names. ``load_msgpack`` reads a tree that the JAX
+package's ``save_msgpack`` wrote (the ``msgpack`` package is imported
+when it is called).
+
 The transducer parts load through ``load_module_tree`` too: an ``RNN``/
 ``LSTM``/``GRU`` (or cell) tree ``l{k}``/``l{k}_rev`` with ``w_ih`` (in,
 g·H), ``w_hh`` (H, g·H), ``b_ih``, ``b_hh`` fills ``layers.{k}``'s torch
@@ -39,6 +46,7 @@ import re
 import numpy as np
 import torch
 
+from svt_speechbrain_tpu_torch.models.fusion import FusionRCA
 from svt_speechbrain_tpu_torch.models.wav2vec2 import HuggingFaceWav2Vec2
 from svt_speechbrain_tpu_torch.nnet.cnn import jax_to_torch_conv_weight
 from svt_speechbrain_tpu_torch.nnet.linear import Linear
@@ -195,6 +203,31 @@ def init_wav2vec2(config, generator):
     return {"encoder": encoder}
 
 
+def init_mha(gen, d_model, kdim=None, vdim=None):
+    """Seeded ``MultiheadAttention`` tree: glorot-uniform (in, out)
+    projections, zero biases (``attention.py:130``)."""
+    tree = {}
+    for name, n_in in (("q", d_model), ("k", kdim or d_model),
+                       ("v", vdim or d_model), ("o", d_model)):
+        tree[f"w{name}"] = _uniform(gen, (n_in, d_model),
+                                    math.sqrt(6.0 / (n_in + d_model)))
+        tree[f"b{name}"] = np.zeros(d_model, np.float32)
+    return tree
+
+
+def init_fusion(gen, d_model, d_ffn):
+    """Seeded ``FusionRCA`` tree {"fusion": {"layer1", "layer2"}}: each RCA
+    layer's attention (``init_mha``), FFN (``init_linear``) and unit
+    LayerNorms."""
+    def layer():
+        return {"self_att": init_mha(gen, d_model),
+                "pos_ffn": {"ffn1": init_linear(gen, d_model, d_ffn),
+                            "ffn2": init_linear(gen, d_ffn, d_model)},
+                "norm1": _ln(d_model), "norm2": _ln(d_model)}
+
+    return {"fusion": {"layer1": layer(), "layer2": layer()}}
+
+
 def init_params(config, generator, head_outputs=20):
     """Seeded flagship tree {"wav2vec2": {"encoder": ...}, "model": ...}:
     ``init_wav2vec2``, then ``init_linear`` for the frame head."""
@@ -205,10 +238,14 @@ def init_params(config, generator, head_outputs=20):
 
 def seeded_tree(module, generator):
     """The seeded JAX-shaped tree of one module (``init_wav2vec2`` for a
-    ``HuggingFaceWav2Vec2``, ``init_linear`` for a ``Linear``), or None if
-    it holds no parameters."""
+    ``HuggingFaceWav2Vec2``, ``init_linear`` for a ``Linear``,
+    ``init_fusion`` for a ``FusionRCA``), or None if it holds no
+    parameters."""
     if isinstance(module, HuggingFaceWav2Vec2):
         return init_wav2vec2(module.config, generator)
+    if isinstance(module, FusionRCA):
+        ffn = module.fusion.layer1.pos_ffn
+        return init_fusion(generator, ffn.input_size, ffn.d_ffn)
     if isinstance(module, Linear):
         return init_linear(generator, *module.w.shape)
     if isinstance(module, torch.nn.Module) and any(module.parameters()):
@@ -285,4 +322,37 @@ def export_jax_params(bridge, head=None):
     tree = {"wav2vec2": module_tree(bridge)}
     if head is not None:
         tree["model"] = module_tree(head)
+    return tree
+
+
+def load_msgpack(path):
+    """The tree of numpy arrays that the JAX package's ``save_msgpack``
+    (flax's msgpack encoding) wrote to ``path``: nested dicts whose leaves
+    are arrays (extension type 1) or numpy scalars (type 3)."""
+    import msgpack
+
+    def array(data):
+        shape, dtype, buf = msgpack.unpackb(data, raw=True)
+        return np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape)
+
+    def ext_hook(code, data):
+        if code == 1:
+            return array(data)
+        if code == 3:
+            return array(data)[()]
+        raise ValueError(f"{path}: msgpack extension type {code} is not a "
+                         f"parameter array")
+
+    with open(path, "rb") as f:
+        tree = msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
+
+    def check(node):
+        if isinstance(node, dict):
+            if "__msgpack_chunked_array__" in node:
+                raise ValueError(f"{path}: arrays chunked above 1 GiB are "
+                                 f"not read")
+            for value in node.values():
+                check(value)
+
+    check(tree)
     return tree

@@ -19,8 +19,10 @@ head, and the attention core (score and context products).
 
 Inference only: do not train on the result.
 
-``quantize_avhubert`` and ``quantize_fusion`` of the JAX module wait for
-their models (AV-HuBERT and the fusion network are not ported yet).
+``quantize_fusion`` does the same for the RCA fusion network's FFNs (and,
+with ``quantize_attn``, its shared attention's projections).
+``quantize_avhubert`` of the JAX module waits for its model (AV-HuBERT is
+not ported yet).
 
 Example
 -------
@@ -85,4 +87,31 @@ def quantize_wav2vec2(bridge, quantize_attn=False, quantize_feat_proj=True):
             _quantize_(layer.attn, _MHA_WEIGHTS)
     if quantize_feat_proj:
         _quantize_(encoder.feat_proj, ("w",))
+    return out
+
+
+def quantize_fusion(fusion, quantize_attn=False):
+    """A copy of a ``FusionRCA`` or ``RCANet`` (``models/fusion.py``) whose
+    RCA layers hold int8 FFN weights (``pos_ffn.ffn1``/``ffn2``) and, with
+    ``quantize_attn``, int8 projections in their shared attention
+    (``quantize.py:123``). On the card each quantized product is one launch
+    of kernel 5: 4 a forward, 12 with ``quantize_attn``.
+
+    Example
+    -------
+    >>> from svt_speechbrain_tpu_torch.models.fusion import FusionRCA
+    >>> q = quantize_fusion(FusionRCA(alpha=0.5, nhead=4, d_ffn=32,
+    ...                               d_model=16))
+    >>> q.fusion.layer1.pos_ffn.ffn1.w_q8.dtype
+    torch.int8
+    """
+    from svt_speechbrain_tpu_torch.models.fusion import RCALayer
+
+    out = copy.deepcopy(fusion).requires_grad_(False)
+    for layer in out.modules():
+        if isinstance(layer, RCALayer):
+            _quantize_(layer.pos_ffn.ffn1, ("w",))
+            _quantize_(layer.pos_ffn.ffn2, ("w",))
+            if quantize_attn:
+                _quantize_(layer.self_att, _MHA_WEIGHTS)
     return out

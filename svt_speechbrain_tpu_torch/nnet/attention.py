@@ -1,12 +1,15 @@
-"""Multi-head attention (port of ``svt_speechbrain_tpu/nnet/attention.py``)."""
+"""Multi-head attention and the position-wise FFN (port of
+``svt_speechbrain_tpu/nnet/attention.py:24-219``)."""
 from __future__ import annotations
 
 import math
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from svt_speechbrain_tpu_torch.nnet.dropout import dropout
+from svt_speechbrain_tpu_torch.nnet.linear import Linear
 from svt_speechbrain_tpu_torch.ops import flash_attention as fa
 from svt_speechbrain_tpu_torch.ops.quant import PackedWeight, int8_matmul
 
@@ -68,10 +71,31 @@ def scaled_dot_product_attention(q, k, v, bias=None, mask=None,
 
 
 class MultiheadAttention(nn.Module):
-    """Batch-first multi-head attention with separate ``wq/wk/wv/wo``
-    (in, out) projections and biases (``attention.py:97``); the attention
-    core goes through ``scaled_dot_product_attention`` with ``key_lengths``
-    and, in training, attention dropout at rate ``dropout``.
+    """Batch-first multi-head attention with separate ``wq`` (d, d), ``wk``
+    (kdim, d), ``wv`` (vdim, d), ``wo`` (d, d) (in, out) projections and
+    biases (``attention.py:97``); the attention core goes through
+    ``scaled_dot_product_attention``, with attention dropout at rate
+    ``dropout`` in training.
+
+    ``forward(query, key, value, attn_mask=None, key_padding_mask=None,
+    pos_embs=None, rng=None, train=False, return_attn_weights=False,
+    key_lengths=None, impl="auto")``:
+
+    - ``attn_mask``: bool (Tq, Tk), (B·H, Tq, Tk) or (B, Tq, Tk), True =
+      disallowed (torch's convention);
+    - ``key_padding_mask``: bool (B, Tk), True = padding;
+    - ``pos_embs``: a float bias broadcastable to (B, H, Tq, Tk), added to
+      the scores;
+    - ``key_lengths`` (B,): each row's valid key count, the mask that keeps
+      the kernels available; a row of key length 0 comes out as zeros;
+    - ``return_attn_weights``: also return the weights averaged over heads,
+      (B, Tq, Tk). The JAX module returns them unless told not to; the
+      port returns them only when asked (the fusion network asks), so the
+      encoder's calls keep their kernel dispatch and single return.
+
+    A boolean mask, a bias or the returned weights take the eager path; a
+    row whose keys are all masked by a boolean mask gets a uniform softmax,
+    as in the JAX package.
 
     ``to_int8_`` replaces one projection matrix by its int8 serving form
     (``attention.py:153-158``): buffers ``{name}_q8`` and ``{name}_scale``
@@ -85,19 +109,24 @@ class MultiheadAttention(nn.Module):
     >>> x = torch.ones(2, 6, 16)
     >>> mha(x, x, x, key_lengths=torch.tensor([6, 3])).shape
     torch.Size([2, 6, 16])
+    >>> out, weights = mha(x, x, x, return_attn_weights=True)
+    >>> weights.shape                        # averaged over heads
+    torch.Size([2, 6, 6])
     """
 
-    def __init__(self, nhead, d_model, dropout=0.0):
+    def __init__(self, nhead, d_model, dropout=0.0, kdim=None, vdim=None):
         super().__init__()
         if d_model % nhead:
             raise ValueError("d_model must be divisible by nhead")
         self.dropout = dropout
         self.nhead = nhead
         self.d_model = d_model
+        self.kdim = kdim or d_model
+        self.vdim = vdim or d_model
         self.head_dim = d_model // nhead
-        for name in ("q", "k", "v", "o"):
-            setattr(self, f"w{name}",
-                    nn.Parameter(torch.zeros(d_model, d_model)))
+        for name, n_in in (("q", d_model), ("k", self.kdim), ("v", self.vdim),
+                           ("o", d_model)):
+            setattr(self, f"w{name}", nn.Parameter(torch.zeros(n_in, d_model)))
             setattr(self, f"b{name}", nn.Parameter(torch.zeros(d_model)))
         self._packed = {}
 
@@ -121,9 +150,11 @@ class MultiheadAttention(nn.Module):
                                self._packed[name](w8))
         return torch.matmul(x, getattr(self, name).to(x.dtype))
 
-    def forward(self, query, key, value, key_lengths=None, impl="auto",
-                rng=None, train=False):
+    def forward(self, query, key, value, attn_mask=None,
+                key_padding_mask=None, pos_embs=None, rng=None, train=False,
+                return_attn_weights=False, key_lengths=None, impl="auto"):
         b, tq, _ = query.shape
+        tk = key.shape[1]
         h, dh = self.nhead, self.head_dim
 
         def proj(x, name, bias):
@@ -133,8 +164,55 @@ class MultiheadAttention(nn.Module):
         q = proj(query, "wq", self.bq)
         k = proj(key, "wk", self.bk)
         v = proj(value, "wv", self.bv)
-        out = scaled_dot_product_attention(
-            q, k, v, dropout_rate=self.dropout, rng=rng, train=train,
+
+        mask = None
+        if attn_mask is not None:
+            if attn_mask.dim() == 2:
+                mask = attn_mask[None, None]
+            elif attn_mask.shape[0] == b * h:
+                mask = attn_mask.reshape(-1, h, tq, tk)
+            else:
+                mask = attn_mask[:, None]
+        if key_padding_mask is not None:
+            kpm = key_padding_mask[:, None, None, :]            # (B, 1, 1, Tk)
+            mask = kpm if mask is None else (mask | kpm)
+
+        res = scaled_dot_product_attention(
+            q, k, v, bias=pos_embs, mask=mask, dropout_rate=self.dropout,
+            rng=rng, train=train, return_weights=return_attn_weights,
             impl=impl, key_lengths=key_lengths)
+        out, weights = res if return_attn_weights else (res, None)
         out = out.transpose(1, 2).reshape(b, tq, self.d_model)
-        return self._mm(out, "wo") + self.bo.to(out.dtype)
+        out = self._mm(out, "wo") + self.bo.to(out.dtype)
+        if return_attn_weights:
+            return out, weights.mean(dim=1)
+        return out
+
+
+class PositionalwiseFeedForward(nn.Module):
+    """The transformer's per-position FFN (``attention.py:194``):
+    ``ffn2(dropout(act(ffn1(x))))``, ``act`` ReLU or exact GELU.
+
+    Example
+    -------
+    >>> import torch
+    >>> ffn = PositionalwiseFeedForward(d_ffn=32, input_size=16)
+    >>> ffn(torch.ones(2, 5, 16)).shape
+    torch.Size([2, 5, 16])
+    """
+
+    def __init__(self, d_ffn, input_size, dropout=0.0, activation="relu"):
+        super().__init__()
+        self.d_ffn = d_ffn
+        self.input_size = input_size
+        self.dropout = dropout
+        self.activation = activation
+        self.ffn1 = Linear(d_ffn, input_size)
+        self.ffn2 = Linear(input_size, d_ffn)
+
+    def forward(self, x, rng=None, train=False):
+        h = self.ffn1(x)
+        h = torch.relu(h) if self.activation == "relu" else F.gelu(h)
+        if rng is not None:
+            h = dropout(h, self.dropout, rng.device, train)
+        return self.ffn2(h)

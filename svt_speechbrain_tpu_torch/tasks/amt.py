@@ -1,5 +1,5 @@
 """AMT (singing-voice note transcription) brains (port of
-``svt_speechbrain_tpu/tasks/amt.py:39-339``).
+``svt_speechbrain_tpu/tasks/amt.py:39-339`` and ``:396-455``).
 
 ``AMTBrainBase`` holds what the AMT recipes share: the 4-term frame loss,
 song-stitched evaluation (batch 1, utterances of a song in order) decoded
@@ -12,6 +12,8 @@ the first ``linear_prob_epochs`` epochs freeze ``wav2vec2`` (linear
 probing). Training runs wav2vec2 in train mode (dropout on, batch-wide
 norms, padding attended); evaluation runs it on the exact lengths
 (``wav_lens``: per-row norms over the real samples, padded frames masked).
+``FusionAMT`` trains the RCA fusion network plus the frame head over
+pre-extracted audio and video features (stage 2 of N20EMv2).
 
 Parameter exports are ``.pt`` state dicts (``save_state_dict``,
 ``load_state_dict``; the JAX package writes msgpack), named
@@ -359,3 +361,84 @@ class AudioAMT(AMTBrainBase):
             path = os.path.join(folder, "clean_feats.npy")
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.save(path, feats)
+
+
+class FusionAMT(AMTBrainBase):
+    """Stage-2 RCA fusion over pre-extracted features (``amt.py:396``): the
+    AV recipe, and with ``zero_video`` the audio-only control whose video
+    stream is zeros.
+
+    ``modules`` are ``fusion`` (``models.fusion.FusionRCA``) and ``head``
+    (``Linear``); batches hold ``sig1`` (audio features, B x T x d) and
+    ``sig2`` (video features, aligned to them), and ``audio`` (the clean
+    dump's path, for the prediction dumps). One Adadelta (rho 0.95, eps
+    1e-8) at ``lr`` trains both modules. With ``pretrain`` the head starts
+    from ``pretrain_folder``'s ``model.pt`` (the port's stage-1 export) or,
+    failing that, ``model.msgpack`` (a JAX export, through
+    ``convert_jax``); a checkpoint of the run, when there is one, wins over
+    it (the JAX brain loads the head after recovery).
+    """
+
+    annealing = (("lr_annealing_model", "model", "lr_model"),)
+
+    def __init__(self, *args, zero_video=False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.zero_video = zero_video
+
+    def compute_forward(self, batch, stage, rng=None):
+        audio_feats, wav_lens = batch["sig1"]
+        video_feats = batch["sig2"].data
+        if self.zero_video:
+            video_feats = torch.zeros_like(video_feats)
+        feats = self.modules.fusion(audio_feats, video_feats, rng=rng,
+                                    train=stage == Stage.TRAIN)
+        logits = self.modules.head(feats)
+        n_oct = self.hparams.pitch_octave_num
+        return (logits[:, :, 0], logits[:, :, 1],
+                logits[:, :, 2:3 + n_oct], logits[:, :, 3 + n_oct:], wav_lens)
+
+    def _true_frames(self, batch, padded_frames):
+        rel = float(batch["sig1"].lengths[0])
+        return int(round(rel * batch["sig1"].data.shape[1]))
+
+    def init_optimizers(self):
+        self.add_optimizer(
+            "model", functools.partial(torch.optim.Adadelta, rho=0.95,
+                                       eps=1e-8),
+            ["fusion", "head"], lr=self.hparams.lr)
+
+    def on_fit_start(self):
+        if getattr(self.hparams, "pretrain", False):
+            folder = self.hparams.pretrain_folder
+            pt = os.path.join(folder, "model.pt")
+            msgpack = os.path.join(folder, "model.msgpack")
+            if os.path.exists(pt):
+                logger.info(f"Load classifier model weights from: {pt}")
+                self.modules.head.load_state_dict(load_state_dict(pt))
+            elif os.path.exists(msgpack):
+                from svt_speechbrain_tpu_torch.convert_jax import (
+                    load_module_tree, load_msgpack)
+
+                logger.info(f"Load classifier model weights from: {msgpack}")
+                load_module_tree(self.modules.head, load_msgpack(msgpack))
+            else:
+                logger.warning(f"pretrain=True but {pt} not found")
+        super().on_fit_start()
+
+    def on_song_end(self, batch, est_np):
+        """Per-song note dump: ``clean_{tag}_pred.npy`` beside the clean
+        feature dump, or ``<noise_type>/SNR_<x>dB_{tag}_pred.npy`` with
+        ``add_noise``; ``tag`` is "av", or "audio" for the control
+        (``amt.py:439-455``)."""
+        audio_path = batch.audio[0] if hasattr(batch, "audio") else None
+        if audio_path is None:
+            return
+        tag = "audio" if self.zero_video else "av"
+        folder = os.path.dirname(audio_path)
+        if getattr(self.hparams, "add_noise", False):
+            path = os.path.join(folder, self.hparams.noise_type,
+                                f"SNR_{self.hparams.snr_db}dB_{tag}_pred.npy")
+        else:
+            path = os.path.join(folder, f"clean_{tag}_pred.npy")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(path, est_np)

@@ -36,6 +36,21 @@ from svt_speechbrain_tpu_torch.recipes.MIR_ST500 import (prepare_benchmarks,
                                                         train_audio_ssl)
 from svt_speechbrain_tpu_torch.utils import (checkpoints, epoch_loop, logger,
                                              metric_stats, train_logger)
+from svt_speechbrain_tpu_torch.processing import signal_processing
+from svt_speechbrain_tpu_torch.models import fusion, transformer
+from svt_speechbrain_tpu_torch.tasks.amt import FusionAMT
+from svt_speechbrain_tpu_torch.recipes.N20EMv2.audio_only import (
+    extract_ssl_feats, prepare_benchmarks as n20em_benchmarks,
+    prepare_n20emv2, train_audio_ssl as n20em_audio)
+from svt_speechbrain_tpu_torch.recipes.N20EMv2.audio_visual import (
+    prepare_musan, prepare_n20emv2 as av_prep, run_noise_sweep,
+    synthesis_noise, train_rca_a, train_rca_av)
+rca = quantize.quantize_fusion(fusion.FusionRCA(0.5, 4, 32, 16),
+                               quantize_attn=True)
+with torch.no_grad():
+    assert rca(torch.ones(1, 5, 16), torch.ones(1, 6, 16)).shape == (1, 5, 16)
+assert signal_processing.mix_at_snr(torch.ones(4), torch.ones(4), 0).shape \
+    == (4,)
 model = build_flagship(tiny=True, device="cpu")
 with torch.no_grad():
     outs = model(torch.zeros(1, 8000))

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from svt_speechbrain_tpu_torch import ops
 from svt_speechbrain_tpu_torch.flagship import build_modules
 from svt_speechbrain_tpu_torch.convert_jax import init_params, load_jax_params
@@ -453,6 +454,58 @@ def test_int8_matmul_kernel_matches_plain(cuda_device, dtype, m, k, n):
         want = quant.int8_matmul_plain(x, w8, ws16).reshape(3, m // 3, n)
         assert torch.allclose(got.float(), want.float(), atol=0,
                               rtol=1e-6 if dtype == torch.float32 else 2.0 ** -8)
+
+
+# (M, K, N) of the RCA fusion's int8 products (``quantize_fusion`` with
+# ``quantize_attn``) in batch-1 serving at ``dur_threshold`` 5, as
+# ``chip_smoke.fusion_int8_shapes`` lists them for a padded frame count T.
+# ``prepare_csv_n20emv2_feat`` cuts a song of D seconds into max(1,
+# round(D / 5)) utterances: whole 5 s ones (249 frames at 49.8 a second)
+# and a last one of 2.5 to 7.5 s (the whole song when it is shorter), so
+# at most 374 frames; the loader pads T to a multiple of 50
+FUSION_FRAMES = range(50, 401, 50)
+FUSION_INT8_SHAPES = sorted({s for t in FUSION_FRAMES
+                             for s in chip_smoke.fusion_int8_shapes(t)})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", FUSION_INT8_SHAPES)
+def test_int8_matmul_kernel_matches_plain_at_the_fusion_shapes(
+        cuda_device, dtype, m, k, n):
+    x, w8, ws = int8_case(m, k, n, dtype, cuda_device, seed=7)
+    before = quant.int8_matmul.launches
+    assert_int8_kernel_matches_plain(x, w8, ws)
+    assert quant.int8_matmul.launches == before + 1
+
+
+@pytest.mark.parametrize("quantize_attn,launches", [(False, 4), (True, 12)])
+def test_int8_fusion_card_matches_cpu(cuda_device, quantize_attn, launches):
+    """The RCA fusion at its published width (8 heads, d_ffn 3072, d_model
+    1024) quantized by ``quantize_fusion``, f32, one 5 s utterance: kernel
+    5 launched ``launches`` times a forward, the output against the CPU's
+    plain path. An activation on a rounding boundary may take the other
+    integer on the other device and move its frame's attention row, so all
+    but a few frames are held to f32 summation order and those few to a
+    quantization step."""
+    from svt_speechbrain_tpu_torch.convert_jax import init_modules
+    from svt_speechbrain_tpu_torch.models.fusion import FusionRCA
+    from svt_speechbrain_tpu_torch.models.quantize import quantize_fusion
+
+    fusion = FusionRCA(alpha=0.5, nhead=8, d_ffn=3072, d_model=1024)
+    init_modules({"fusion": fusion}, 0)
+    q = quantize_fusion(fusion, quantize_attn=quantize_attn)
+    gen = torch.Generator().manual_seed(1)
+    audio = torch.randn(1, 249, 1024, generator=gen)
+    video = torch.randn(1, 250, 1024, generator=gen)
+    with torch.no_grad():
+        want = q(audio, video)
+        q.cuda()
+        before = quant.int8_matmul.launches
+        got = q(audio.cuda(), video.cuda()).cpu()
+    assert quant.int8_matmul.launches == before + launches
+    err = (got - want).abs().amax(-1)[0]
+    assert (err > 1e-4).sum() <= 3, err.max()
+    assert err.max() <= 5e-2
 
 
 def test_int8_matmul_kernel_does_not_spill(cuda_device):
