@@ -16,7 +16,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. hold each kernel against its plain PyTorch version at main-path shapes,
    in bf16 and in f32 (TF32 off); the frontend at wav (8, 80000), at the
    30 s song window (1, 480000) and on a (3, 16123) view one sample into
-   its storage;
+   its storage; the short attention also at the video recipe's evaluation
+   shapes (1, 16, T, 64), T 250-400, every frame attended
+   (``lengths=None``), and the int8 kernel at int8 AV-HuBERT's shapes for
+   T 250 (post_extract_proj's (250, 2048, 1024) among them);
 3. serve wav2vec2-large-lv60 AMT (24 layers, 1024 wide, 16 heads, seeded
    random weights) through ``BatchedAMTTranscriber`` at 5 s chunks, batch 8,
    bf16, on synthetic songs, counting kernel launches; and compare one
@@ -99,9 +102,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    export, COff scored, every dump (frames, 1024) and finite; prints epoch
    walls, step medians, ms an utterance, the extraction's RTFx, peak
    memory;
+17. the N20EMv2 video recipe (``svt_speechbrain_tpu_torch/recipes/N20EMv2/
+   video_only``) on seeded 96x96 uint8 lip ROIs at 50 fps written beside
+   phase 15's songs (as long as each song) and prepared by its
+   ``prepare_n20emv2``; AV-HuBERT large at full width and depth (the
+   Conv3d + ResNet-18 frontend with its BatchNorm statistics, 24 pre-LN
+   layers, 1024 wide) and its head, f32, the yaml's values (batch 4, eval
+   batch 1): a linear-probe and a finetune epoch, ``evaluate`` from the
+   checkpoint of greatest valid COnPOff F1, then ``extract_ssl_feats`` of
+   every split into ``noise_data/video_feats.npy``; row 2 held at the
+   evaluation's shapes first; asserts 24 short-attention launches in every
+   evaluated utterance and none in a training step, running statistics
+   moved by the probe epoch, the kept checkpoints, COff scored, every dump
+   (video frames, 1024) and finite; prints step medians, epoch walls, ms an
+   utterance, the extraction's RTFx, checkpoint bytes, save and recovery
+   seconds, peak memory and one profiled finetune step by kernel group;
+18. one f32 training step of the full ResEncoder and 2 AV-HuBERT-width
+   layers (batch 2 x 1 s, dropouts 0) on the card against the CPU (eval
+   logits, the loss, the gradient norm, every gradient, the running
+   statistics); then phase 17's model served in int8 by
+   ``quantize_avhubert`` (FFN only, then with ``quantize_attn``) on the
+   test set at batch 1: kernel 5 held bit for bit at every shape it is
+   given first, then 49 and 145 launches an utterance at exactly those
+   shapes, and how far the frame decisions and notes keep to the float
+   ones;
 16. the RCA fusion stage at the published width (``FusionRCA`` alpha 0.5, 8
    heads, d_ffn 3072, d_model 1024; head ``Linear(1024, 20)``) on phase
-   15's dumps and seeded 50 fps, 1024-wide video dumps: ``train_rca_av`` and
+   15's audio dumps and phase 17's video dumps: ``train_rca_av`` and
    ``train_rca_a`` (2 epochs, batch 8, the head warm-started from phase
    15's export, ``evaluate``), ``run_noise_sweep`` of both over clean and
    accomp at -10, 0, +10 dB; kernel 5 held bit for bit against its plain
@@ -114,7 +141,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    how far its frame decisions and notes keep to the float ones; one f32
    batch of 2 utterances card vs CPU (loss and logits).
 
-Phases run in the order 1-5, 8, 9, 6, 7, 10-16.
+Phases run in the order 1-5, 8, 9, 6, 7, 10-15, 17, 18, 16.
 
 Phases 2 and 5 also hold and time the two RNN-T kernels (the lattice on
 alpha and on beta panels, the gradient) against their plain versions at the
@@ -159,8 +186,8 @@ from svt_speechbrain_tpu_torch.dataio.batch import PaddedData  # noqa: E402
 from svt_speechbrain_tpu_torch.flagship import (HEAD_OUTPUTS,  # noqa: E402
                                                 build_modules)
 from svt_speechbrain_tpu_torch.convert_jax import (  # noqa: E402
-    init_embedding, init_linear, init_modules, init_params, init_rnn,
-    init_wav2vec2, load_jax_params, load_module_tree)
+    _flatten, init_embedding, init_linear, init_modules, init_params,
+    init_rnn, init_wav2vec2, load_jax_params, load_module_tree, module_tree)
 from svt_speechbrain_tpu_torch.decoders import (  # noqa: E402
     TransducerBeamSearcher)
 from svt_speechbrain_tpu_torch.models.wav2vec2 import (  # noqa: E402
@@ -178,8 +205,10 @@ from svt_speechbrain_tpu_torch.tasks.amt import AudioAMT  # noqa: E402
 from svt_speechbrain_tpu_torch.inference import (  # noqa: E402
     BatchedAMTTranscriber)
 from svt_speechbrain_tpu_torch.models.fusion import FusionRCA  # noqa: E402
+from svt_speechbrain_tpu_torch.models.avhubert import (  # noqa: E402
+    FairseqAVHubert)
 from svt_speechbrain_tpu_torch.models.quantize import (  # noqa: E402
-    quantize_fusion, quantize_wav2vec2)
+    quantize_avhubert, quantize_fusion, quantize_wav2vec2)
 from svt_speechbrain_tpu_torch.ops import _build  # noqa: E402
 from svt_speechbrain_tpu_torch.ops import conv_frontend as cf  # noqa: E402
 from svt_speechbrain_tpu_torch.ops import flash_attention as fa  # noqa: E402
@@ -198,6 +227,9 @@ from svt_speechbrain_tpu_torch.recipes.N20EMv2.audio_only import (  # noqa: E402
 from svt_speechbrain_tpu_torch.recipes.N20EMv2.audio_visual import (  # noqa: E402
     prepare_n20emv2 as av_prep, run_noise_sweep, synthesis_noise,
     train_rca_a, train_rca_av)
+from svt_speechbrain_tpu_torch.recipes.N20EMv2.video_only import (  # noqa: E402
+    extract_ssl_feats as video_extract, prepare_n20emv2 as video_prep,
+    train_video_ssl as video_recipe)
 from svt_speechbrain_tpu_torch.utils.amt import onset_peaks  # noqa: E402
 from svt_speechbrain_tpu_torch.utils.checkpoints import (  # noqa: E402
     Checkpointer)
@@ -385,6 +417,26 @@ N20EM_MIR_SONGS = {"train": (13,)}
 # (``synthesis_noise`` writes all five)
 N20EM_SNRS = (-10, 0, 10)
 VIDEO_RATE = 50
+# phase 17: seeded uint8 lip ROIs of this side, cropped to 88 by the recipe
+VIDEO_SIDE = 96
+# phase 2 and the card tests: the padded frame counts of the video
+# recipe's evaluated utterances (5 s, and last ones up to 7.5 s, padded to
+# a multiple of 50)
+VIDEO_EVAL_FRAMES = (250, 300, 350, 400)
+# phase 18: one f32 training step of the full ResEncoder and 2 AV-HuBERT-
+# width layers, card against CPU (batch 2 x 1 s of 88x88 video, dropouts
+# 0): the loss and the gradient norm relative, the running statistics and
+# the eval logits absolute, f32 products in other summation orders (TF32
+# off). Measured on an H100 (PR 12, phase 18): loss 7.3e-08, gradient norm
+# 9.5e-07, statistics 1.2e-06, logits 1.9e-06; each tolerance is about 6x
+# its reading. The gradients per leaf are held against the same step in
+# f64 on the CPU: BatchNorm makes the loss invariant to the scale of each
+# conv weight before it, so many leaves' gradients are sums that cancel and
+# carry an f32 error of several 1e-3 on either device (card against CPU:
+# 5.2e-03 on a BatchNorm scale of layer 1). The card's worst leaf may
+# stray from f64 at most GRAD_VS_F64 times as far as the CPU's f32 worst.
+TOL_VIDEO_STEP = {"loss_rel": 5e-7, "gnorm_rel": 6e-6, "stats": 1e-5,
+                  "logits": 1.2e-5, "grad_vs_f64": 2.0}
 # kernel-5 launches in one forward of the RCA fusion: ffn1 and ffn2 of its
 # 2 layers, and with ``quantize_attn`` also the 4 projections of each
 # layer's shared attention
@@ -400,6 +452,25 @@ def fusion_int8_shapes(frames, quantize_attn=True):
     if quantize_attn:
         shapes += [(frames, 1024, 1024), (2 * frames, 1024, 1024)]
     return shapes
+# kernel-5 launches in one forward of int8 AV-HuBERT large
+# (``quantize_avhubert``): ffn1 and ffn2 of its 24 layers and
+# post_extract_proj, and with ``quantize_attn`` also the 4 attention
+# projections of each layer
+AVHUBERT_INT8_LAUNCHES = {False: 49, True: 145}
+
+
+def avhubert_int8_shapes(frames, quantize_attn=True):
+    """(M, K, N) of kernel 5 in one batch-1 forward of int8 AV-HuBERT large
+    over ``frames`` padded video frames: post_extract_proj (T, 2048, 1024),
+    ffn1 and ffn2, and with ``quantize_attn`` the attention projections
+    (T, 1024, 1024)."""
+    shapes = [(frames, 2048, 1024), (frames, 1024, 4096),
+              (frames, 4096, 1024)]
+    if quantize_attn:
+        shapes.append((frames, 1024, 1024))
+    return shapes
+
+
 # one f32 batch of 2 utterances through the full-width fusion and head,
 # card against CPU: 2 layers of f32 products (TF32 off) and softmaxes in
 # other summation orders; the loss relative, the logits absolute. Measured
@@ -556,6 +627,34 @@ def check_attention(name, wrapper, shape, lengths, gen, errs):
             raise AssertionError(f"{name} {tag} disagrees with its plain "
                                  f"version")
         errs[(name, tag)] = err
+
+
+def check_video_kernels(gen, errs):
+    """Row 2 at the video recipe's evaluation shapes, (1, 16, T, 64) with
+    every frame attended (``lengths=None``), and row 5 at int8 AV-HuBERT's
+    shapes for T 250, post_extract_proj's K 2048 among them."""
+    for t in VIDEO_EVAL_FRAMES:
+        for tag, dtype in DTYPES.items():
+            q, k, v = (torch.randn(1, 16, t, 64, generator=gen,
+                                   device="cuda").to(dtype)
+                       for _ in range(3))
+            got = fa.flash_attention_short(q, k, v, None)
+            torch.cuda.synchronize()
+            err = (got.float() - fa.attention_reference(q, k, v, None)
+                   .float()).abs().max().item()
+            tol = TOL[("flash_attention_short", tag)]
+            ok = torch.isfinite(got).all().item() and err <= tol
+            log(f"  flash_attention_short {tag} (1, 16, {t}, 64) lengths="
+                f"None: max_abs_err={err:.3e} tol={tol:.1e} -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("flash_attention_short disagrees with "
+                                     "its plain version at a video shape")
+            key = ("flash_attention_short", tag)
+            errs[key] = max(err, errs.get(key, 0.0))
+    for m, k, n in avhubert_int8_shapes(VIDEO_EVAL_FRAMES[0]):
+        for tag, dtype in DTYPES.items():
+            hold_int8(m, k, n, tag, dtype, gen, " (AV-HuBERT)")
 
 
 def frontend_wavs(gen):
@@ -767,8 +866,11 @@ def profile_run(fn, top=10):
         fn()
         torch.cuda.synchronize()
     events = list(prof.events())
+    # ranges the profiler mirrors onto the device timeline (the optimizer's
+    # ``Optimizer.step#...``) span kernels already counted: left out
     kernels = [ev for ev in events
                if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(ev, "is_user_annotation", False)
                and ev.time_range.end > ev.time_range.start]
     if not kernels:
         log("  profiler saw no device kernels: breakdown not measured")
@@ -2859,6 +2961,68 @@ def rca_hparams(system="av", **overrides):
     return hp
 
 
+def video_hparams(extract=False, **overrides):
+    """The N20EMv2 video recipe's hyperparameters without PyYAML: the values
+    of ``svt_speechbrain_tpu_torch/recipes/N20EMv2/video_only/hparams/
+    train_video_ssl.yaml`` (``extract_ssl_feats.yaml`` with ``extract``:
+    batch 8, the valid and train CSVs among the test sets, no
+    ``output_norm``), which share the MIR-ST500 recipe's criteria, loader
+    options and thresholds (``recipe_hparams``) and have their own folders,
+    rates, AV-HuBERT encoder, head, schedulers and checkpointer.
+    ``overrides`` replace top-level values before the references resolve;
+    ``tests/test_torch_recipe_n20emv2_video.py`` holds the result equal to
+    ``load_hyperyaml``'s."""
+    o = dict(overrides)
+    seed, attempt = o.get("seed", 1986), o.get("attempt", 1)
+    dur = o.get("dur_threshold", 5)
+    rate = o.get("frame_rate", 50)
+    name = "extract_ssl_feats" if extract else "train_video_ssl"
+    o.setdefault("output_folder", f"results/AVHuBERT/{name}_dur{dur}_attempt"
+                                  f"{attempt}/{seed}")
+    csv = o.setdefault("csv_folder", f"data/frame_rate{rate}/dur_{dur}s")
+    o.setdefault("train_csv", f"{csv}/n20em_train.csv")
+    o.setdefault("valid_csv", f"{csv}/n20em_valid.csv")
+    o.setdefault("test_csv", [f"{csv}/n20em_{split}.csv" for split in
+                              (("test", "valid", "train") if extract
+                               else ("test",))])
+    o.setdefault("batch_size", 8 if extract else 4)
+    o.setdefault("pad_multiples", {"sig": 50, "anno": 50})
+    family = {"overlap": 0, "frame_rate": 50, "sample_rate": 50,
+              "lr_encoder": 0.00005, "split_noise": False,
+              "save_model": False, "save_model_folder": "../save_model",
+              "compute_coff": True, "ckpt_policy": "max_COnPOff_f1",
+              "freeze_encoder": False,
+              "avhubert_ckpt": "ssl_model/avhubert/large_vox_iter5.pt"}
+    family.update({k: o.pop(k) for k in list(family) if k in o})
+    hp = recipe_hparams(**dict(o, **dict.fromkeys(MIR_ONLY[:5])))
+    for key in MIR_ONLY + ("lr_annealing_model",):
+        if key not in ("attempt", "linear_prob_epochs", "sample_rate"):
+            del hp[key]
+    hp.update(family)
+
+    def put(key, make):
+        hp[key] = o[key] if key in o else make()
+
+    put("encoder", lambda: FairseqAVHubert(
+        source=hp["avhubert_ckpt"], freeze=hp["freeze_encoder"],
+        **({} if extract else {"output_norm": True})))
+    put("head", lambda: Linear(input_size=hp["feat_dim"],
+                               n_neurons=hp["output_neurons"]))
+    put("modules", lambda: {"encoder": hp["encoder"], "head": hp["head"]})
+    put("lr_annealing_head", lambda: NewBobScheduler(
+        initial_value=hp["lr"], improvement_threshold=0.0025,
+        annealing_factor=0.8, patient=0))
+    put("lr_annealing_encoder", lambda: NewBobScheduler(
+        initial_value=hp["lr_encoder"], improvement_threshold=0.0025,
+        annealing_factor=0.9, patient=0))
+    put("checkpointer", lambda: Checkpointer(
+        checkpoints_dir=hp["save_folder"], recoverables={
+            "scheduler_head": hp["lr_annealing_head"],
+            "scheduler_encoder": hp["lr_annealing_encoder"],
+            "counter": hp["epoch_counter"]}))
+    return hp
+
+
 def make_n20em_set(root, rng):
     """An N20EMv2-shaped set under ``root``: ``annotations.json`` and
     ``data/<song>/{vocals,accomp}.wav`` (sine notes plus noise; Gaussian
@@ -3042,17 +3206,434 @@ def n20em_phase(root, rng):
     return counts, summary
 
 
-def video_dumps(root, rng):
-    """Seeded 50 fps, 1024-wide video dumps beside each N20EMv2 song's clean
-    audio dump, as long as the song."""
+class TimedVideo(Timed, video_recipe.AMT):
+    """The N20EMv2 video recipe's brain, timed (video frames at 50 a
+    second), keeping the encoder's running statistics at each train
+    stage's end."""
+
+    timed_input, timed_rate = "sig", VIDEO_RATE
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.train_end_stats = []
+
+    def on_stage_end(self, stage, stage_loss, epoch=None):
+        if stage == Stage.TRAIN:
+            self.train_end_stats.append(running_stats(self.modules.encoder))
+        return super().on_stage_end(stage, stage_loss, epoch)
+
+
+def running_stats(encoder):
+    """The encoder's BatchNorm running statistics, {path: CPU tensor}."""
+    return {k: torch.from_numpy(v) for k, v in
+            _flatten(module_tree(encoder, running_stats=True)).items()}
+
+
+def song_seconds(root):
+    """{N20EMv2 song: seconds}, from its vocals' sample count."""
     with open(os.path.join(root, "annotations.json")) as f:
         songs = list(json.load(f))
-    for song in songs:
-        folder = os.path.join(root, "data", song, "noise_data")
-        frames = np.load(os.path.join(folder, "clean_feats.npy")).shape[0]
-        video = rng.standard_normal((round(frames / FRAME_RATE * VIDEO_RATE),
-                                     1024)).astype(np.float32)
-        np.save(os.path.join(folder, "video_feats.npy"), video)
+    return {song: len(read_audio(os.path.join(root, "data", song,
+                                              "vocals.wav"))) / SR
+            for song in songs}
+
+
+def make_video_set(root, rng):
+    """Seeded uint8 lip ROIs (VIDEO_SIDE square, 50 fps) beside each of
+    phase 15's N20EMv2 songs, as long as its audio, prepared by the video
+    recipe's ``prepare_n20emv2`` at 5 s utterances. Returns (the CSV
+    folder, {song: video frames})."""
+    frames = {}
+    for song, seconds in song_seconds(root).items():
+        frames[song] = round(seconds * VIDEO_RATE)
+        np.save(os.path.join(root, "data", song, "video_50fps.npy"),
+                rng.integers(0, 256, (frames[song], VIDEO_SIDE, VIDEO_SIDE),
+                             dtype=np.uint8))
+    video_prep.prepare_frame_anno(root, frame_rate=VIDEO_RATE)
+    video_prep.prepare_csv_n20emv2(root, os.path.join(root, "csv_video"),
+                                   VIDEO_RATE, 5)
+    return os.path.join(root, "csv_video", f"frame_rate{VIDEO_RATE}",
+                        "dur_5s"), frames
+
+
+def check_video_eval_shapes(eval_sets, pad):
+    """Row 2 against its plain version in f32 at each shape the video
+    recipe's evaluation gives it: (1, 16, T, 64), every frame attended, T
+    each utterance's frame count padded to ``pad``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    frames = sorted({-(-len(ds[i]["sig"]) // pad) * pad
+                     for ds in eval_sets for i in range(len(ds))})
+    for t in frames:
+        q, k, v = (torch.randn(1, 16, t, 64, generator=gen, device="cuda")
+                   for _ in range(3))
+        err = (fa.flash_attention_short(q, k, v, None)
+               - fa.attention_reference(q, k, v, None)).abs().max().item()
+        ok = err <= TOL[("flash_attention_short", "f32")]
+        log(f"  eval shape: flash_attention_short (1, 16, {t}, 64) "
+            f"lengths=None: max_abs_err={err:.3e} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("row 2 disagrees with its plain version at "
+                                 "the video recipe's evaluation shapes")
+    return frames
+
+
+def check_video_dumps(root, frames, width=1024):
+    """Every song's ``noise_data/video_feats.npy``: (video frames,
+    ``width``), f32, finite."""
+    for song, n in frames.items():
+        path = os.path.join(root, "data", song, "noise_data",
+                            "video_feats.npy")
+        feats = np.load(path)
+        if (feats.dtype != np.float32 or feats.shape != (n, width)
+                or not np.isfinite(feats).all()):
+            raise AssertionError(f"{path}: {feats.dtype} {feats.shape}, "
+                                 f"{n} video frames")
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, names in os.walk(path) for f in names)
+
+
+def video_phase(root, rng):
+    """Phase 17: the N20EMv2 video recipe at AV-HuBERT large width and depth
+    (seeded random weights, f32, the yaml's values: batch 4, eval batch 1)
+    on seeded video beside phase 15's songs: a linear-probe and a finetune
+    epoch, ``evaluate`` of the test set from the checkpoint of greatest
+    valid COnPOff F1, then ``extract_ssl_feats`` of every split into
+    ``noise_data/video_feats.npy``, which phase 16 reads. Returns
+    (launches, the trained brain, its hparams and test set, summary)."""
+    t0 = time.perf_counter()
+    csv_dir, frames = make_video_set(root, rng)
+    log(f"  video written ({len(frames)} songs, {sum(frames.values())} "
+        f"frames of {VIDEO_SIDE}x{VIDEO_SIDE}) and prepared in "
+        f"{time.perf_counter() - t0:.1f} s")
+    run_opts = {"device": "cuda", "noprogressbar": True}
+    common = dict(data_folder=root, csv_folder=csv_dir,
+                  output_folder=os.path.join(root, "out_video"))
+    hp = video_hparams(number_of_epochs=2, linear_prob_epochs=1, **common)
+    t0 = time.perf_counter()
+    init_modules(hp["modules"], hp["seed"])
+    log(f"  seeded AV-HuBERT large weights drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    data = video_recipe.dataio_prepare(hp)
+    brain = TimedVideo(modules=hp["modules"], hparams=hp, run_opts=run_opts,
+                       checkpointer=hp["checkpointer"])
+    enc = brain.modules.encoder
+    n_layers = enc.config.encoder_layers
+    n_params = sum(p.numel() for p in enc.parameters())
+    log(f"  {len(data[0])} train utterances (batch {hp['batch_size']}), "
+        f"{len(data[1])} valid and {len(data[2]['n20em_test'])} test "
+        f"utterances (batch 1); AV-HuBERT {n_layers} layers x "
+        f"{enc.config.encoder_embed_dim}, {n_params / 1e6:.1f} M parameters "
+        f"in the encoder, f32")
+    eval_frames = check_video_eval_shapes(
+        (data[1], data[2]["n20em_test"], data[0]),
+        hp["pad_multiples"]["sig"])
+    start_stats = running_stats(enc)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    test_set, test_loss, eval_s = fit_and_evaluate(brain, hp, data,
+                                                   max_key="COnPOff_f1")
+    ehp = video_hparams(extract=True, **common)
+    t0 = time.perf_counter()
+    ebrain = video_extract.extract(ehp, run_opts, TimedVideo)
+    x_wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  launches over fit, evaluate and the extraction: {counts}")
+
+    for e in brain.epochs:
+        log(f"  epoch {e['epoch']}: {e['wall']:.2f} s wall, train loss "
+            f"{e['train_loss']:.6f}, valid loss {e['valid_loss']:.6f}")
+    for i, st in enumerate(brain.steps):
+        log(f"  step {i + 1} ({'probe' if st['probe'] else 'finetune'}): "
+            f"loss={st['loss']:.6f} {st['wall'] * 1e3:.1f} ms")
+        if not np.isfinite(st["loss"]):
+            raise AssertionError(f"nonfinite training loss {st['loss']}")
+        expect_counts(st["counts"], {}, "video training step")
+    evals = brain.evals + ebrain.evals
+    for ev in evals:
+        expect_counts(ev["counts"], {"flash_attention_short": n_layers},
+                      f"evaluation of {ev['id']} ({ev['stage']})")
+    probe_stats = brain.train_end_stats[0]
+    unmoved = [k for k in start_stats
+               if torch.equal(start_stats[k], probe_stats[k])]
+    if unmoved or not all(torch.isfinite(v).all() for v in
+                          probe_stats.values()):
+        raise AssertionError(f"the probe epoch left running statistics "
+                             f"unmoved or nonfinite: {unmoved[:5]}")
+    log(f"  the probe epoch moved all {len(start_stats)} running statistics "
+        f"(frontend BatchNorm mean: "
+        f"{start_stats[next(iter(start_stats))][:3].tolist()} -> "
+        f"{[round(x, 5) for x in probe_stats[next(iter(probe_stats))][:3].tolist()]})")
+    ckpts = hp["checkpointer"].list_checkpoints()
+    best = max(e["f1"] for e in brain.epochs)
+    if not ckpts or any(c.meta.get("COnPOff_f1") != best for c in ckpts):
+        raise AssertionError(f"kept {[c.meta for c in ckpts]}, want the "
+                             f"checkpoints of valid COnPOff F1 {best}")
+    n_test = len(N20EM_SONGS["test"])
+    if brain.COff_f1.count != n_test:
+        raise AssertionError(f"COff scored for {brain.COff_f1.count} test "
+                             f"songs, want {n_test}")
+    check_video_dumps(root, frames, enc.config.encoder_embed_dim)
+    ckpt_bytes = [dir_bytes(c.path) for c in ckpts]
+    log(f"  test: loss {test_loss:.6f}, COnPOff/COnP/COn/COff F1 "
+        f"{brain.COnPOff_f1.avg:.4f} / {brain.COnP_f1.avg:.4f} / "
+        f"{brain.COn_f1.avg:.4f} / {brain.COff_f1.avg:.4f}; checkpoints kept "
+        f"{[c.meta['COnPOff_f1'] for c in ckpts]} of "
+        f"{[round(b / 2 ** 30, 3) for b in ckpt_bytes]} GiB")
+    x_video = sum(ev["audio_s"] for ev in ebrain.evals)
+    x_batches = sum(ev["wall"] for ev in ebrain.evals)
+    log(f"  checkpoint saves (with the epoch's log and keep-only) "
+        f"{[round(t, 2) for t in brain.saves]} s, recovery "
+        f"{[round(t, 2) for t in brain.recovers]} s, the extraction's "
+        f"{[round(t, 2) for t in ebrain.recovers]} s")
+    log(f"  extraction: {len(ebrain.evals)} utterances of "
+        f"{len(frames)} songs' splits (valid, then test, valid, train), "
+        f"dumps of {min(frames.values())}-{max(frames.values())} frames x "
+        f"{enc.config.encoder_embed_dim}, all finite; {x_video:.1f} s of "
+        f"video in {x_wall:.2f} s "
+        f"(RTFx {x_video / x_wall:.1f}; its batches alone "
+        f"{x_video / x_batches:.1f})")
+    steps = {kind: [st["wall"] for st in brain.steps
+                    if st["probe"] == (kind == "probe")]
+             for kind in ("probe", "finetune")}
+    log("  where the device time goes in one finetune step at batch "
+        f"{hp['batch_size']} (torch.profiler):")
+    batch = next(iter(brain.make_dataloader(
+        data[0], Stage.TRAIN, ckpt_prefix=None,
+        **dict(hp["train_dataloader_opts"], num_workers=0))))
+    # the step moves the evaluated model; phase 18 serves that model in
+    # int8 against its float evaluation, so it is put back afterwards
+    evaluated = copy.deepcopy(brain.modules.state_dict())
+    brain.on_stage_start(Stage.TRAIN, 3)
+    step_idle = profile_run(lambda: brain.fit_batch(batch))
+    brain.modules.load_state_dict(evaluated)
+    del evaluated
+    summary = dict(
+        epoch_s=[round(e["wall"], 3) for e in brain.epochs],
+        probe_step_ms=float(np.median(steps["probe"])) * 1e3,
+        finetune_step_ms=float(np.median(steps["finetune"])) * 1e3,
+        eval_ms_per_utterance=float(np.median(
+            [ev["wall"] for ev in evals])) * 1e3,
+        evaluate_s=eval_s, extraction_s=x_wall,
+        extraction_rtfx=x_video / x_wall,
+        extraction_batches_rtfx=x_video / x_batches,
+        checkpoint_gib=[b / 2 ** 30 for b in ckpt_bytes],
+        save_s=brain.saves, recover_s=brain.recovers + ebrain.recovers,
+        peak_gb=peak_gb, evaluated_utterances=len(evals),
+        eval_frames=eval_frames, test_loss=test_loss,
+        train_step_busy=None if step_idle is None else 1 - step_idle)
+    log(f"  median steps: probe {summary['probe_step_ms']:.1f} ms, finetune "
+        f"{summary['finetune_step_ms']:.1f} ms; eval "
+        f"{summary['eval_ms_per_utterance']:.1f} ms an utterance over "
+        f"{len(evals)} utterances; peak {peak_gb:.2f} GiB")
+    del ebrain
+    torch.cuda.empty_cache()
+    return counts, (brain, hp, test_set), summary
+
+
+def video_batch(rng, batch, seconds):
+    """Synthetic rows of normalized 88x88 video and annotations at 50
+    frames a second."""
+    frames = int(seconds * VIDEO_RATE)
+    video = rng.standard_normal((batch, frames, 88, 88, 1)).astype(np.float32)
+    anno = np.stack([rng.random((batch, frames)) < 0.05,
+                     rng.random((batch, frames)) < 0.05,
+                     rng.integers(0, 5, (batch, frames)),
+                     rng.integers(0, 13, (batch, frames))],
+                    axis=-1).astype(np.float32)
+    ones = np.ones(batch, np.float32)
+    return {"sig": PaddedData(torch.from_numpy(video), ones),
+            "anno": PaddedData(torch.from_numpy(anno), ones)}
+
+
+def video_card_vs_cpu_step(root, rng):
+    """Phase 18, first half: the full ResEncoder and 2 AV-HuBERT-width
+    layers (dropouts 0), batch 2 x 1 s: eval logits, then one full-finetune
+    step (loss, gradient norm, every clipped gradient, the running
+    statistics after it) in f32 on the card and on the CPU, and the same
+    forward and backward in f64 on the CPU, which the gradients are held
+    to."""
+    arch = dict(encoder_layers=2, dropout=0.0, attention_dropout=0.0,
+                activation_dropout=0.0, dropout_input=0.0)
+    batch = video_batch(rng, 2, 1.0)
+    hp = video_hparams(data_folder=root, encoder=None, head=None,
+                       modules=None, checkpointer=None,
+                       output_folder=os.path.join(root, "out_video_step"))
+    result = {}
+    for tag, dev, dtype in (("cuda", "cuda", torch.float32),
+                            ("cpu", "cpu", torch.float32),
+                            ("cpu_f64", "cpu", torch.float64)):
+        enc = FairseqAVHubert(source=None, output_norm=True,
+                              arch_overrides=arch)
+        head = Linear(HEAD_OUTPUTS, 1024)
+        init_modules({"encoder": enc, "head": head}, SEED + 17)
+        brain = video_recipe.AMT({"encoder": enc.to(dtype),
+                                  "head": head.to(dtype)},
+                                 hparams=hp, run_opts={"device": dev})
+        brain.init_optimizers()
+        arrays = {k: PaddedData(v.data.to(dtype), v.lengths)
+                  for k, v in brain._batch_to_device(batch).items()
+                  if isinstance(v, PaddedData)}
+        with torch.inference_mode():
+            preds = brain.compute_forward(arrays, Stage.VALID)
+        logits = torch.cat([p.reshape(2, 50, -1) for p in preds[:4]],
+                           -1).float().cpu()
+        brain.on_stage_start(Stage.TRAIN, 3)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        params = dict(brain.modules.named_parameters())
+        if dtype == torch.float32:
+            loss = brain.fit_batch(batch)
+            gnorm = brain.last_grad_norm
+        else:
+            loss = brain.compute_objectives(brain.compute_forward(
+                arrays, Stage.TRAIN), arrays, Stage.TRAIN)
+            loss.backward()
+            loss = loss.item()
+            gnorm = torch.stack([p.grad.square().sum() for p in
+                                 params.values() if p.grad is not None]
+                                ).sum().sqrt().item()
+            clip = min(1.0, brain.max_grad_norm / (gnorm + 1e-6))
+            for p in params.values():
+                if p.grad is not None:
+                    p.grad.mul_(clip)
+        wall = time.perf_counter() - t0
+        result[tag] = dict(
+            loss=loss, gnorm=gnorm, logits=logits,
+            counts=ops.launch_counts(), stats=running_stats(enc),
+            grads={n: p.grad.double().cpu() for n, p in params.items()
+                   if p.grad is not None})
+        log(f"  {tag}: loss={loss:.6f} gnorm={gnorm:.6f} {wall:.1f} s "
+            f"launches={result[tag]['counts']}")
+        del brain, enc, head, params
+    # no attention dropout here, so each layer's forward takes the short
+    # kernel (its backward is the plain VJP)
+    expect_counts(result["cuda"]["counts"],
+                  {"flash_attention_short": arch["encoder_layers"]},
+                  "card step")
+    got, want, exact = result["cuda"], result["cpu"], result["cpu_f64"]
+    card, exempt = leaf_errors(got, exact, {"grad_rel": "grads"})
+    cpu, _ = leaf_errors(want, exact, {"grad_rel": "grads"})
+    pair, _ = leaf_errors(got, want, {"grad_rel": "grads"})
+    worst = {name: max(e["grad_rel"], key=e["grad_rel"].get)
+             for name, e in (("card", card), ("cpu", cpu), ("pair", pair))}
+    w_card = card["grad_rel"][worst["card"]]
+    w_cpu = cpu["grad_rel"][worst["cpu"]]
+    loss_rel = abs(got["loss"] / want["loss"] - 1)
+    gnorm_rel = abs(got["gnorm"] / want["gnorm"] - 1)
+    stats_err = max((got["stats"][k] - want["stats"][k]).abs().max().item()
+                    for k in want["stats"])
+    logit_err = (got["logits"] - want["logits"]).abs().max().item()
+    t = TOL_VIDEO_STEP
+    ok = (sorted(got["grads"]) == sorted(want["grads"])
+          == sorted(exact["grads"])
+          and loss_rel <= t["loss_rel"] and gnorm_rel <= t["gnorm_rel"]
+          and stats_err <= t["stats"] and logit_err <= t["logits"]
+          and w_card <= t["grad_vs_f64"] * w_cpu
+          and all(name.endswith("attn.bk") for name in exempt))
+    log(f"  card vs CPU (f32): eval logits max abs err {logit_err:.3e}; loss "
+        f"rel err {loss_rel:.3e}, gnorm rel err {gnorm_rel:.3e}; running "
+        f"statistics max abs err {stats_err:.3e}; gradients against the f64 "
+        f"step, worst of {len(card['grad_rel'])} leaves: card {w_card:.3e} "
+        f"({worst['card']}), CPU {w_cpu:.3e} ({worst['cpu']}); card against "
+        f"CPU {pair['grad_rel'][worst['pair']]:.3e} ({worst['pair']}); "
+        f"exempt (zero gradient) {exempt}; tols {t} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    for name, e in (("card vs f64", card), ("CPU vs f64", cpu)):
+        top = sorted(e["grad_rel"].items(), key=lambda kv: -kv[1])[:4]
+        log(f"    largest {name}: " + ", ".join(f"{n} {v:.3e}"
+                                              for n, v in top))
+    if not ok:
+        raise AssertionError("the video training step on the card disagrees "
+                             "with the CPU")
+    torch.cuda.empty_cache()
+    return dict(loss_rel=loss_rel, gnorm_rel=gnorm_rel, stats_abs=stats_err,
+                logits_abs=logit_err, grad_rel_card_vs_f64=w_card,
+                grad_rel_cpu_vs_f64=w_cpu,
+                grad_rel_card_vs_cpu=pair["grad_rel"][worst["pair"]])
+
+
+def int8_video_serving(brain, hp, test_set):
+    """Phase 18, second half: the trained AV-HuBERT large of phase 17
+    served in int8 (``quantize_avhubert``, FFN only and with
+    ``quantize_attn``) by the recipe's ``evaluate`` on the test set at
+    batch 1, against its float evaluation (the brain's TEST records):
+    kernel 5 first held against its plain version (f32) at every shape the
+    serving gives it and timed at those of a whole 5 s utterance, then 49
+    (145) launches an utterance at exactly those shapes, ms an utterance,
+    frame decisions and notes."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    frames = sorted({-(-len(test_set[i]["sig"]) // hp["pad_multiples"]["sig"])
+                     * hp["pad_multiples"]["sig"]
+                     for i in range(len(test_set))})
+    held = sorted({s for t in frames for s in avhubert_int8_shapes(t)})
+    for m, k, n in held:
+        hold_int8(m, k, n, "f32", torch.float32, gen, " (AV-HuBERT)")
+    log(f"  kernel 5 timed at the products of a whole 5 s utterance (T "
+        f"{VIDEO_EVAL_FRAMES[0]}), f32, as served:")
+    rows = int8_timings(gen, avhubert_int8_shapes(VIDEO_EVAL_FRAMES[0]),
+                        torch.float32)
+    float_evals = [ev for ev in brain.evals if ev["stage"] == "TEST"]
+    float_songs = {name: notes for name, notes, *_ in brain.songs[
+        -len(N20EM_SONGS["test"]):]}
+    out = {}
+    for qa in (False, True):
+        qbrain = TimedVideo(
+            modules={"encoder": quantize_avhubert(brain.modules.encoder,
+                                                  quantize_attn=qa),
+                     "head": brain.modules.head},
+            hparams=hp, run_opts={"device": "cuda", "noprogressbar": True})
+        with Int8Shapes() as launched:
+            qbrain.evaluate(test_set,
+                            test_loader_kwargs=hp["test_dataloader_opts"])
+        want = {s for t in frames for s in avhubert_int8_shapes(t, qa)}
+        if launched.seen != want:
+            raise AssertionError(f"int8 AV-HuBERT launched kernel 5 at "
+                                 f"{sorted(launched.seen)}, want "
+                                 f"{sorted(want)}")
+        for ev in qbrain.evals:
+            expect_counts(ev["counts"],
+                          {"int8_matmul": AVHUBERT_INT8_LAUNCHES[qa],
+                           "flash_attention_short": 24},
+                          f"int8 AV-HuBERT ({'quantize_attn' if qa else 'FFN'})"
+                          f" of {ev['id']}")
+        same = np.concatenate([
+            np.stack(decisions(_probs(q["logits"])), -1)
+            == np.stack(decisions(_probs(f["logits"])), -1)
+            for q, f in zip(qbrain.evals, float_evals)])
+        agree, each = same.all(-1).mean(), same.mean(0)
+        notes = {name: (len(float_songs[name]), len(est))
+                 for name, est, *_ in qbrain.songs}
+        ms = float(np.median([ev["wall"] for ev in qbrain.evals])) * 1e3
+        f_ms = float(np.median([ev["wall"] for ev in float_evals])) * 1e3
+        ok = (each[0] >= INT8_DECISION_AGREE and each[1] >= INT8_DECISION_AGREE
+              and each[2] > INT8_PITCH_AGREE)
+        log(f"  int8 against float, per frame: onset decisions agree "
+            f"{each[0]:.4f}, offset {each[1]:.4f} (bar {INT8_DECISION_AGREE}),"
+            f" pitch class {each[2]:.4f} (bar {INT8_PITCH_AGREE}) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("int8 AV-HuBERT's frame decisions stray "
+                                 "from the float model's")
+        log(f"  int8 AV-HuBERT {'with quantize_attn' if qa else 'FFN only'}:"
+            f" {AVHUBERT_INT8_LAUNCHES[qa]} kernel-5 launches in each of "
+            f"{len(qbrain.evals)} utterances at {sorted(launched.seen)}; "
+            f"{ms:.1f} ms an utterance (float {f_ms:.1f}); frames whose "
+            f"onset, offset and pitch-class decisions all equal the float "
+            f"ones {agree:.4f}; notes float/int8 {notes}")
+        out["quantize_attn" if qa else "ffn"] = dict(
+            ms_per_utterance=ms, float_ms_per_utterance=f_ms,
+            decision_agree=float(agree),
+            onset_offset_pitch_agree=[float(a) for a in each], notes=notes)
+        del qbrain
+    out["held_shapes"] = held
+    out["int8_kernel"] = {name: {k: r[k] for k in (
+        "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
+        for name, r in rows.items()}
+    return out
 
 
 def fusion_batch_card_vs_cpu(modules, hp, train_set):
@@ -3201,12 +3782,11 @@ def _probs(logits):
 def fusion_phase(root, rng):
     """Phase 16: the RCA fusion at the published width (FusionRCA alpha 0.5,
     8 heads, d_ffn 3072, d_model 1024, head Linear(1024 → 20)) on phase
-    15's lv60 dumps and seeded 50 fps video dumps: ``train_rca_av`` and
+    15's lv60 dumps and phase 17's AV-HuBERT video dumps: ``train_rca_av`` and
     ``train_rca_a`` (2 epochs, batch 8, the head warm-started from phase
     15's export, then ``evaluate``), ``run_noise_sweep`` of both (clean and
     accomp at N20EM_SNRS), int8 serving of the AV fusion, and one f32 batch
     card vs CPU. Returns (launches, summary)."""
-    video_dumps(root, rng)
     av_prep.prepare_csv_n20emv2_feat(root, os.path.join(root, "csv_av"), 5)
     common = dict(data_folder=root,
                   csv_folder=os.path.join(root, "csv_av", "dur_5s"),
@@ -3340,6 +3920,7 @@ def main():
                     (8, 16, 249, 64), SHORT_LENGTHS, gen, errs)
     check_attention("flash_attention", fa.flash_attention,
                     (3, 16, 1499, 64), LONG_LENGTHS, gen, errs)
+    check_video_kernels(gen, errs)
     check_training_kernels(gen, errs)
     check_int8(gen, errs)
     check_rnnt(gen, errs)
@@ -3440,9 +4021,24 @@ def main():
             "dumps clean and at accomp -10, 0, +10 dB")
         n20em_counts, n20em_summary = n20em_phase(root, rng)
         log(f"  N20EMv2 summary: {json.dumps(n20em_summary)}")
+        log("phase 17: the N20EMv2 video recipe, AV-HuBERT large at full "
+            "width and depth: probe and finetune epochs, evaluate, video "
+            "feature dumps of every split")
+        video_counts, (vbrain, vhp, vtest), video_summary = video_phase(
+            root, rng)
+        log(f"  video summary: {json.dumps(video_summary)}")
+        log("phase 18: the ResEncoder and 2 AV-HuBERT-width layers, one f32 "
+            "step card vs CPU; int8 AV-HuBERT large serving, FFN only and "
+            "with quantize_attn")
+        ops.reset_launch_counts()
+        step_summary = video_card_vs_cpu_step(root, rng)
+        int8_video = int8_video_serving(vbrain, vhp, vtest)
+        log(f"  phase 18 summary: {json.dumps(dict(step=step_summary, int8=int8_video))}")
+        del vbrain, vhp, vtest
+        torch.cuda.empty_cache()
         log("phase 16: RCA fusion at the published width on phase 15's "
-            "dumps: AV and A recipes, the noise sweep, int8 serving, card vs "
-            "CPU")
+            "audio and phase 17's video dumps: AV and A recipes, the noise "
+            "sweep, int8 serving, card vs CPU")
         fusion_counts, fusion_summary = fusion_phase(root, rng)
         log(f"  fusion summary: {json.dumps(fusion_summary)}")
     finally:

@@ -26,6 +26,14 @@ port's parameter names. ``load_msgpack`` reads a tree that the JAX
 package's ``save_msgpack`` wrote (the ``msgpack`` package is imported
 when it is called).
 
+AV-HuBERT (``models/avhubert.py``) loads through ``load_module_tree`` with
+its JAX params tree and, as ``state``, its state tree: a ``w``/``b`` leaf of
+a 2-D or 3-D conv (found by the module that owns it) becomes ``weight``
+(out, in, *k) and ``bias``, and the BatchNorm ``mean``/``var`` of the state
+tree fill the modules' buffers (without a state tree they keep theirs).
+``module_tree(..., running_stats=True)`` gives the state tree back.
+``init_avhubert``/``init_resnet`` draw seeded trees of its shapes.
+
 The transducer parts load through ``load_module_tree`` too: an ``RNN``/
 ``LSTM``/``GRU`` (or cell) tree ``l{k}``/``l{k}_rev`` with ``w_ih`` (in,
 g·H), ``w_hh`` (H, g·H), ``b_ih``, ``b_hh`` fills ``layers.{k}``'s torch
@@ -46,10 +54,15 @@ import re
 import numpy as np
 import torch
 
+from svt_speechbrain_tpu_torch.models.avhubert import (AVHubertModel,
+                                                      FairseqAVHubert)
 from svt_speechbrain_tpu_torch.models.fusion import FusionRCA
 from svt_speechbrain_tpu_torch.models.wav2vec2 import HuggingFaceWav2Vec2
-from svt_speechbrain_tpu_torch.nnet.cnn import jax_to_torch_conv_weight
+from svt_speechbrain_tpu_torch.nnet.cnn import (_ConvNd,
+                                                jax_to_torch_conv_weight,
+                                                torch_to_jax_conv_weight)
 from svt_speechbrain_tpu_torch.nnet.linear import Linear
+from svt_speechbrain_tpu_torch.nnet.normalization import _BatchNorm
 
 
 _RNN_LEAF = re.compile(r"(?:^|/)l(\d+)(_rev)?/([wb])_(ih|hh)$")
@@ -95,9 +108,47 @@ def _convert(path, value):
     return name.replace("/", "."), t.contiguous()
 
 
-def load_module_tree(module, tree):
-    """Fill ``module`` from its JAX sub-tree (strict)."""
-    state = dict(_convert(p, v) for p, v in _flatten(tree).items())
+def _owner(module, name):
+    owner, _, leaf = name.rpartition(".")
+    try:
+        return module.get_submodule(owner), leaf
+    except AttributeError:
+        return None, leaf
+
+
+def _conv_leaves(module, state):
+    """The 2-D/3-D convs' JAX leaves ``w`` (*k, in, out) and ``b`` →
+    ``weight`` (out, in, *k) and ``bias``, by the module that owns them."""
+    out = {}
+    for name, t in state.items():
+        owner, leaf = _owner(module, name)
+        if isinstance(owner, _ConvNd) and leaf in ("w", "b"):
+            if leaf == "w":
+                name, t = name[:-1] + "weight", jax_to_torch_conv_weight(t)
+            else:
+                name = name[:-1] + "bias"
+        out[name] = t
+    return out
+
+
+def _running_stat(module, name):
+    owner, leaf = _owner(module, name)
+    return isinstance(owner, _BatchNorm) and leaf in ("mean", "var")
+
+
+def load_module_tree(module, tree, state=None):
+    """Fill ``module`` from its JAX sub-tree (strict) and, when ``state``
+    (the JAX state tree of the same module) is given, its BatchNorm running
+    statistics from it; without ``state`` the module keeps its own."""
+    flat = _flatten(tree)
+    if state is not None:
+        flat.update(_flatten(state))
+    keep_stats = state is None
+    state = _conv_leaves(module, dict(_convert(p, v) for p, v in flat.items()))
+    if keep_stats:
+        for name, buf in module.named_buffers():
+            if _running_stat(module, name):
+                state[name] = buf
     for name, w_q8 in state.items():
         if name.endswith("_q8"):
             owner, _, leaf = name.rpartition(".")
@@ -167,6 +218,29 @@ def init_rnn(gen, gates, input_size, hidden_size, num_layers=1,
     return tree
 
 
+def _init_pos_conv(generator, d, k, groups):
+    in_g = d // groups
+    v = _kaiming(generator, (k, in_g, d), in_g * k)
+    return {"v": v,
+            "g": np.sqrt(np.square(v).sum(axis=(1, 2), keepdims=True)),
+            "b": _bias(generator, (d,), in_g * k)}
+
+
+def _init_layers(generator, n, d, ffn):
+    limit = math.sqrt(6.0 / (2 * d))
+    layers = {}
+    for i in range(n):
+        attn = {}
+        for name in ("q", "k", "v", "o"):
+            attn[f"w{name}"] = _uniform(generator, (d, d), limit)
+            attn[f"b{name}"] = np.zeros(d, np.float32)
+        layers[str(i)] = {"attn": attn,
+                          "ffn1": init_linear(generator, d, ffn),
+                          "ffn2": init_linear(generator, ffn, d),
+                          "ln1": _ln(d), "ln2": _ln(d)}
+    return layers
+
+
 def init_wav2vec2(config, generator):
     """Seeded bridge tree {"encoder": ...} at the JAX shapes: kaiming-uniform
     convs and linears with torch-style biases, glorot-uniform attention
@@ -180,27 +254,85 @@ def init_wav2vec2(config, generator):
             conv["b"] = _bias(generator, (dim,), in_ch * k)
         fe[str(i)] = {"conv": conv, "layer_norm": _ln(dim)}
         in_ch = dim
-    d, k = c.hidden_size, c.num_conv_pos_embeddings
-    in_g = d // c.num_conv_pos_embedding_groups
-    v = _kaiming(generator, (k, in_g, d), in_g * k)
-    pos_conv = {"v": v,
-                "g": np.sqrt(np.square(v).sum(axis=(1, 2), keepdims=True)),
-                "b": _bias(generator, (d,), in_g * k)}
-    limit = math.sqrt(6.0 / (2 * d))
-    layers = {}
-    for i in range(c.num_layers):
-        attn = {}
-        for name in ("q", "k", "v", "o"):
-            attn[f"w{name}"] = _uniform(generator, (d, d), limit)
-            attn[f"b{name}"] = np.zeros(d, np.float32)
-        layers[str(i)] = {"attn": attn,
-                          "ffn1": init_linear(generator, d, c.ffn_size),
-                          "ffn2": init_linear(generator, c.ffn_size, d),
-                          "ln1": _ln(d), "ln2": _ln(d)}
+    d = c.hidden_size
+    pos_conv = _init_pos_conv(generator, d, c.num_conv_pos_embeddings,
+                              c.num_conv_pos_embedding_groups)
+    layers = _init_layers(generator, c.num_layers, d, c.ffn_size)
     encoder = {"feature_extractor": fe, "feat_proj_ln": _ln(c.conv_dim[-1]),
                "feat_proj": init_linear(generator, c.conv_dim[-1], d),
                "pos_conv": pos_conv, "encoder_ln": _ln(d), "layers": layers}
     return {"encoder": encoder}
+
+
+def _conv_normal(gen, shape):
+    """The ResNet conv init (``resnet.py:33-38``): normal(0, sqrt(2/n)),
+    n = prod(kernel) · out, in the JAX layout (*kernel, in, out)."""
+    n = int(np.prod(shape[:-2])) * shape[-1]
+    return (torch.randn(shape, generator=gen, dtype=torch.float32)
+            * math.sqrt(2.0 / n)).numpy()
+
+
+def _bn(n):
+    return _ln(n), {"mean": np.zeros(n, np.float32),
+                    "var": np.ones(n, np.float32)}
+
+
+def _prelu(n):
+    return {"alpha": np.full(n, 0.25, np.float32)}
+
+
+def init_resnet(gen, relu_type="prelu"):
+    """Seeded ``ResEncoder`` (params, state) trees at the JAX shapes:
+    normal(0, sqrt(2/n)) convs, unit BatchNorms with zero means and unit
+    variances, PReLU slopes of 0.25 per channel."""
+    params = {"frontend_conv": {"w": _conv_normal(gen, (5, 7, 7, 1, 64))}}
+    params["frontend_bn"], fbn = _bn(64)
+    if relu_type == "prelu":
+        params["frontend_act"] = _prelu(64)
+    trunk_p, trunk_s, inplanes = {}, {}, 64
+    for stage, planes in enumerate((64, 128, 256, 512)):
+        for b in range(2):
+            p, st = {}, {}
+            cin = inplanes if b == 0 else planes
+            p["conv1"] = {"w": _conv_normal(gen, (3, 3, cin, planes))}
+            p["bn1"], st["bn1"] = _bn(planes)
+            p["conv2"] = {"w": _conv_normal(gen, (3, 3, planes, planes))}
+            p["bn2"], st["bn2"] = _bn(planes)
+            if relu_type == "prelu":
+                p["relu1"], p["relu2"] = _prelu(planes), _prelu(planes)
+            if b == 0 and (stage > 0 or inplanes != planes):
+                p["down_conv"] = {"w": _conv_normal(gen, (1, 1, cin, planes))}
+                p["down_bn"], st["down_bn"] = _bn(planes)
+            trunk_p[f"layer{stage + 1}_{b}"] = p
+            trunk_s[f"layer{stage + 1}_{b}"] = st
+        inplanes = planes
+    params["trunk"] = trunk_p
+    return params, {"frontend_bn": fbn, "trunk": trunk_s}
+
+
+def init_avhubert(config, gen):
+    """Seeded ``AVHubertModel`` (params, state) trees at the JAX shapes of
+    ``init``/``init_state``: ``init_resnet``, ``init_linear`` projections,
+    the wav2vec2 encoder's initialisation (``init_wav2vec2``), unit
+    LayerNorms and a uniform ``mask_emb``."""
+    c = config
+    d = c.encoder_embed_dim
+    embed = 2 * d if c.modality_fuse == "concat" else d
+    resnet_p, resnet_s = init_resnet(gen, c.relu_type)
+    params = {
+        "feature_extractor_audio": {
+            "proj": init_linear(gen, c.audio_feat_dim, d)},
+        "feature_extractor_video": {
+            "resnet": resnet_p, "proj": init_linear(gen, c.video_feat_dim, d)},
+        "layer_norm": _ln(embed),
+        "pos_conv": _init_pos_conv(gen, d, c.conv_pos, c.conv_pos_groups),
+        "encoder_ln": _ln(d),
+        "layers": _init_layers(gen, c.encoder_layers, d,
+                               c.encoder_ffn_embed_dim),
+        "mask_emb": torch.rand(c.audio_feat_dim, generator=gen).numpy()}
+    if embed != d:
+        params["post_extract_proj"] = init_linear(gen, embed, d)
+    return params, {"feature_extractor_video": {"resnet": resnet_s}}
 
 
 def init_mha(gen, d_model, kdim=None, vdim=None):
@@ -238,11 +370,17 @@ def init_params(config, generator, head_outputs=20):
 
 def seeded_tree(module, generator):
     """The seeded JAX-shaped tree of one module (``init_wav2vec2`` for a
-    ``HuggingFaceWav2Vec2``, ``init_linear`` for a ``Linear``,
+    ``HuggingFaceWav2Vec2``, ``init_avhubert``'s parameters for a
+    ``FairseqAVHubert`` or ``AVHubertModel``, ``init_linear`` for a
+    ``Linear``,
     ``init_fusion`` for a ``FusionRCA``), or None if it holds no
     parameters."""
     if isinstance(module, HuggingFaceWav2Vec2):
         return init_wav2vec2(module.config, generator)
+    if isinstance(module, FairseqAVHubert):
+        return {"model": init_avhubert(module.config, generator)[0]}
+    if isinstance(module, AVHubertModel):
+        return init_avhubert(module.config, generator)[0]
     if isinstance(module, FusionRCA):
         ffn = module.fusion.layer1.pos_ffn
         return init_fusion(generator, ffn.input_size, ffn.d_ffn)
@@ -292,11 +430,19 @@ def _unconvert(name, tensor):
     return path, t.contiguous().numpy()
 
 
-def module_tree(module):
+def module_tree(module, running_stats=False):
     """A module's parameters as its JAX-shaped tree of numpy arrays: the
-    inverse of ``load_module_tree``."""
+    inverse of ``load_module_tree``. With ``running_stats`` the tree of its
+    BatchNorm running statistics instead (the JAX state tree)."""
     tree = {}
     for name, tensor in module.state_dict().items():
+        if _running_stat(module, name) != running_stats:
+            continue
+        owner, leaf = _owner(module, name)
+        if isinstance(owner, _ConvNd):
+            tensor = (torch_to_jax_conv_weight(tensor) if leaf == "weight"
+                      else tensor)
+            name = name[:-len(leaf)] + {"weight": "w", "bias": "b"}[leaf]
         path, value = _unconvert(name, tensor)
         node = tree
         *parents, leaf = path.split("/")

@@ -21,8 +21,9 @@ Inference only: do not train on the result.
 
 ``quantize_fusion`` does the same for the RCA fusion network's FFNs (and,
 with ``quantize_attn``, its shared attention's projections).
-``quantize_avhubert`` of the JAX module waits for its model (AV-HuBERT is
-not ported yet).
+``quantize_avhubert`` does it for AV-HuBERT: the encoder layers' FFNs (and
+attention projections) and ``post_extract_proj``; its ResNet frontend and
+the two streams' projections stay float.
 
 Example
 -------
@@ -114,4 +115,36 @@ def quantize_fusion(fusion, quantize_attn=False):
             _quantize_(layer.pos_ffn.ffn2, ("w",))
             if quantize_attn:
                 _quantize_(layer.self_att, _MHA_WEIGHTS)
+    return out
+
+
+def quantize_avhubert(model, quantize_attn=False):
+    """A copy of a ``FairseqAVHubert`` or ``AVHubertModel``
+    (``models/avhubert.py``) with int8 ``ffn1``/``ffn2`` in every encoder
+    layer, an int8 ``post_extract_proj`` when the model has one, and with
+    ``quantize_attn`` int8 attention projections (``quantize.py:100``). The
+    ResNet frontend, the audio and video projections, the positional conv
+    and the norms stay float. On the card each quantized product is one
+    launch of kernel 5: 2 a layer and 1 more, 49 an utterance for
+    AV-HuBERT large, 145 with ``quantize_attn``.
+
+    Example
+    -------
+    >>> from svt_speechbrain_tpu_torch.models.avhubert import (
+    ...     AVHubertConfig, FairseqAVHubert)
+    >>> q = quantize_avhubert(FairseqAVHubert(AVHubertConfig(
+    ...     encoder_layers=1, encoder_embed_dim=16, encoder_ffn_embed_dim=32,
+    ...     encoder_attention_heads=4, conv_pos=8, conv_pos_groups=2)))
+    >>> q.model.post_extract_proj.w_q8.dtype, hasattr(q.model.layers[0].ffn1, "w")
+    (torch.int8, False)
+    """
+    out = copy.deepcopy(model).requires_grad_(False)
+    inner = getattr(out, "model", out)
+    for layer in inner.layers:
+        _quantize_(layer.ffn1, ("w",))
+        _quantize_(layer.ffn2, ("w",))
+        if quantize_attn:
+            _quantize_(layer.attn, _MHA_WEIGHTS)
+    if inner.post_extract_proj is not None:
+        _quantize_(inner.post_extract_proj, ("w",))
     return out

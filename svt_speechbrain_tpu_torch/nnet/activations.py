@@ -45,3 +45,28 @@ class Softmax(nn.Module):
         if self.apply_log:
             return F.log_softmax(x, dim=self.dim)
         return F.softmax(x, dim=self.dim)
+
+
+class PReLU(nn.Module):
+    """Parametric ReLU (``activations.py:99``): ``alpha`` (num_parameters,),
+    one slope for all channels or one per channel, broadcast on the channel
+    axis, the last of a channel-last tensor.
+
+    Example
+    -------
+    >>> import torch
+    >>> act = PReLU(2)
+    >>> with torch.no_grad():
+    ...     _ = act.alpha.copy_(torch.tensor([0.5, 0.25]))
+    >>> act(torch.tensor([[-2.0, -2.0], [1.0, 3.0]])).tolist()
+    [[-1.0, -0.5], [1.0, 3.0]]
+    """
+
+    def __init__(self, num_parameters=1, init=0.25):
+        super().__init__()
+        self.num_parameters = num_parameters
+        self.alpha = nn.Parameter(torch.full((num_parameters,), float(init)))
+
+    def forward(self, x):
+        alpha = self.alpha[0] if self.num_parameters == 1 else self.alpha
+        return torch.where(x >= 0, x, alpha * x)

@@ -1,4 +1,4 @@
-"""Layer normalization family (port of
+"""Layer and batch normalization (port of
 ``svt_speechbrain_tpu/nnet/normalization.py``). Channel-last; statistics are
 taken in f32 for low-precision inputs and the result is cast back."""
 from __future__ import annotations
@@ -98,3 +98,76 @@ def per_item_masked_layer_norm(x, valid, eps=1e-5):
     m = m.expand(x32.shape)
     mean, var = _masked_stats(x32, m, tuple(range(1, x32.dim())))
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+class _BatchNorm(nn.Module):
+    """Batch norm over channel-last input (``normalization.py:159``):
+    (batch, ..., channels), statistics over every axis but the last.
+
+    ``scale``/``bias`` are parameters; the running ``mean``/``var`` are f32
+    buffers, so checkpoints carry them and a cast of the parameters (bf16
+    compute) leaves them f32. In training the batch is normalized with the
+    JAX formula, not cuDNN's: mean and mean of squares over the batch, the
+    biased ``var = E[x²] - E[x]²``; the running estimate takes the unbiased
+    ``var · n/(n-1)`` by ``(1-m)·old + m·new`` (m = ``momentum``), outside
+    autograd. Padded frames count in the statistics, as in the JAX package.
+    In eval the buffers normalize. Cross-replica statistics (``axis_name``,
+    SyncBN) are not ported (ROADMAP.md queue 1 item 16) and raise.
+
+    Example
+    -------
+    >>> import torch
+    >>> bn = BatchNorm1d(input_size=3)
+    >>> x = torch.arange(24, dtype=torch.float32).reshape(2, 4, 3)
+    >>> y = bn(x, train=True)
+    >>> y.shape, [round(float(m), 2) for m in bn.mean]
+    (torch.Size([2, 4, 3]), [1.05, 1.15, 1.25])
+    """
+
+    def __init__(self, input_size, eps=1e-05, momentum=0.1, affine=True):
+        super().__init__()
+        self.input_size = input_size
+        self.eps = eps
+        self.momentum = momentum
+        self.affine = affine
+        if affine:
+            self.scale = nn.Parameter(torch.ones(input_size))
+            self.bias = nn.Parameter(torch.zeros(input_size))
+        self.register_buffer("mean", torch.zeros(input_size))
+        self.register_buffer("var", torch.ones(input_size))
+
+    def forward(self, x, train=False, axis_name=None):
+        if axis_name is not None:
+            raise NotImplementedError(
+                "cross-replica batch statistics (SyncBN) are not ported yet "
+                "(ROADMAP.md queue 1 item 16)")
+        x32 = x.float()
+        if train:
+            dims = tuple(range(x.dim() - 1))
+            mean = x32.mean(dim=dims)
+            var = x32.square().mean(dim=dims) - mean.square()
+            n = x32.numel() // x32.shape[-1]
+            m = self.momentum
+            with torch.no_grad():
+                self.mean.copy_((1 - m) * self.mean + m * mean)
+                self.var.copy_((1 - m) * self.var
+                               + m * (var * (n / max(n - 1, 1))))
+        else:
+            mean, var = self.mean, self.var
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        if self.affine:
+            y = y * self.scale + self.bias
+        return y.to(x.dtype)
+
+
+class BatchNorm1d(_BatchNorm):
+    """Batch norm over (batch, time, channels) (``normalization.py:213``)."""
+
+
+class BatchNorm2d(_BatchNorm):
+    """Batch norm over (batch, H, W, channels) (``normalization.py:231``)."""
+
+
+class BatchNorm3d(_BatchNorm):
+    """Batch norm over (batch, T, H, W, channels): the Conv3d visual
+    frontend's (``normalization.py:235``)."""

@@ -1,5 +1,5 @@
 """AMT (singing-voice note transcription) brains (port of
-``svt_speechbrain_tpu/tasks/amt.py:39-339`` and ``:396-455``).
+``svt_speechbrain_tpu/tasks/amt.py``).
 
 ``AMTBrainBase`` holds what the AMT recipes share: the 4-term frame loss,
 song-stitched evaluation (batch 1, utterances of a song in order) decoded
@@ -12,8 +12,11 @@ the first ``linear_prob_epochs`` epochs freeze ``wav2vec2`` (linear
 probing). Training runs wav2vec2 in train mode (dropout on, batch-wide
 norms, padding attended); evaluation runs it on the exact lengths
 (``wav_lens``: per-row norms over the real samples, padded frames masked).
-``FusionAMT`` trains the RCA fusion network plus the frame head over
-pre-extracted audio and video features (stage 2 of N20EMv2).
+``VideoAMT`` trains AV-HuBERT's visual path (``FairseqAVHubert`` over lip
+ROIs) plus the frame head, with the BatchNorm running statistics in the
+encoder's buffers. ``FusionAMT`` trains the RCA fusion network plus the
+frame head over pre-extracted audio and video features (stage 2 of
+N20EMv2).
 
 Parameter exports are ``.pt`` state dicts (``save_state_dict``,
 ``load_state_dict``; the JAX package writes msgpack), named
@@ -361,6 +364,78 @@ class AudioAMT(AMTBrainBase):
             path = os.path.join(folder, "clean_feats.npy")
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.save(path, feats)
+
+
+class VideoAMT(AMTBrainBase):
+    """AV-HuBERT visual encoder + linear head video AMT (``amt.py:341``).
+
+    ``modules`` are ``encoder`` (``FairseqAVHubert``, video only: the audio
+    stream is zero-filled) and ``head`` (``Linear``); batches hold ``sig``,
+    the lip ROIs (B, T, H, W, 1) at 50 frames a second, one frame per
+    annotation frame. Adam trains the encoder at ``lr_encoder``, Adadelta
+    (rho 0.95, eps 1e-8) the head at ``lr``, each annealed by its NewBob
+    scheduler (``lr_annealing_encoder``, ``lr_annealing_head``). The first
+    ``linear_prob_epochs`` epochs freeze the encoder's parameters only: a
+    training step still runs it in train mode, as the JAX engine's loss
+    does (``core.py:604-612``), so its BatchNorm statistics update and its
+    dropouts stay on. Evaluation reads the running statistics.
+    ``return_feats`` adds the encoder's features to the predictions, and
+    each song's go to ``noise_data/video_feats.npy`` beside its video.
+    """
+
+    annealing = (("lr_annealing_encoder", "encoder", "lr_encoder"),
+                 ("lr_annealing_head", "head", "lr_head"))
+
+    def compute_forward(self, batch, stage, rng=None):
+        video, video_lens = batch["sig"]
+        feats = self.modules.encoder({"video": video, "audio": None},
+                                     train=stage == Stage.TRAIN, rng=rng)
+        logits = self.modules.head(feats)
+        n_oct = self.hparams.pitch_octave_num
+        out = (logits[:, :, 0], logits[:, :, 1],
+               logits[:, :, 2:3 + n_oct], logits[:, :, 3 + n_oct:],
+               video_lens)
+        return out + (feats,) if self.return_feats else out
+
+    def configure_freezing(self, epoch):
+        if epoch is not None and epoch <= getattr(self.hparams,
+                                                  "linear_prob_epochs", 0):
+            logger.info("Stage for linear probing")
+            self.set_frozen_modules(["encoder"])
+        else:
+            logger.info("Stage for full finetuning")
+            self.set_frozen_modules([])
+
+    def init_optimizers(self):
+        self.add_optimizer("encoder", torch.optim.Adam, ["encoder"],
+                           lr=self.hparams.lr_encoder)
+        self.add_optimizer(
+            "head", functools.partial(torch.optim.Adadelta, rho=0.95,
+                                      eps=1e-8),
+            ["head"], lr=self.hparams.lr)
+
+    def on_fit_start(self):
+        """A converted fairseq checkpoint found at the encoder's source
+        (parameters and BatchNorm statistics), then the optimizers and the
+        newest checkpoint, which takes precedence (the JAX brain loads the
+        pretrained weights after recovery, ``amt.py:375-382``)."""
+        pretrained = self.modules.encoder.load_pretrained()
+        if pretrained is not None:
+            logger.info("Loaded converted AV-HuBERT weights")
+            self.modules.encoder.load_state_dict(pretrained)
+        super().on_fit_start()
+
+    def on_song_end(self, batch, est_np):
+        """Feature dump at a song's end (``amt.py:384-395``)."""
+        if not self.return_feats or not self.song_feats:
+            return
+        video_path = batch.video[0] if hasattr(batch, "video") else None
+        if video_path is None:
+            return
+        path = os.path.join(os.path.dirname(video_path), "noise_data",
+                            "video_feats.npy")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(path, np.concatenate(self.song_feats, axis=0))
 
 
 class FusionAMT(AMTBrainBase):

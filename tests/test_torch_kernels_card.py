@@ -785,3 +785,81 @@ def test_rnnt_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         tl.transducer_loss_fused(torch.zeros(1, 2, 2, 3, device=cuda_device),
                                  torch.ones(1, 1), [1.0], [1.0], 0,
                                  lattice="cudnn")
+
+
+# --------------------------------------------------------- the video path
+# AV-HuBERT's evaluation at batch 1: utterances of at most 7.5 s of 50 fps
+# video padded to a multiple of 50 frames, every frame attended
+# (``lengths=None``), 16 heads of 64
+VIDEO_FRAMES = range(50, 401, 50)
+
+
+@pytest.mark.parametrize("t", VIDEO_FRAMES)
+def test_short_attention_without_lengths_at_the_video_shapes(cuda_device, t):
+    gen = torch.Generator(device=cuda_device).manual_seed(t)
+    q, k, v = (torch.randn(1, 16, t, 64, generator=gen, device=cuda_device)
+               for _ in range(3))
+    before = fa.flash_attention_short.launches
+    got = fa.flash_attention_short(q, k, v, None)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_short.launches == before + 1
+    want = fa.attention_reference(q, k, v, None)
+    assert (got - want).abs().max().item() <= 1e-4
+    full = torch.full((1,), t, device=cuda_device)
+    assert torch.equal(got, fa.flash_attention_short(q, k, v, full))
+
+
+# (M, K, N) of int8 AV-HuBERT serving at batch 1 (``quantize_avhubert``):
+# post_extract_proj (T, 2048, 1024), ffn1, ffn2 and, with quantize_attn,
+# the attention projections, for each padded frame count T
+AVHUBERT_INT8_SHAPES = sorted({s for t in VIDEO_FRAMES
+                               for s in chip_smoke.avhubert_int8_shapes(t)})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", AVHUBERT_INT8_SHAPES)
+def test_int8_matmul_kernel_matches_plain_at_the_avhubert_shapes(
+        cuda_device, dtype, m, k, n):
+    x, w8, ws = int8_case(m, k, n, dtype, cuda_device, seed=11)
+    before = quant.int8_matmul.launches
+    assert_int8_kernel_matches_plain(x, w8, ws)
+    assert quant.int8_matmul.launches == before + 1
+
+
+@pytest.mark.parametrize("quantize_attn,per_layer", [(False, 2), (True, 6)])
+def test_tiny_int8_avhubert_card_matches_cpu(cuda_device, quantize_attn,
+                                             per_layer):
+    """A 2-layer AV-HuBERT of width 128 (the int8 kernel takes K and N in
+    multiples of 128) on the full ResNet frontend,
+    quantized by ``quantize_avhubert``, f32, one utterance of 50 frames of
+    88×88 video: kernel 5 launched 2 a layer (6 with ``quantize_attn``) and
+    once for ``post_extract_proj``, short attention once a layer, the
+    features against the CPU's plain path. cuDNN's convolutions and the
+    CPU's differ by f32 summation order, so some of the 64,000 activations
+    the int8 products round (50 frames x 5 products x K up to 256) fall to
+    the other integer, each moving its frame by up to a quantization step
+    (6 frames above 1e-3, at most 2.9e-3, on an H100 without
+    ``quantize_attn``): a fifth of the frames may stray that far."""
+    from svt_speechbrain_tpu_torch.convert_jax import init_modules
+    from svt_speechbrain_tpu_torch.models.avhubert import FairseqAVHubert
+    from svt_speechbrain_tpu_torch.models.quantize import quantize_avhubert
+
+    enc = FairseqAVHubert(arch_overrides=dict(
+        encoder_layers=2, encoder_embed_dim=128, encoder_ffn_embed_dim=256,
+        encoder_attention_heads=2, conv_pos=16, conv_pos_groups=4))
+    init_modules({"encoder": enc}, 0)
+    q = quantize_avhubert(enc, quantize_attn=quantize_attn).eval()
+    video = torch.randn(1, 50, 88, 88, 1,
+                        generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = q({"video": video})
+        q.cuda()
+        before = ops.launch_counts()
+        got = q({"video": video.cuda()}).cpu()
+    after = ops.launch_counts()
+    assert after["int8_matmul"] - before["int8_matmul"] == 2 * per_layer + 1
+    assert (after["flash_attention_short"]
+            - before["flash_attention_short"]) == 2
+    err = (got - want).abs().amax(-1)[0]
+    assert (err > 1e-3).sum() <= 10, err.max()
+    assert err.max() <= 5e-2
