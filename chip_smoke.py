@@ -34,10 +34,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 6. train ``AudioAMT`` on lv60 at full width and depth with the recipe's
    hyperparameters (f32, all dropouts 0.1), batch 8 of 30 s rows: one
    linear-probe step, a warm-up and 3 timed full-finetune steps, counting
-   kernel launches per step, and one step at ``precision="bf16"``; then the
-   recipe's own 5 s rows (batch 8, 2 steps), which reach no kernel;
+   kernel launches per step, and one step at ``precision="bf16"``; a
+   warm-up and 3 timed steps at ``grad_accumulation_factor`` 2 (two
+   micro-batches of 4: 48 launches of 3b, 4a and 4b a step), with their
+   peak memory beside the unaccumulated step's; then the recipe's own 5 s
+   rows (batch 8, 2 steps), which reach no kernel;
 7. one f32 training step of a 2-layer lv60-width model (batch 2, 30 s,
-   attention dropout 0.1) on the card against the same step on the CPU;
+   attention dropout 0.1) on the card against the same step on the CPU,
+   then the same at ``grad_accumulation_factor`` 2 (micro-batches of 1);
 8. int8 (a8w8) serving of lv60 at full width and depth through
    ``SingingTranscriber(quantize="int8")``, bf16, 5 s chunks, batch 8, on
    the songs of phase 3, in turns with the float interface (float, int8,
@@ -70,7 +74,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 13. the MIR-ST500 recipe (``svt_speechbrain_tpu_torch/recipes/MIR_ST500``)
    on a synthetic set written by its ``prepare_benchmarks`` into a
    temporary folder (6 train songs of 14-23 s, 23 utterances; 2 valid and
-   2 test songs), its objects built as its yaml builds them: lv60 at full
+   2 test songs), its objects read from its yaml by the port's own reader
+   (``recipe_yaml``; the card machine needs no PyYAML): lv60 at full
    width and depth, f32, batch 8, eval batch 1, 3 epochs (linear probe,
    two finetune epochs), then ``evaluate`` from the checkpoint of least
    valid loss;
@@ -139,9 +144,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    then with ``quantize_attn``), asserting that kernel 5 launched at
    exactly the shapes held, 4 and 12 times an utterance, and reporting
    how far its frame decisions and notes keep to the float ones; one f32
-   batch of 2 utterances card vs CPU (loss and logits).
+   batch of 2 utterances card vs CPU (loss and logits);
+19. deployment as a user runs it: the inference yaml of
+   ``tests/fixtures/singing_transcriber_hyperparams.yaml`` beside phase
+   15's exported ``wav2vec2.pt`` and a seeded head (``model.pt``, the onset
+   bias raised so that notes are decoded), read by
+   ``SingingTranscriber.from_hparams`` with the port's own YAML reader
+   (PyYAML and msgpack blocked) in bf16 and in int8, batch 8, 5 s chunks;
+   ``transcribe_file`` on phase 15's valid and test WAVs (7 frontend and 24
+   short-attention launches a batch, 49 int8 launches a batch in int8)
+   and one at ``chunking="song"`` (the streaming attention), every file's
+   frame probabilities (bit for bit) and notes equal to an interface's
+   over the same in-memory modules at the same batch width; prints
+   ``from_hparams`` seconds, ms a file and RTFx; then
+   ``tests/fixtures/jax_export_small.msgpack`` read by the port's own
+   msgpack decoder, bit for bit against its ``.npz``.
 
-Phases run in the order 1-5, 8, 9, 6, 7, 10-15, 17, 18, 16.
+Phases run in the order 1-5, 8, 9, 6, 7, 10-15, 19, 17, 18, 16.
 
 Phases 2 and 5 also hold and time the two RNN-T kernels (the lattice on
 alpha and on beta panels, the gradient) against their plain versions at the
@@ -181,13 +200,15 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from svt_speechbrain_tpu_torch import ops  # noqa: E402
+from svt_speechbrain_tpu_torch.config import load_hyperyaml  # noqa: E402
 from svt_speechbrain_tpu_torch.core import Brain, Stage  # noqa: E402
 from svt_speechbrain_tpu_torch.dataio.batch import PaddedData  # noqa: E402
 from svt_speechbrain_tpu_torch.flagship import (HEAD_OUTPUTS,  # noqa: E402
                                                 build_modules)
 from svt_speechbrain_tpu_torch.convert_jax import (  # noqa: E402
     _flatten, init_embedding, init_linear, init_modules, init_params,
-    init_rnn, init_wav2vec2, load_jax_params, load_module_tree, module_tree)
+    init_rnn, init_wav2vec2, load_jax_params, load_module_tree, load_msgpack,
+    module_tree)
 from svt_speechbrain_tpu_torch.decoders import (  # noqa: E402
     TransducerBeamSearcher)
 from svt_speechbrain_tpu_torch.models.wav2vec2 import (  # noqa: E402
@@ -204,7 +225,6 @@ from svt_speechbrain_tpu_torch.nnet.transducer_joint import (  # noqa: E402
 from svt_speechbrain_tpu_torch.tasks.amt import AudioAMT  # noqa: E402
 from svt_speechbrain_tpu_torch.inference import (  # noqa: E402
     BatchedAMTTranscriber)
-from svt_speechbrain_tpu_torch.models.fusion import FusionRCA  # noqa: E402
 from svt_speechbrain_tpu_torch.models.avhubert import (  # noqa: E402
     FairseqAVHubert)
 from svt_speechbrain_tpu_torch.models.quantize import (  # noqa: E402
@@ -218,8 +238,6 @@ from svt_speechbrain_tpu_torch.pretrained.interfaces import (  # noqa: E402
     SingingTranscriber)
 from svt_speechbrain_tpu_torch.dataio.dataio import (  # noqa: E402
     merge_csvs, read_audio, write_audio)
-from svt_speechbrain_tpu_torch.nnet.schedulers import (  # noqa: E402
-    NewBobScheduler)
 from svt_speechbrain_tpu_torch.recipes.MIR_ST500 import (  # noqa: E402
     prepare_benchmarks, train_audio_ssl as mir_recipe)
 from svt_speechbrain_tpu_torch.recipes.N20EMv2.audio_only import (  # noqa: E402
@@ -231,14 +249,6 @@ from svt_speechbrain_tpu_torch.recipes.N20EMv2.video_only import (  # noqa: E402
     extract_ssl_feats as video_extract, prepare_n20emv2 as video_prep,
     train_video_ssl as video_recipe)
 from svt_speechbrain_tpu_torch.utils.amt import onset_peaks  # noqa: E402
-from svt_speechbrain_tpu_torch.utils.checkpoints import (  # noqa: E402
-    Checkpointer)
-from svt_speechbrain_tpu_torch.utils.epoch_loop import (  # noqa: E402
-    EpochCounter)
-from svt_speechbrain_tpu_torch.utils.metric_stats import (  # noqa: E402
-    MetricStats)
-from svt_speechbrain_tpu_torch.utils.train_logger import (  # noqa: E402
-    FileTrainLogger)
 
 SEED = 0
 SR = 16000
@@ -1373,6 +1383,25 @@ def training_phase(rng):
     expect_counts(counts, per_layer, "bf16 step")
     brain.precision = "fp32"
 
+    log(f"  accumulated steps: grad_accumulation_factor 2, the same batch "
+        f"as two micro-batches of {TRAIN_BATCH // 2}, f32, full finetune: "
+        f"a warm-up and 3 timed")
+    brain.grad_accumulation_factor = 2
+    train_steps(brain, batch, 1)                # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    accumulated = train_steps(brain, batch, 3)
+    for i, (loss, gnorm, wall, counts) in enumerate(accumulated):
+        log(f"  accumulated step {i + 1}: loss={loss:.6f} gnorm={gnorm:.6f} "
+            f"{wall * 1e3:.1f} ms launches={counts}")
+        expect_counts(counts, {name: 2 * n_layers for name in TRAIN_KERNELS},
+                      "accumulated step")
+    accum_s = float(np.median([w for _, _, w, _ in accumulated]))
+    accum_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  median accumulated step {accum_s * 1e3:.1f} ms, peak memory "
+        f"{accum_peak_gb:.2f} GiB (the unaccumulated step: "
+        f"{step_s * 1e3:.1f} ms, {peak_gb:.2f} GiB)")
+    brain.grad_accumulation_factor = 1
+
     log(f"  the recipe's own 5 s rows: batch {TRAIN_BATCH}, f32, full "
         f"finetune, 2 steps")
     short = train_batch(rng, TRAIN_BATCH, 5.0)
@@ -1384,7 +1413,9 @@ def training_phase(rng):
     del brain
     torch.cuda.empty_cache()
     return steps[-1][3], dict(step_ms=step_s * 1e3, audio_rate=audio_rate,
-                              peak_gb=peak_gb, idle=idle)
+                              peak_gb=peak_gb, idle=idle,
+                              accum2_step_ms=accum_s * 1e3,
+                              accum2_peak_gb=accum_peak_gb)
 
 
 def leaf_errors(got, want, parts):
@@ -1407,10 +1438,11 @@ def leaf_errors(got, want, parts):
     return errs, exempt
 
 
-def card_vs_cpu_step(rng):
+def card_vs_cpu_step(rng, accum=1):
     """Phase 7: one f32 full-finetune step of 2 lv60-width layers with the
     full frontend, batch 2 x 30 s, attention dropout 0.1 (the hash mask is
-    the same on both sides) and the other dropouts 0."""
+    the same on both sides) and the other dropouts 0; with ``accum`` 2, as
+    two micro-batches of 1."""
     arch = dict(num_layers=2, hidden_dropout=0.0, activation_dropout=0.0,
                 feat_proj_dropout=0.0, attention_dropout=TRAIN_RATE)
     tree = init_params(Wav2Vec2Config(**arch),
@@ -1419,6 +1451,7 @@ def card_vs_cpu_step(rng):
     result = {}
     for dev in ("cuda", "cpu"):
         brain = amt_brain(tree, arch, dev)
+        brain.grad_accumulation_factor = accum
         brain.on_stage_start(Stage.TRAIN, 3)
         params = dict(brain.modules.named_parameters())
         before = {n: p.detach().cpu().clone() for n, p in params.items()}
@@ -1435,7 +1468,7 @@ def card_vs_cpu_step(rng):
             f"{wall:.1f} s launches={result[dev]['counts']}")
         del brain, params
     expect_counts(result["cuda"]["counts"],
-                  {name: 2 for name in TRAIN_KERNELS}, "card step")
+                  {name: 2 * accum for name in TRAIN_KERNELS}, "card step")
 
     got, want = result["cuda"], result["cpu"]
     errs, exempt = leaf_errors(got, want, {"grad_rel": "grads",
@@ -2352,93 +2385,24 @@ def rnnt_card_vs_cpu_step(rng):
 
 
 # ------------------------------------------------------------ phases 13-14
+RECIPE_YAMLS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "svt_speechbrain_tpu_torch", "recipes")
+
+
+def recipe_yaml(rel, overrides):
+    """A port recipe's objects: its yaml (``rel`` under
+    ``svt_speechbrain_tpu_torch/recipes/``) read by ``load_hyperyaml``, the
+    port's own YAML reader (the card machine needs no PyYAML), with
+    ``overrides`` replacing top-level values before the references
+    resolve."""
+    with open(os.path.join(RECIPE_YAMLS, rel)) as f:
+        return load_hyperyaml(f, overrides)
+
+
 def recipe_hparams(**overrides):
-    """The MIR-ST500 recipe's hyperparameters: the values of
-    ``svt_speechbrain_tpu_torch/recipes/MIR_ST500/hparams/train_audio_ssl.yaml``
-    built in Python, since the card machine need not have PyYAML.
-    ``overrides`` replace top-level values before the references resolve,
-    as ``load_hyperyaml``'s do; ``tests/test_torch_engine.py`` holds the
-    result equal to ``load_hyperyaml``'s."""
-    hp = {}
-
-    def put(key, make):
-        hp[key] = overrides[key] if key in overrides else make()
-
-    def criterion(loss, reduction="mean"):
-        return functools.partial(loss, reduction=reduction,
-                                 allowed_len_diff=60, label_smoothing=0.0)
-
-    def loader_opts(batch_size):
-        return {"batch_size": hp[batch_size], "num_workers": hp["num_workers"],
-                "pad_multiples": hp["pad_multiples"]}
-
-    for key, value in (("seed", 1986), ("attempt", 1), ("dur_threshold", 5),
-                       ("ssl_model", "wav2vec2-large-lv60")):
-        put(key, lambda: value)
-    put("output_folder", lambda: (
-        f"results/{hp['ssl_model']}/train_audio_ssl_dur{hp['dur_threshold']}"
-        f"_attempt{hp['attempt']}/{hp['seed']}"))
-    put("save_folder", lambda: f"{hp['output_folder']}/save")
-    put("csv_folder", lambda: f"data/dur_{hp['dur_threshold']}s")
-    put("train_log", lambda: f"{hp['output_folder']}/train_log.txt")
-    put("wav2vec2_hub", lambda: f"facebook/{hp['ssl_model']}")
-    put("wav2vec2_local", lambda: f"ssl_model/{hp['ssl_model']}")
-    hp["data_folder"] = overrides["data_folder"]
-    put("ckpt_interval_minutes", lambda: 25)
-    put("train_csv", lambda: f"{hp['csv_folder']}/mir_st500_train.csv")
-    put("valid_csv", lambda: f"{hp['csv_folder']}/mir_st500_valid.csv")
-    put("test_csv", lambda: [f"{hp['csv_folder']}/{name}.csv" for name in
-                             ("mir_st500_test", "tonas", "ismir2014")])
-    for key, value in (
-            ("number_of_epochs", 10), ("lr", 0.0003), ("lr_wav2vec", 0.00005),
-            ("sorting", "ascending"), ("precision", "fp32"),
-            ("sample_rate", 16000), ("frame_rate", 49.8),
-            ("linear_prob_epochs", 2), ("pretrain", False),
-            ("pretrain_folder", "../pretrain_model"),
-            ("onset_threshold", 0.4), ("offset_threshold", 0.5),
-            ("onset_tolerance", 0.05), ("pitch_tolerance", 50),
-            ("batch_size", 8), ("test_batch_size", 1), ("num_workers", 8),
-            ("pad_multiples", {"sig": 16000, "anno": 50})):
-        put(key, lambda: copy.deepcopy(value))
-    put("train_dataloader_opts", lambda: loader_opts("batch_size"))
-    put("valid_dataloader_opts", lambda: loader_opts("test_batch_size"))
-    put("test_dataloader_opts", lambda: loader_opts("test_batch_size"))
-    for key, value in (("freeze_wav2vec", False), ("pitch_octave_num", 4),
-                       ("pitch_class_num", 12), ("feat_dim", 1024),
-                       ("output_neurons", 20)):
-        put(key, lambda: value)
-    put("epoch_counter", lambda: EpochCounter(limit=hp["number_of_epochs"]))
-    put("wav2vec2", lambda: HuggingFaceWav2Vec2(
-        source=hp["wav2vec2_hub"], output_norm=True,
-        freeze=hp["freeze_wav2vec"], save_path=hp["wav2vec2_local"]))
-    put("model", lambda: Linear(input_size=hp["feat_dim"],
-                                n_neurons=hp["output_neurons"]))
-    put("modules", lambda: {"wav2vec2": hp["wav2vec2"], "model": hp["model"]})
-    put("log_softmax", lambda: Softmax(apply_log=True))
-    put("onset_positive_weight", lambda: 15.0)
-    put("offset_positive_weight", lambda: 1.0)
-    put("onset_criterion", lambda: criterion(losses.bce_loss))
-    put("offset_criterion", lambda: criterion(losses.bce_loss))
-    put("octave_criterion", lambda: criterion(losses.nll_loss))
-    put("pitch_criterion", lambda: criterion(losses.nll_loss))
-    put("lr_annealing_model", lambda: NewBobScheduler(
-        initial_value=hp["lr"], improvement_threshold=0.0025,
-        annealing_factor=0.8, patient=0))
-    put("lr_annealing_wav2vec", lambda: NewBobScheduler(
-        initial_value=hp["lr_wav2vec"], improvement_threshold=0.0025,
-        annealing_factor=0.9, patient=0))
-    put("checkpointer", lambda: Checkpointer(
-        checkpoints_dir=hp["save_folder"], recoverables={
-            "scheduler_model": hp["lr_annealing_model"],
-            "scheduler_wav2vec": hp["lr_annealing_wav2vec"],
-            "counter": hp["epoch_counter"]}))
-    put("train_logger", lambda: FileTrainLogger(save_file=hp["train_log"],
-                                                precision=3))
-    put("onset_stats", lambda: functools.partial(
-        MetricStats, metric=criterion(losses.bce_loss, "batch")))
-    put("offset_stats", lambda: functools.partial(
-        MetricStats, metric=criterion(losses.bce_loss, "batch")))
-    return hp
+    """The MIR-ST500 recipe's objects (``MIR_ST500/hparams/
+    train_audio_ssl.yaml``)."""
+    return recipe_yaml("MIR_ST500/hparams/train_audio_ssl.yaml", overrides)
 
 
 def synthetic_song(rng, duration):
@@ -2874,153 +2838,24 @@ def recipe_card_vs_cpu(rng):
 
 # ------------------------------------------------------------ phases 15-16
 def n20em_hparams(extract=False, **overrides):
-    """The N20EMv2 audio recipe's hyperparameters without PyYAML: the values
-    of ``svt_speechbrain_tpu_torch/recipes/N20EMv2/audio_only/hparams/
-    train_audio_ssl.yaml`` (``extract_ssl_feats.yaml`` with ``extract``),
-    which are the MIR-ST500 recipe's (``recipe_hparams``) with the family's
-    own: its folders and CSVs, ``mix_train``, the noise switch, the
-    ``save_model`` export, COff and the ``max_COnPOff_f1`` policy.
-    ``tests/test_torch_recipe_n20emv2.py`` holds the result equal to
-    ``load_hyperyaml``'s."""
-    o = dict(overrides)
-    seed, attempt = o.get("seed", 1986), o.get("attempt", 1)
-    dur = o.get("dur_threshold", 5)
-    ssl = o.get("ssl_model", "wav2vec2-large-lv60")
-    name = "n20emv2_audio_extract" if extract else "n20emv2_audio"
-    o.setdefault("output_folder",
-                 f"results/{ssl}/{name}_dur{dur}_attempt{attempt}/{seed}")
-    csv = o.setdefault("csv_folder", f"data/dur_{dur}s")
-    o.setdefault("train_csv", f"{csv}/n20em_train.csv")
-    o.setdefault("valid_csv", f"{csv}/n20em_valid.csv")
-    o.setdefault("test_csv", [f"{csv}/n20em_test.csv"])
-    if extract:
-        o.setdefault("sorting", "random")
-    family = {"mix_train": not extract,
-              "mix_train_csv": f"{csv}/mix_train.csv", "noise_type": "babble",
-              "snr_db": -10, "add_noise": False, "save_model": extract,
-              "save_model_folder": "../save_model", "compute_coff": True,
-              "ckpt_policy": "max_COnPOff_f1"}
-    hp = recipe_hparams(**{k: v for k, v in o.items() if k not in family})
-    hp.update({k: o.get(k, v) for k, v in family.items()})
-    return hp
-
-
-# entries of the MIR-ST500 recipe's hyperparameters that the fusion
-# recipes do not have (the first five are objects ``recipe_hparams`` is
-# told not to build)
-MIR_ONLY = ("wav2vec2", "model", "modules", "checkpointer",
-            "lr_annealing_wav2vec", "attempt", "ssl_model", "wav2vec2_hub",
-            "wav2vec2_local", "lr_wav2vec", "sample_rate",
-            "linear_prob_epochs", "freeze_wav2vec")
+    """The N20EMv2 audio recipe's objects (``N20EMv2/audio_only/hparams/
+    train_audio_ssl.yaml``; ``extract_ssl_feats.yaml`` with ``extract``)."""
+    name = "extract_ssl_feats" if extract else "train_audio_ssl"
+    return recipe_yaml(f"N20EMv2/audio_only/hparams/{name}.yaml", overrides)
 
 
 def rca_hparams(system="av", **overrides):
-    """The RCA fusion recipes' hyperparameters without PyYAML: the values
-    of ``svt_speechbrain_tpu_torch/recipes/N20EMv2/audio_visual/hparams/
-    train_rca_av.yaml`` (``train_rca_a.yaml`` for ``system`` "a", which
-    differs in its output folder only), which are the MIR-ST500 recipe's
-    (``recipe_hparams``) less its wav2vec2 entries, with the family's own:
-    the noise switch, the two streams' rates, the fusion and head, COff and
-    the ``max_COnPOff_f1`` policy. ``overrides`` replace top-level values
-    before the references resolve; ``tests/test_torch_recipe_n20emv2.py``
-    holds the result equal to ``load_hyperyaml``'s."""
-    o = dict(overrides)
-    family = {"noise_type": "accomp", "snr_db": -10, "add_noise": False,
-              "audio_sample_rate": 49.8, "video_sample_rate": 50,
-              "compute_coff": True, "ckpt_policy": "max_COnPOff_f1"}
-    family.update({k: o[k] for k in family if k in o})
-    tag = "audio_visual_rca" if system == "av" else "audio_rca"
-    o.setdefault("output_folder", (
-        f"results/{tag}/{family['noise_type']}/noise_{family['add_noise']}_"
-        f"{family['noise_type']}_{family['snr_db']}db_lr"
-        f"{o.get('lr', 0.0003)}/{o.get('seed', 1986)}"))
-    csv = o.setdefault("csv_folder", f"data/dur_{o.get('dur_threshold', 5)}s")
-    o.setdefault("train_csv", f"{csv}/n20em_train.csv")
-    o.setdefault("valid_csv", f"{csv}/n20em_valid.csv")
-    o.setdefault("test_csv", [f"{csv}/n20em_test.csv"])
-    o.setdefault("pretrain", True)
-    o.setdefault("pretrain_folder", "../save_model")
-    o.setdefault("pad_multiples", {"sig1": 50, "sig2": 50, "anno": 50})
-    hp = recipe_hparams(**dict(o, **dict.fromkeys(MIR_ONLY[:5])))
-    for key in MIR_ONLY:
-        del hp[key]
-    hp.update(family)
-
-    def put(key, make):
-        hp[key] = o[key] if key in o else make()
-
-    put("head", lambda: Linear(input_size=hp["feat_dim"],
-                               n_neurons=hp["output_neurons"]))
-    put("fusion", lambda: FusionRCA(alpha=0.5, nhead=8, d_ffn=3072,
-                                    d_model=hp["feat_dim"]))
-    put("modules", lambda: {"head": hp["head"], "fusion": hp["fusion"]})
-    put("checkpointer", lambda: Checkpointer(
-        checkpoints_dir=hp["save_folder"], recoverables={
-            "scheduler_model": hp["lr_annealing_model"],
-            "counter": hp["epoch_counter"]}))
-    return hp
+    """The RCA fusion recipes' objects (``N20EMv2/audio_visual/hparams/
+    train_rca_av.yaml``; ``train_rca_a.yaml`` for ``system`` "a")."""
+    return recipe_yaml(f"N20EMv2/audio_visual/hparams/train_rca_{system}.yaml",
+                       overrides)
 
 
 def video_hparams(extract=False, **overrides):
-    """The N20EMv2 video recipe's hyperparameters without PyYAML: the values
-    of ``svt_speechbrain_tpu_torch/recipes/N20EMv2/video_only/hparams/
-    train_video_ssl.yaml`` (``extract_ssl_feats.yaml`` with ``extract``:
-    batch 8, the valid and train CSVs among the test sets, no
-    ``output_norm``), which share the MIR-ST500 recipe's criteria, loader
-    options and thresholds (``recipe_hparams``) and have their own folders,
-    rates, AV-HuBERT encoder, head, schedulers and checkpointer.
-    ``overrides`` replace top-level values before the references resolve;
-    ``tests/test_torch_recipe_n20emv2_video.py`` holds the result equal to
-    ``load_hyperyaml``'s."""
-    o = dict(overrides)
-    seed, attempt = o.get("seed", 1986), o.get("attempt", 1)
-    dur = o.get("dur_threshold", 5)
-    rate = o.get("frame_rate", 50)
+    """The N20EMv2 video recipe's objects (``N20EMv2/video_only/hparams/
+    train_video_ssl.yaml``; ``extract_ssl_feats.yaml`` with ``extract``)."""
     name = "extract_ssl_feats" if extract else "train_video_ssl"
-    o.setdefault("output_folder", f"results/AVHuBERT/{name}_dur{dur}_attempt"
-                                  f"{attempt}/{seed}")
-    csv = o.setdefault("csv_folder", f"data/frame_rate{rate}/dur_{dur}s")
-    o.setdefault("train_csv", f"{csv}/n20em_train.csv")
-    o.setdefault("valid_csv", f"{csv}/n20em_valid.csv")
-    o.setdefault("test_csv", [f"{csv}/n20em_{split}.csv" for split in
-                              (("test", "valid", "train") if extract
-                               else ("test",))])
-    o.setdefault("batch_size", 8 if extract else 4)
-    o.setdefault("pad_multiples", {"sig": 50, "anno": 50})
-    family = {"overlap": 0, "frame_rate": 50, "sample_rate": 50,
-              "lr_encoder": 0.00005, "split_noise": False,
-              "save_model": False, "save_model_folder": "../save_model",
-              "compute_coff": True, "ckpt_policy": "max_COnPOff_f1",
-              "freeze_encoder": False,
-              "avhubert_ckpt": "ssl_model/avhubert/large_vox_iter5.pt"}
-    family.update({k: o.pop(k) for k in list(family) if k in o})
-    hp = recipe_hparams(**dict(o, **dict.fromkeys(MIR_ONLY[:5])))
-    for key in MIR_ONLY + ("lr_annealing_model",):
-        if key not in ("attempt", "linear_prob_epochs", "sample_rate"):
-            del hp[key]
-    hp.update(family)
-
-    def put(key, make):
-        hp[key] = o[key] if key in o else make()
-
-    put("encoder", lambda: FairseqAVHubert(
-        source=hp["avhubert_ckpt"], freeze=hp["freeze_encoder"],
-        **({} if extract else {"output_norm": True})))
-    put("head", lambda: Linear(input_size=hp["feat_dim"],
-                               n_neurons=hp["output_neurons"]))
-    put("modules", lambda: {"encoder": hp["encoder"], "head": hp["head"]})
-    put("lr_annealing_head", lambda: NewBobScheduler(
-        initial_value=hp["lr"], improvement_threshold=0.0025,
-        annealing_factor=0.8, patient=0))
-    put("lr_annealing_encoder", lambda: NewBobScheduler(
-        initial_value=hp["lr_encoder"], improvement_threshold=0.0025,
-        annealing_factor=0.9, patient=0))
-    put("checkpointer", lambda: Checkpointer(
-        checkpoints_dir=hp["save_folder"], recoverables={
-            "scheduler_head": hp["lr_annealing_head"],
-            "scheduler_encoder": hp["lr_annealing_encoder"],
-            "counter": hp["epoch_counter"]}))
-    return hp
+    return recipe_yaml(f"N20EMv2/video_only/hparams/{name}.yaml", overrides)
 
 
 def make_n20em_set(root, rng):
@@ -3101,7 +2936,7 @@ def n20em_phase(root, rng):
     finetune epoch with ``mix_train``, ``evaluate`` of the test set from the
     checkpoint of greatest valid COnPOff F1 with the ``save_model`` export,
     then ``extract_ssl_feats`` over every split, clean and at accomp -10, 0
-    and +10 dB. Returns (launches, summary)."""
+    and +10 dB. Returns (launches, summary, the exported modules)."""
     t0 = time.perf_counter()
     csv_dir = make_n20em_set(root, rng)
     log(f"  set written, prepared and its accomp and white sweeps "
@@ -3203,7 +3038,189 @@ def n20em_phase(root, rng):
         f"{summary['finetune_step_ms']:.1f} ms; eval "
         f"{summary['eval_ms_per_utterance']:.1f} ms an utterance over "
         f"{len(evals)} utterances; peak {peak_gb:.2f} GiB")
-    return counts, summary
+    return counts, summary, {name: hp["modules"][name]
+                             for name in ("wav2vec2", "model")}
+
+
+INFERENCE_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "fixtures",
+                              "singing_transcriber_hyperparams.yaml")
+JAX_EXPORT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "fixtures", "jax_export_small")
+
+
+def transcribe_files(face, paths):
+    """Each file through ``face.transcribe_file``, the counts set to 0
+    just before and read just after each; returns ({name: notes},
+    [counts], [batches], wall s)."""
+    notes, counts, batches = {}, [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for path in paths:
+        ops.reset_launch_counts()
+        name = os.path.basename(os.path.dirname(path))
+        notes[name] = face.transcribe_file(path)
+        torch.cuda.synchronize()
+        counts.append(ops.launch_counts())
+        batches.append(len(face._get_transcriber()._jobs(
+            {name: read_audio(path)})))
+    return notes, counts, batches, time.perf_counter() - t0
+
+
+def deploy_export(root, bridge, wav):
+    """The folder that phase 19 deploys from: the inference yaml of
+    ``tests/fixtures/``, phase 15's exported ``wav2vec2.pt`` (a link) and a
+    ``model.pt`` of a seeded head whose onset bias is raised so that the
+    median onset logit over ``wav`` is 0. (Phase 15's trained head gives
+    the same onset logit on every frame of these random songs, so neither
+    it nor a head without the raised bias decodes a note; see
+    ``bias_the_onsets``.) Returns (folder, the in-memory modules: phase
+    15's bridge and that head)."""
+    folder = os.path.join(root, "deploy")
+    os.makedirs(folder)
+    shutil.copy(INFERENCE_YAML, os.path.join(folder, "hyperparams.yaml"))
+    os.symlink(os.path.join(root, "save_model", "wav2vec2.pt"),
+               os.path.join(folder, "wav2vec2.pt"))
+    width = bridge.config.hidden_size
+    head = Linear(HEAD_OUTPUTS, width)
+    load_module_tree(head, init_linear(
+        torch.Generator().manual_seed(SEED + 19), width, HEAD_OUTPUTS))
+    head = head.cuda()
+    with torch.no_grad():
+        onset = head(bridge.eval()(
+            torch.from_numpy(wav)[None].cuda(),
+            wav_lens=torch.ones(1, device="cuda")))[0, :, 0]
+        head.b[0] -= onset.median()
+    torch.save({k: v.cpu() for k, v in head.state_dict().items()},
+               os.path.join(folder, "model.pt"))
+    log(f"  seeded head, onset bias raised by {-onset.median().item():.4f} "
+        f"(the median onset logit over a {len(wav) / SR:.1f} s song, std "
+        f"{onset.std().item():.4f})")
+    return folder, {"wav2vec2": bridge, "model": head}
+
+
+class _Blocked:
+    """Within the block, an import of any of ``names`` raises ImportError
+    (as on a machine without them); the modules are restored after."""
+
+    def __init__(self, *names):
+        self.names = names
+
+    def __enter__(self):
+        self.saved = {n: sys.modules.get(n) for n in self.names}
+        for n in self.names:
+            sys.modules[n] = None
+
+    def __exit__(self, *exc):
+        for n, mod in self.saved.items():
+            if mod is None:
+                del sys.modules[n]
+            else:
+                sys.modules[n] = mod
+
+
+def deploy_phase(root, modules):
+    """Phase 19: deployment as a user runs it. An inference
+    ``hyperparams.yaml`` (``tests/fixtures/``) beside phase 15's export
+    (``deploy_export``); ``SingingTranscriber.from_hparams`` reads it with
+    the port's own YAML reader, PyYAML and msgpack blocked, in bf16 and in
+    int8; ``transcribe_file`` on phase 15's valid and test WAVs and one at
+    ``chunking="song"``, each file's frame probabilities (bit for bit) and
+    notes equal to those of an interface over the in-memory modules at the
+    same batch width; then a small JAX export read by the port's own
+    msgpack decoder, bit for bit against its ``.npz``. Returns a
+    summary."""
+    paths = sorted(os.path.join(root, "data", name, "vocals.wav")
+                   for name in os.listdir(os.path.join(root, "data"))
+                   if name.startswith(("n20em_valid", "n20em_test")))
+    wavs = {os.path.basename(os.path.dirname(p)): read_audio(p)
+            for p in paths}
+    audio_s = sum(len(w) for w in wavs.values()) / SR
+    folder, modules = deploy_export(root, modules["wav2vec2"],
+                                    wavs["n20em_valid0"])
+    n_layers = modules["wav2vec2"].config.num_layers
+    summary = {}
+    for mode in (None, "int8"):
+        tag = mode or "bf16"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _Blocked("yaml", "msgpack"):
+            face = SingingTranscriber.from_hparams(
+                folder, savedir=os.path.join(root, "pretrained"),
+                device="cuda", batch_size=8, chunk_seconds=5.0,
+                quantize=mode)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ref = SingingTranscriber(modules=dict(modules), hparams=HPARAMS,
+                                 device="cuda", batch_size=8,
+                                 chunk_seconds=5.0, quantize=mode)
+        transcribe_files(face, paths[:1])              # warm-up
+        transcribe_files(ref, paths[:1])
+        notes, counts, batches, wall = transcribe_files(face, paths)
+        want, _, _, _ = transcribe_files(ref, paths)
+        per_batch = ({"int8_matmul": 49} if mode else {}) | {
+            "conv_frontend": 7, "flash_attention_short": n_layers}
+        for path, c, nb in zip(paths, counts, batches):
+            expect_counts(c, {k: v * nb for k, v in per_batch.items()},
+                          f"phase 19 {tag} {path}")
+        frames = face._get_transcriber().predict_frames(wavs)
+        ref_frames = ref._get_transcriber().predict_frames(wavs)
+        if any(not np.array_equal(frames[k], ref_frames[k]) for k in wavs) \
+                or notes != want:
+            raise AssertionError(
+                f"phase 19 {tag}: from_hparams differs from the in-memory "
+                f"interface: frames equal "
+                f"{[np.array_equal(frames[k], ref_frames[k]) for k in wavs]}"
+                f", notes equal {[notes[k] == want[k] for k in want]}")
+        n_notes = {k: len(v) for k, v in notes.items()}
+        if not sum(n_notes.values()):
+            raise AssertionError(f"phase 19 {tag}: no note decoded")
+        summary[tag] = dict(from_hparams_s=load_s,
+                            ms_per_file=wall * 1e3 / len(paths),
+                            rtfx=audio_s / wall, notes=n_notes,
+                            batches=batches)
+        log(f"  {tag}: from_hparams {load_s:.2f} s (yaml, modules, "
+            f"collect, state dicts; PyYAML and msgpack blocked); "
+            f"{len(paths)} files, {audio_s:.1f} s of audio in "
+            f"{wall * 1e3:.1f} ms ({wall * 1e3 / len(paths):.1f} ms a file, "
+            f"RTFx {audio_s / wall:.1f}); notes {n_notes} and frame "
+            f"probabilities equal to the in-memory interface's; launches a "
+            f"file {counts}")
+        if mode is None:
+            song = paths[-1]
+            sface = SingingTranscriber(modules=vars(face.mods),
+                                       hparams=HPARAMS, device="cuda",
+                                       batch_size=1, chunking="song")
+            sref = SingingTranscriber(modules=dict(modules),
+                                      hparams=HPARAMS, device="cuda",
+                                      batch_size=1, chunking="song")
+            got, (c,), _, swall = transcribe_files(sface, [song])
+            want, _, _, _ = transcribe_files(sref, [song])
+            if c["flash_attention"] <= 0 or got != want:
+                raise AssertionError(f"phase 19 song mode: launches {c}, "
+                                     f"notes equal: {got == want}")
+            summary["song"] = dict(ms=swall * 1e3, counts=c,
+                                   notes=len(next(iter(got.values()))))
+            log(f"  song mode: {os.path.basename(os.path.dirname(song))} in "
+                f"{swall * 1e3:.1f} ms, {summary['song']['notes']} notes "
+                f"equal to the in-memory interface's, launches {c}")
+            del sface, sref
+        del face, ref
+        torch.cuda.empty_cache()
+    with _Blocked("yaml", "msgpack"):
+        tree = _flatten(load_msgpack(JAX_EXPORT + ".msgpack"))
+    with np.load(JAX_EXPORT + ".npz") as npz:
+        want = {k.replace(".", "/"): npz[k] for k in npz.files}
+    if sorted(tree) != sorted(want) or any(
+            np.asarray(v).dtype != want[k].dtype
+            or np.asarray(v).tobytes() != want[k].tobytes()
+            for k, v in tree.items()):
+        raise AssertionError("the JAX export read by the port's msgpack "
+                             "decoder differs from its .npz")
+    log(f"  JAX export {os.path.basename(JAX_EXPORT)}.msgpack, PyYAML and "
+        f"msgpack blocked: {len(tree)} leaves bit for bit with the .npz")
+    summary["jax_export_leaves"] = len(tree)
+    return summary
 
 
 class TimedVideo(Timed, video_recipe.AMT):
@@ -3990,6 +4007,8 @@ def main():
 
     log("phase 7: one f32 training step, 2 lv60-width layers, card vs CPU")
     card_vs_cpu_step(rng)
+    log("  the same step at grad_accumulation_factor 2 (micro-batches of 1)")
+    card_vs_cpu_step(rng, accum=2)
 
     log("phase 10: RNN-T training, lv60 full width and depth, 15 s rows, "
         "U = 80, V = 1000")
@@ -4019,8 +4038,16 @@ def main():
         log("phase 15: the N20EMv2 audio recipe, lv60 full width and depth: "
             "probe and finetune epochs with mix_train, evaluate, feature "
             "dumps clean and at accomp -10, 0, +10 dB")
-        n20em_counts, n20em_summary = n20em_phase(root, rng)
+        n20em_counts, n20em_summary, exported = n20em_phase(root, rng)
         log(f"  N20EMv2 summary: {json.dumps(n20em_summary)}")
+        log("phase 19: deployment: SingingTranscriber.from_hparams on an "
+            "inference yaml beside phase 15's export, bf16 and int8, "
+            "transcribe_file against the in-memory modules; a JAX export "
+            "through the port's msgpack decoder")
+        deploy_summary = deploy_phase(root, exported)
+        log(f"  deployment summary: {json.dumps(deploy_summary)}")
+        del exported
+        torch.cuda.empty_cache()
         log("phase 17: the N20EMv2 video recipe, AV-HuBERT large at full "
             "width and depth: probe and finetune epochs, evaluate, video "
             "feature dumps of every split")

@@ -23,8 +23,8 @@ The RCA fusion network (``models/fusion.py``) loads through
 ``load_module_tree`` as it is: its JAX tree (``fusion/layer{1,2}/
 {self_att/{wq..bo},pos_ffn/{ffn1,ffn2}/{w,b},norm1,norm2}``) has the
 port's parameter names. ``load_msgpack`` reads a tree that the JAX
-package's ``save_msgpack`` wrote (the ``msgpack`` package is imported
-when it is called).
+package's ``save_msgpack`` wrote, with a decoder of its own (no ``msgpack``
+package is needed).
 
 AV-HuBERT (``models/avhubert.py``) loads through ``load_module_tree`` with
 its JAX params tree and, as ``state``, its state tree: a ``w``/``b`` leaf of
@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import math
 import re
+import struct
 
 import numpy as np
 import torch
@@ -155,6 +156,75 @@ def load_module_tree(module, tree, state=None):
             module.get_submodule(owner).to_int8_(
                 leaf[:-len("_q8")], w_q8, state[name[:-len("q8")] + "scale"])
     module.load_state_dict(state, strict=True)
+
+
+def module_state(module, tree):
+    """``module``'s state-dict names → tensors of a JAX tree shaped like
+    its parameters (its params, or an optimizer's moments of them), in
+    the port's layouts; nothing is loaded."""
+    return _conv_leaves(module, dict(_convert(p, v)
+                                     for p, v in _flatten(tree).items()))
+
+
+def load_running_stats(module, state):
+    """Fill ``module``'s BatchNorm running statistics from its JAX state
+    tree (the JAX Brain's ``model_states`` entry for the module)."""
+    buffers = dict(module.named_buffers())
+    for name, value in module_state(module, state).items():
+        if not _running_stat(module, name):
+            raise ValueError(f"{name} is not a running statistic of "
+                             f"{type(module).__name__}")
+        with torch.no_grad():
+            buffers[name].copy_(value)
+
+
+# optax state (under inject_hyperparams) → torch.optim state: the optax
+# state that holds the moments, and torch's name for each of them
+_OPTAX_MOMENTS = {torch.optim.Adam: {"mu": "exp_avg", "nu": "exp_avg_sq"},
+                  torch.optim.Adadelta: {"e_g": "square_avg",
+                                         "e_x": "acc_delta"}}
+
+
+def load_optax_state(optimizer, tree, modules):
+    """Fill a ``torch.optim.Adam`` or ``Adadelta`` from the flax state dict
+    of the JAX Brain's optax state of the same optimizer (``optax.adam`` or
+    ``optax.adadelta`` under ``inject_hyperparams``): the moments of each
+    parameter (``mu``/``nu`` → ``exp_avg``/``exp_avg_sq``; ``e_g``/``e_x``
+    → ``square_avg``/``acc_delta``), the step count and the learning rate.
+    ``modules`` maps the tree's module names to the modules that own the
+    optimizer's parameters. Any other optimizer raises ``TypeError``."""
+    moments = _OPTAX_MOMENTS.get(type(optimizer))
+    if moments is None:
+        raise TypeError(f"a JAX optimizer state is read into torch.optim."
+                        f"Adam or Adadelta, not {type(optimizer).__name__}")
+    inner = tree.get("inner_state", tree)
+    found = [v for v in (inner.values() if isinstance(inner, dict) else [])
+             if isinstance(v, dict) and set(moments) <= set(v)]
+    if len(found) != 1:
+        raise ValueError(f"no optax {type(optimizer).__name__} moments "
+                         f"({', '.join(moments)}) in the state")
+    part = found[0]
+    count = part.get("count", tree.get("count"))
+    converted = {torch_key: {name: module_state(modules[name], sub)
+                             for name, sub in part[jax_key].items()}
+                 for jax_key, torch_key in moments.items()}
+    names = {id(p): (m, n) for m, module in modules.items()
+             for n, p in module.named_parameters()}
+    for group in optimizer.param_groups:
+        if "learning_rate" in tree.get("hyperparams", {}):
+            group["lr"] = float(tree["hyperparams"]["learning_rate"])
+        for p in group["params"]:
+            if id(p) not in names:
+                raise ValueError("an optimizer parameter of no module given")
+            module_name, name = names[id(p)]
+            state = {"step": torch.tensor(float(count), dtype=torch.float32)}
+            for torch_key, per_module in converted.items():
+                if name not in per_module.get(module_name, {}):
+                    raise ValueError(f"the state has no {torch_key} for "
+                                     f"{module_name}.{name}")
+                state[torch_key] = per_module[module_name][name].to(
+                    p.device, p.dtype)
+            optimizer.state[p] = state
 
 
 def load_jax_params(tree, bridge, head=None):
@@ -471,26 +541,120 @@ def export_jax_params(bridge, head=None):
     return tree
 
 
+class _MsgpackReader:
+    """A decoder of the msgpack that flax's ``to_bytes`` writes: maps,
+    arrays, str, bin, ints, floats, nil, bool and ext/fixext, with ext
+    type 1 an array and type 3 a numpy scalar (each as msgpack of
+    ``(shape, dtype name, C-order bytes)``). Any other byte or ext type
+    raises ``ValueError``."""
+
+    _FIXED = {0xcc: ">B", 0xcd: ">H", 0xce: ">I", 0xcf: ">Q", 0xd0: ">b",
+              0xd1: ">h", 0xd2: ">i", 0xd3: ">q", 0xca: ">f", 0xcb: ">d"}
+    _SIZED = {0xc4: ("bin", ">B"), 0xc5: ("bin", ">H"), 0xc6: ("bin", ">I"),
+              0xd9: ("str", ">B"), 0xda: ("str", ">H"), 0xdb: ("str", ">I"),
+              0xdc: ("array", ">H"), 0xdd: ("array", ">I"),
+              0xde: ("map", ">H"), 0xdf: ("map", ">I"),
+              0xc7: ("ext", ">B"), 0xc8: ("ext", ">H"), 0xc9: ("ext", ">I")}
+    _FIXEXT = {0xd4: 1, 0xd5: 2, 0xd6: 4, 0xd7: 8, 0xd8: 16}
+
+    def __init__(self, data, where):
+        self.data, self.i, self.where = memoryview(data), 0, where
+
+    def take(self, n):
+        if self.i + n > len(self.data):
+            raise ValueError(f"{self.where}: msgpack data ends early")
+        out = self.data[self.i:self.i + n]
+        self.i += n
+        return out
+
+    def number(self, fmt):
+        return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def read_all(self):
+        value = self.read()
+        if self.i != len(self.data):
+            raise ValueError(f"{self.where}: bytes after the msgpack object")
+        return value
+
+    def read(self):
+        b = self.number(">B")
+        if b <= 0x7f:
+            return b
+        if b >= 0xe0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8f:
+            return self.container("map", b & 0x0f)
+        if 0x90 <= b <= 0x9f:
+            return self.container("array", b & 0x0f)
+        if 0xa0 <= b <= 0xbf:
+            return str(self.take(b & 0x1f), "utf-8")
+        if b in (0xc0, 0xc2, 0xc3):
+            return {0xc0: None, 0xc2: False, 0xc3: True}[b]
+        if b in self._FIXED:
+            return self.number(self._FIXED[b])
+        if b in self._FIXEXT:
+            return self.ext(self._FIXEXT[b])
+        if b in self._SIZED:
+            kind, fmt = self._SIZED[b]
+            n = self.number(fmt)
+            if kind == "bin":
+                return bytes(self.take(n))
+            if kind == "str":
+                return str(self.take(n), "utf-8")
+            if kind == "ext":
+                return self.ext(n)
+            return self.container(kind, n)
+        raise ValueError(f"{self.where}: msgpack byte 0x{b:02x} is not read")
+
+    def container(self, kind, n):
+        if kind == "array":
+            return [self.read() for _ in range(n)]
+        out = {}
+        for _ in range(n):
+            key = self.read()
+            out[key] = self.read()
+        return out
+
+    def ext(self, n):
+        code = self.number(">b")
+        data = self.take(n)
+        if code not in (1, 3):
+            raise ValueError(f"{self.where}: msgpack extension type {code} "
+                             f"is not a parameter array")
+        shape, dtype, buf = _MsgpackReader(data, self.where).read_all()
+        dtype = dtype.decode() if isinstance(dtype, bytes) else dtype
+        if dtype == "bfloat16":
+            # numpy has no bfloat16 without ml_dtypes: the bits as uint16,
+            # viewed as torch's bfloat16
+            bits = np.frombuffer(buf, np.uint16).reshape(shape).copy()
+            return torch.from_numpy(bits).view(torch.bfloat16)
+        try:
+            np_dtype = np.dtype(dtype)
+        except TypeError as e:
+            raise ValueError(f"{self.where}: arrays of dtype {dtype} are not "
+                             f"read") from e
+        array = np.frombuffer(buf, np_dtype).reshape(shape)
+        return array[()] if code == 3 else array
+
+
 def load_msgpack(path):
     """The tree of numpy arrays that the JAX package's ``save_msgpack``
     (flax's msgpack encoding) wrote to ``path``: nested dicts whose leaves
-    are arrays (extension type 1) or numpy scalars (type 3)."""
-    import msgpack
+    are arrays (extension type 1) or numpy scalars (type 3); a bfloat16
+    leaf comes back as a ``torch.bfloat16`` tensor. Read by
+    ``_MsgpackReader``, so no ``msgpack`` package is needed.
 
-    def array(data):
-        shape, dtype, buf = msgpack.unpackb(data, raw=True)
-        return np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape)
-
-    def ext_hook(code, data):
-        if code == 1:
-            return array(data)
-        if code == 3:
-            return array(data)[()]
-        raise ValueError(f"{path}: msgpack extension type {code} is not a "
-                         f"parameter array")
-
+    Example
+    -------
+    >>> import os, tempfile
+    >>> path = os.path.join(tempfile.mkdtemp(), "tree.msgpack")
+    >>> _ = open(path, "wb").write(bytes.fromhex(
+    ...     "81a17781a177c7160193920102a7666c6f61743332c4080000803f00000040"))
+    >>> load_msgpack(path)
+    {'w': {'w': array([[1., 2.]], dtype=float32)}}
+    """
     with open(path, "rb") as f:
-        tree = msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
+        tree = _MsgpackReader(f.read(), path).read_all()
 
     def check(node):
         if isinstance(node, dict):

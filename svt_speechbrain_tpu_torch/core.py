@@ -11,8 +11,8 @@ built by ``make_dataloader`` with the stage's defaults.
 step does:
 
 1. the batch goes to the device (keys in ``host_only_keys`` stay on the
-   host), with ``valid_rows`` (all ones: one device, so no batch padding)
-   for the models' whole-batch statistics;
+   host), with ``valid_rows`` for the models' whole-batch statistics: all
+   ones, unless ``grad_accumulation_factor`` pads the batch (below);
 2. the forward runs under train with the step's generators (``StepRNG``),
    through ``torch.func.functional_call`` with the compute parameters:
    frozen modules' parameters detached (the ``stop_gradient`` of static
@@ -26,6 +26,17 @@ step does:
    ``nonfinite_patience`` steps have been skipped;
 5. one step of each optimizer that owns a trainable module.
 
+With ``grad_accumulation_factor`` N above 1 (``max(int(N), 1)``, as the JAX
+step), the batch is padded with zero rows (relative length 0, and 0 in
+``valid_rows``) up to a multiple of N and split into N contiguous
+micro-batches; steps 2-3's forward and backward run on each in turn, with
+its own generator draws and the BatchNorm statistics the previous one left;
+the gradients are summed and divided by N, the loss is the mean of the
+micro-batch losses, and the norm, clip, nonfinite check and optimizer steps
+run once. A micro-batch of padding rows only adds 0 to the masked losses;
+where a model normalizes over its valid rows (wav2vec2's input norm) that
+micro-batch's gradient is NaN, and the step is skipped, as in the JAX step.
+
 ``evaluate_batch`` runs the forward and the objectives under
 ``torch.inference_mode`` with the same compute parameters, brings the
 predictions to the host in one copy and hands them, as numpy, to
@@ -34,9 +45,8 @@ predictions to the host in one copy and hands them, as numpy, to
 A ``checkpointer`` gets every module, every optimizer (``<name>_opt``), the
 train loader's position and the brain's counters with both generators'
 states, so that a run recovered from a checkpoint continues with the numbers
-of an uninterrupted one. ``grad_accumulation_factor`` other than 1 is
-refused, and one process is all that runs (data parallelism is ROADMAP.md
-queue 1 item 16).
+of an uninterrupted one. One process is all that runs (data parallelism is
+ROADMAP.md queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -213,6 +223,17 @@ def parse_arguments(arg_list=None):
     return param_file, run_opts, overrides
 
 
+def _map_rows(batch, rows, fn):
+    """``batch`` with ``fn`` applied to every tensor (and ``PaddedData``
+    part) whose first axis has ``rows`` entries."""
+    def apply(x):
+        if isinstance(x, PaddedData):
+            return PaddedData(apply(x.data), apply(x.lengths))
+        return fn(x) if x.ndim >= 1 and x.shape[0] == rows else x
+
+    return {key: apply(val) for key, val in batch.items()}
+
+
 class _Forward(nn.Module):
     """Holds the brain's modules so that ``functional_call`` can swap in
     the compute parameters for one forward."""
@@ -290,7 +311,8 @@ class Brain:
     run_opt_defaults = {"device": None, "precision": "fp32",
                         "max_grad_norm": 5.0, "nonfinite_patience": 3,
                         "debug": False, "debug_batches": 2, "debug_epochs": 2,
-                        "noprogressbar": False, "ckpt_interval_minutes": 0}
+                        "noprogressbar": False, "ckpt_interval_minutes": 0,
+                        "grad_accumulation_factor": 1}
 
     def __init__(self, modules=None, opt_class=None, hparams=None,
                  run_opts=None, checkpointer=None):
@@ -301,15 +323,8 @@ class Brain:
         if self.precision not in ("fp32", "bf16"):
             raise ValueError(f"precision must be fp32 or bf16, not "
                              f"{self.precision!r}")
-        accum = run_opts.get("grad_accumulation_factor",
-                             hparams.get("grad_accumulation_factor", 1))
-        if accum != 1:
-            # the JAX Brain splits each batch into micro-batches; ignoring
-            # the option would train on other batches than the caller asked
-            raise NotImplementedError(
-                f"grad_accumulation_factor={accum!r}: gradient accumulation "
-                f"is not ported yet (ROADMAP.md queue 1, item 10); only 1 "
-                f"is accepted")
+        self.grad_accumulation_factor = max(
+            int(self.grad_accumulation_factor), 1)
         self.device = resolve_device(self.device)
         self.opt_class = opt_class
         self.checkpointer = checkpointer
@@ -428,7 +443,10 @@ class Brain:
                                               dataloader)
         return dataloader
 
-    def _batch_to_device(self, batch):
+    def _batch_to_device(self, batch, accum=1):
+        """The device batch with ``valid_rows``; with ``accum`` above 1 the
+        rows are padded with zeros to a multiple of ``accum``
+        (``core.py:509``)."""
         def move(x):
             if isinstance(x, PaddedData):
                 return PaddedData(move(x.data), move(x.lengths))
@@ -443,7 +461,13 @@ class Brain:
                if key not in self.host_only_keys}
         first = next(iter(out.values()))
         rows = (first.data if isinstance(first, PaddedData) else first).shape[0]
-        out["valid_rows"] = torch.ones(rows, device=self.device)
+        target = -(-rows // accum) * accum
+        valid = torch.ones(rows, device=self.device)
+        if target != rows:
+            out = _map_rows(out, rows, lambda x: torch.cat(
+                [x, x.new_zeros((target - rows,) + x.shape[1:])]))
+            valid = torch.cat([valid, valid.new_zeros(target - rows)])
+        out["valid_rows"] = valid
         return out
 
     def _compute_params(self):
@@ -467,16 +491,29 @@ class Brain:
         """One optimization step (``core.py:692``); returns the loss.
         The step's gradient norm (before clipping) is kept in
         ``self.last_grad_norm``."""
-        batch = self._batch_to_device(batch)
-        rng = StepRNG(self.generator, self.host_generator)
+        accum = self.grad_accumulation_factor
+        batch = self._batch_to_device(batch, accum)
+        rows = batch["valid_rows"].shape[0] // accum
         trainable = self.trainable_parameters()
         for p in trainable:
             p.grad = None
-        preds = torch.func.functional_call(
-            self._forward, self._compute_params(), (batch, Stage.TRAIN, rng))
-        loss = self.compute_objectives(preds, batch, Stage.TRAIN).float()
-        loss.backward()
+        loss = None
+        for i in range(accum):
+            micro = batch if accum == 1 else _map_rows(
+                batch, accum * rows, lambda x: x[i * rows:(i + 1) * rows])
+            rng = StepRNG(self.generator, self.host_generator)
+            preds = torch.func.functional_call(
+                self._forward, self._compute_params(),
+                (micro, Stage.TRAIN, rng))
+            micro_loss = self.compute_objectives(preds, micro,
+                                                 Stage.TRAIN).float()
+            micro_loss.backward()
+            loss = micro_loss.detach() if loss is None \
+                else loss + micro_loss.detach()
         grads = [p.grad for p in trainable if p.grad is not None]
+        if accum > 1:
+            loss = loss / accum
+            torch._foreach_div_(grads, accum)
         # a sum of squares per leaf, as optax.global_norm: on the CPU,
         # torch's f32 vector_norm loses 2.5e-4 of the norm of an 8.4M-element
         # leaf (lv60's positional conv), a sum 1e-8
@@ -663,5 +700,11 @@ class _BrainCounters:
         self.brain.step = data["step"]
         self.brain.avg_train_loss = data["avg_train_loss"]
         self.brain.optimizer_step = data["optimizer_step"]
+        if "generator" not in data:
+            # a JAX checkpoint: its PRNG key ("rng") has no torch.Generator
+            # state, so the generators keep their own streams
+            logger.info("The checkpoint holds no generator states; the "
+                        "generators keep their own streams")
+            return
         self.brain.generator.set_state(data["generator"])
         self.brain.host_generator.set_state(data["host_generator"])

@@ -65,7 +65,11 @@ def compute_masked_loss(loss_fn, predictions, targets, length=None,
             length_mask = length_mask[..., None]
         mask = mask * length_mask
 
-    loss = loss_fn(predictions, targets) * mask
+    # a masked position gives 0 even where its prediction is not finite,
+    # as in the jitted JAX step (its CPU program drops the masked terms):
+    # a micro-batch of padding rows only has loss 0, while the NaN of its
+    # statistics still reaches the gradient
+    loss = torch.where(mask > 0, loss_fn(predictions, targets) * mask, 0.0)
     n = loss.shape[0]
     if reduction == "mean":
         out = loss.sum() / torch.clamp(mask.sum(), min=1.0)

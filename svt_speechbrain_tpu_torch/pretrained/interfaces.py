@@ -6,26 +6,30 @@ chunked pipeline, its streaming session and its multiplexed server.
 The modules of the port own their parameters, so an interface holds
 modules only: ``init_params(seed)`` fills them with seeded draws, and
 ``convert_jax.load_jax_params`` or ``models.convert_hf.load_wav2vec2``
-installs trained ones. ``from_hparams`` and ``transcribe_file`` wait for
-the checkpoint fetcher, ``pretrained/fetching.py`` (ROADMAP.md queue 1 item
-10), and raise ``NotImplementedError`` until then. The other interfaces of the JAX module
-(``EncoderClassifier``, the ASR ones, ``SpeakerRecognition``, ``VAD``,
-...) wait for their models.
+installs trained ones. ``from_hparams`` builds an interface from an
+inference ``hyperparams.yaml`` (read by ``config``'s own reader) and the
+files its ``pretrainer`` names (``torch.save`` state dicts or JAX msgpack
+exports, fetched from a local directory). The other interfaces of the JAX
+module (``EncoderClassifier``, the ASR ones, ``SpeakerRecognition``,
+``VAD``, ...) wait for their models.
 """
 from __future__ import annotations
 
+import os
+import pathlib
 from types import SimpleNamespace
 
+import torch
+
 from svt_speechbrain_tpu_torch import resolve_device
+from svt_speechbrain_tpu_torch.config import load_hyperyaml
 from svt_speechbrain_tpu_torch.convert_jax import init_modules
+from svt_speechbrain_tpu_torch.dataio.dataio import read_audio
 from svt_speechbrain_tpu_torch.inference import (BatchedAMTTranscriber,
                                                  StreamingAMTTranscriber,
                                                  StreamingServer)
 from svt_speechbrain_tpu_torch.models.quantize import quantize_wav2vec2
-
-_ENGINE_ITEM = ("pretrained/fetching.py is not ported yet, and "
-                "from_hparams and transcribe_file wait for it (ROADMAP.md "
-                "queue 1 item 10)")
+from svt_speechbrain_tpu_torch.pretrained.fetching import fetch
 
 
 class Pretrained:
@@ -67,9 +71,33 @@ class Pretrained:
     @classmethod
     def from_hparams(cls, source, hparams_file="hyperparams.yaml",
                      savedir=None, overrides=None, **kwargs):
-        """Load an inference config and pretrained parameters
-        (``interfaces.py:64``)."""
-        raise NotImplementedError(f"from_hparams: {_ENGINE_ITEM}")
+        """An interface from ``source`` (a local directory;
+        ``interfaces.py:64``): its ``hparams_file`` (with ``overrides``)
+        builds the modules on the CPU, ``init_params`` fills them, the
+        yaml's ``pretrainer`` collects its files into ``savedir`` (as
+        SpeechBrain's ``from_hparams`` does; a file named without a
+        directory is one of ``source``) and loads them, and the modules
+        move to the interface's ``device`` where it has one. ``kwargs`` go
+        to the interface (``device``, ``batch_size``, ``quantize``, ...). A
+        URL or hub id raises: nothing is downloaded."""
+        savedir = savedir or \
+            f"./pretrained_models/{str(source).replace('/', '--')}"
+        path = fetch(hparams_file, source, savedir)
+        with open(path) as f:
+            hparams = load_hyperyaml(f, overrides)
+        instance = cls(modules=hparams.get("modules", {}), hparams=hparams,
+                       **kwargs)
+        instance.init_params()
+        pretrainer = hparams.get("pretrainer")
+        if pretrainer is not None:
+            pretrainer.collect_in = pathlib.Path(savedir)
+            pretrainer.collect_files(default_source=source)
+            pretrainer.load_collected()
+        device = getattr(instance, "device", None)
+        for module in vars(instance.mods).values():
+            if device is not None and isinstance(module, torch.nn.Module):
+                module.to(device)
+        return instance
 
 
 class SingingTranscriber(Pretrained):
@@ -81,7 +109,8 @@ class SingingTranscriber(Pretrained):
     batch-1 eval) or "song" (whole-song attention windows; use a small
     ``batch_size``). ``quantize="int8"`` serves the encoder's FFN and
     feature-projection products in a8w8 (``models/quantize.py``); the float
-    path is the default. ``device`` is CUDA unless the caller names another.
+    path is the default. ``device`` is CUDA unless the caller names another;
+    ``compute_dtype`` (bf16 by default) is the serving copies' dtype.
 
     Example
     -------
@@ -103,7 +132,8 @@ class SingingTranscriber(Pretrained):
     MODULES_NEEDED = ["wav2vec2", "model"]
 
     def __init__(self, *args, batch_size=32, chunk_seconds=5.0,
-                 chunking="ceil", quantize=None, device=None, **kwargs):
+                 chunking="ceil", quantize=None, device=None,
+                 compute_dtype=torch.bfloat16, **kwargs):
         super().__init__(*args, **kwargs)
         self.batch_size = batch_size
         self.chunk_seconds = chunk_seconds
@@ -111,6 +141,7 @@ class SingingTranscriber(Pretrained):
         if quantize not in (None, "int8"):
             raise ValueError(f"Unknown quantize mode: {quantize!r}")
         self.quantize = quantize
+        self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
         self._transcriber = None
         self._int8_w2v = None
@@ -133,7 +164,7 @@ class SingingTranscriber(Pretrained):
                     frame_rate=self.hparams.frame_rate,
                     onset_threshold=self.hparams.onset_threshold,
                     offset_threshold=self.hparams.offset_threshold,
-                    device=self.device)
+                    compute_dtype=self.compute_dtype, device=self.device)
 
     def _get_transcriber(self):
         if self._transcriber is None:
@@ -144,8 +175,11 @@ class SingingTranscriber(Pretrained):
         return self._transcriber
 
     def transcribe_file(self, path):
-        """Audio file → [[onset_s, offset_s, midi], ...]."""
-        raise NotImplementedError(f"transcribe_file: {_ENGINE_ITEM}")
+        """Audio file → [[onset_s, offset_s, midi], ...]
+        (``interfaces.py:142``): the file read by ``dataio.read_audio``,
+        transcribed as a batch of one song named by its basename."""
+        name = os.path.basename(path)
+        return self.transcribe_batch({name: read_audio(path)})[name]
 
     def transcribe_batch(self, songs):
         """dict name → waveform ⇒ dict name → note events."""

@@ -14,6 +14,18 @@ counters, loaders), unless it has ``ckpt_save(path)`` /
 ``ckpt_load(path, end_of_epoch)`` methods (what
 ``register_checkpoint_hooks`` installs). ``PytreeHandle`` makes a
 state dict held elsewhere checkpointable through a getter and a setter.
+
+A checkpoint directory of the JAX package is found and recovered too: its
+meta file is ``CKPT.yaml`` (read by ``config``'s reader), and each file's
+format is told by its first bytes (``_file_format``): a zip is a
+``torch.save``, a msgpack map is a flax tree, anything else the YAML of a
+``state_dict()``. A flax tree fills a module (``convert_jax.
+load_module_tree``) or an Adam/Adadelta optimizer (``convert_jax.
+load_optax_state``, with the modules among the recoverables), and the JAX
+Brain's ``model_states`` file fills the modules' BatchNorm statistics. The
+YAML state dicts (counters, schedulers, the loader's position) have the
+port's keys; the JAX brain's PRNG key has no counterpart, so the port's
+generators keep their own streams.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ logger = logging.getLogger(__name__)
 
 CKPT_PREFIX = "CKPT"
 METAFNAME = f"{CKPT_PREFIX}.json"
+JAX_METAFNAME = f"{CKPT_PREFIX}.yaml"
 
 
 def _torch_load(path):
@@ -91,17 +104,53 @@ def _save_obj(obj, path):
     _publish(tmp, path)
 
 
-def _load_obj(obj, path, end_of_epoch):
+def _file_format(path):
+    """"torch" (a zip: ``torch.save``), "msgpack" (a map: a flax tree the
+    JAX package wrote) or "yaml" (the JAX package's state-dict text), by
+    the file's first bytes."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == b"PK\x03\x04":
+        return "torch"
+    if head and (0x80 <= head[0] <= 0x8f or head[0] in (0xde, 0xdf)):
+        return "msgpack"
+    return "yaml"
+
+
+def _read_yaml_file(path):
+    from svt_speechbrain_tpu_torch.config import _Reader
+
+    with open(path) as f:
+        return _Reader(f.read()).read()
+
+
+def _load_obj(obj, path, end_of_epoch, modules=None):
+    """Recover ``obj`` from ``path``: through its ``ckpt_load``, or by the
+    file's format (``_file_format``). ``modules`` (name → module) place an
+    optimizer's JAX state on their parameters."""
     if hasattr(obj, "ckpt_load"):
         obj.ckpt_load(path, end_of_epoch=end_of_epoch)
-    elif hasattr(obj, "load_state_dict"):
-        data = _torch_load(path)
-        if "end_of_epoch" in inspect.signature(obj.load_state_dict).parameters:
-            obj.load_state_dict(data, end_of_epoch=end_of_epoch)
-        else:
-            obj.load_state_dict(data)
-    else:
+        return
+    if not hasattr(obj, "load_state_dict"):
         raise TypeError(f"Don't know how to recover {type(obj)}")
+    fmt = _file_format(path)
+    if fmt == "msgpack":
+        from svt_speechbrain_tpu_torch import convert_jax
+
+        tree = convert_jax.load_msgpack(path)
+        if isinstance(obj, torch.nn.Module):
+            convert_jax.load_module_tree(obj, tree)
+        elif isinstance(obj, torch.optim.Optimizer):
+            convert_jax.load_optax_state(obj, tree, modules or {})
+        else:
+            raise TypeError(f"{path}: a JAX tree does not recover a "
+                            f"{type(obj).__name__}")
+        return
+    data = _torch_load(path) if fmt == "torch" else _read_yaml_file(path)
+    if "end_of_epoch" in inspect.signature(obj.load_state_dict).parameters:
+        obj.load_state_dict(data, end_of_epoch=end_of_epoch)
+    else:
+        obj.load_state_dict(data)
 
 
 class Checkpointer:
@@ -178,13 +227,17 @@ class Checkpointer:
         for entry in sorted(os.listdir(self.checkpoints_dir)):
             path = os.path.join(self.checkpoints_dir, entry)
             metafile = os.path.join(path, METAFNAME)
+            jax_metafile = os.path.join(path, JAX_METAFNAME)
             if os.path.isdir(path) and os.path.exists(metafile):
                 with open(metafile) as f:
                     meta = json.load(f)
-                paramfiles = {f_[:-5]: os.path.join(path, f_)
-                              for f_ in os.listdir(path)
-                              if f_.endswith(".ckpt")}
-                checkpoints.append(Checkpoint(path, meta, paramfiles))
+            elif os.path.isdir(path) and os.path.exists(jax_metafile):
+                meta = _read_yaml_file(jax_metafile)
+            else:
+                continue
+            paramfiles = {f_[:-5]: os.path.join(path, f_)
+                          for f_ in os.listdir(path) if f_.endswith(".ckpt")}
+            checkpoints.append(Checkpoint(path, meta, paramfiles))
         return checkpoints
 
     def find_checkpoint(self, importance_key=None, max_key=None, min_key=None,
@@ -229,6 +282,8 @@ class Checkpointer:
     def load_checkpoint(self, checkpoint):
         end_of_epoch = checkpoint.meta["end-of-epoch"]
         logger.info(f"Loading a checkpoint from {checkpoint.path}")
+        modules = {name: obj for name, obj in self.recoverables.items()
+                   if isinstance(obj, torch.nn.Module)}
         for name, obj in self.recoverables.items():
             loadpath = checkpoint.paramfiles.get(name)
             if loadpath is None:
@@ -239,7 +294,15 @@ class Checkpointer:
                 raise RuntimeError(
                     f"Loading checkpoint from {checkpoint.path}, but missing "
                     f"a load path for {name}")
-            _load_obj(obj, loadpath, end_of_epoch)
+            _load_obj(obj, loadpath, end_of_epoch, modules)
+        states = checkpoint.paramfiles.get("model_states")
+        if states is not None and "model_states" not in self.recoverables:
+            # the JAX Brain keeps the BatchNorm statistics apart from the
+            # parameters; the port's modules hold them as buffers
+            from svt_speechbrain_tpu_torch import convert_jax
+
+            for name, state in convert_jax.load_msgpack(states).items():
+                convert_jax.load_running_stats(modules[name], state)
 
     # ---------------------------------------------------------- deleting
     def delete_checkpoints(self, *, num_to_keep=1, min_keys=None,

@@ -1,5 +1,6 @@
 """Padding helpers of the data loaders (port of the part of
-``svt_speechbrain_tpu/utils/data_utils.py`` that ``PaddedBatch`` needs).
+``svt_speechbrain_tpu/utils/data_utils.py`` that ``PaddedBatch`` and
+``ErrorRateStats`` need).
 
 They work on numpy arrays, in the loader's worker processes; ``PaddedBatch``
 turns their results into tensors. ``download_file`` is not ported: nothing
@@ -8,6 +9,24 @@ is downloaded.
 from __future__ import annotations
 
 import numpy as np
+
+
+def undo_padding(batch, lengths):
+    """Strip padding from a padded batch (an array or tensor) → list of
+    lists (``data_utils.py:11``).
+
+    Example
+    -------
+    >>> undo_padding([[1, 2, 0, 0], [3, 4, 5, 6]], [0.5, 1.0])
+    [[1, 2], [3, 4, 5, 6]]
+    """
+    batch = np.asarray(batch)
+    batch_max_len = batch.shape[1]
+    as_list = []
+    for seq, seq_length in zip(batch, lengths):
+        actual_size = int(round(float(seq_length) * batch_max_len))
+        as_list.append(seq[:actual_size].tolist())
+    return as_list
 
 
 def pad_right_to(array, target_shape, mode="constant", value=0):

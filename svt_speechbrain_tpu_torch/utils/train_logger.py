@@ -1,6 +1,7 @@
-"""Train loggers (port of ``FileTrainLogger``,
-``svt_speechbrain_tpu/utils/train_logger.py:15``): one text line per stage
-end, the same text as the JAX package's."""
+"""Train loggers (port of ``svt_speechbrain_tpu/utils/train_logger.py``):
+``FileTrainLogger`` writes one text line per stage end, the same text as the
+JAX package's; ``TensorboardLogger`` and ``WandBLogger`` import their
+package only when built."""
 from __future__ import annotations
 
 import logging
@@ -56,3 +57,67 @@ class FileTrainLogger(TrainLogger):
             print(string_summary, file=fout)
         if verbose:
             logger.info(string_summary)
+
+
+class TensorboardLogger(TrainLogger):
+    """TensorBoard event logging (``train_logger.py:59``) through torch's
+    ``SummaryWriter``, imported when the logger is built: without the
+    ``tensorboard`` package it raises ``ImportError`` naming it."""
+
+    def __init__(self, save_dir):
+        self.save_dir = save_dir
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError as e:
+            raise ImportError("No tensorboard writer available: the "
+                              "tensorboard package is needed") from e
+        self.writer = SummaryWriter(self.save_dir)
+        self.global_step = {"train": {}, "valid": {}, "test": {}, "meta": 0}
+
+    def log_stats(self, stats_meta, train_stats=None, valid_stats=None,
+                  test_stats=None, verbose=False):
+        self.global_step["meta"] += 1
+        for name, value in stats_meta.items():
+            if isinstance(value, (int, float)):
+                self.writer.add_scalar(name, value, self.global_step["meta"])
+        for dataset, stats in [("train", train_stats), ("valid", valid_stats),
+                               ("test", test_stats)]:
+            if stats is None:
+                continue
+            for stat, value_list in stats.items():
+                if stat not in self.global_step[dataset]:
+                    self.global_step[dataset][stat] = 0
+                if not isinstance(value_list, (list, tuple)):
+                    value_list = [value_list]
+                for value in value_list:
+                    new_global_step = self.global_step[dataset][stat] + 1
+                    self.writer.add_scalar(f"{dataset}/{stat}", value, new_global_step)
+                    self.global_step[dataset][stat] = new_global_step
+
+
+class WandBLogger(TrainLogger):
+    """Weights & Biases logging (``train_logger.py:96``): ``wandb`` is
+    imported when the logger is built, and its absence raises
+    ``ImportError`` naming it."""
+
+    def __init__(self, initializer=None, *args, **kwargs):
+        try:
+            import wandb
+        except ImportError as e:
+            raise ImportError("wandb is not available") from e
+        if initializer is None:
+            initializer = wandb.init
+        self.run = initializer(*args, **kwargs)
+
+    def log_stats(self, stats_meta, train_stats=None, valid_stats=None,
+                  test_stats=None, verbose=False):
+        logs = {}
+        for dataset, stats in [("train", train_stats), ("valid", valid_stats),
+                               ("test", test_stats)]:
+            if stats is not None:
+                logs[dataset] = stats
+        step = stats_meta.get("epoch", None)
+        if step is not None:
+            self.run.log({**logs, **stats_meta}, step=step)
+        else:
+            self.run.log({**logs, **stats_meta})

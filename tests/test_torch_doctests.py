@@ -9,14 +9,19 @@ import pytest
 MODULES = [
     "svt_speechbrain_tpu_torch",
     "svt_speechbrain_tpu_torch.config",
+    "svt_speechbrain_tpu_torch.convert_jax",
     "svt_speechbrain_tpu_torch.core",
     "svt_speechbrain_tpu_torch.dataio.batch",
     "svt_speechbrain_tpu_torch.dataio.dataio",
     "svt_speechbrain_tpu_torch.dataio.dataloader",
     "svt_speechbrain_tpu_torch.dataio.dataset",
+    "svt_speechbrain_tpu_torch.dataio.encoder",
+    "svt_speechbrain_tpu_torch.dataio.iterators",
+    "svt_speechbrain_tpu_torch.dataio.legacy",
+    "svt_speechbrain_tpu_torch.dataio.preprocess",
     "svt_speechbrain_tpu_torch.dataio.sampler",
+    "svt_speechbrain_tpu_torch.dataio.wer",
     "svt_speechbrain_tpu_torch.decoders.transducer",
-    "svt_speechbrain_tpu_torch.convert_jax",
     "svt_speechbrain_tpu_torch.flagship",
     "svt_speechbrain_tpu_torch.inference",
     "svt_speechbrain_tpu_torch.models.convert_hf",
@@ -39,16 +44,21 @@ MODULES = [
     "svt_speechbrain_tpu_torch.ops.quant",
     "svt_speechbrain_tpu_torch.ops.transducer_lattice",
     "svt_speechbrain_tpu_torch.parallel.distributed",
+    "svt_speechbrain_tpu_torch.pretrained.fetching",
     "svt_speechbrain_tpu_torch.pretrained.interfaces",
     "svt_speechbrain_tpu_torch.tasks.amt",
     "svt_speechbrain_tpu_torch.utils.amt",
+    "svt_speechbrain_tpu_torch.utils.callchains",
     "svt_speechbrain_tpu_torch.utils.checkpoints",
     "svt_speechbrain_tpu_torch.utils.data_pipeline",
     "svt_speechbrain_tpu_torch.utils.data_utils",
     "svt_speechbrain_tpu_torch.utils.depgraph",
+    "svt_speechbrain_tpu_torch.utils.edit_distance",
     "svt_speechbrain_tpu_torch.utils.epoch_loop",
     "svt_speechbrain_tpu_torch.utils.logger",
     "svt_speechbrain_tpu_torch.utils.metric_stats",
+    "svt_speechbrain_tpu_torch.utils.parameter_transfer",
+    "svt_speechbrain_tpu_torch.utils.superpowers",
     "svt_speechbrain_tpu_torch.utils.train_logger",
     "svt_speechbrain_tpu_torch.utils.transcription_eval",
 ]

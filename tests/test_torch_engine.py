@@ -358,11 +358,12 @@ def _describe(x):
 
 
 def test_yaml_equals_the_python_hparams_of_chip_smoke(tmp_path, monkeypatch):
-    """``chip_smoke.recipe_hparams`` builds the recipe's objects without
-    PyYAML: the same keys, values, classes and arguments as
-    ``load_hyperyaml`` on the recipe's yaml, with the same overrides. The
-    wav2vec2 bridge is built at TINY width on both sides (its arguments are
-    compared as given)."""
+    """``chip_smoke.recipe_hparams`` builds the recipe's objects from the
+    recipe's yaml through the port's own reader (it was a Python copy of the
+    yaml's values while the reader needed PyYAML): the same keys, values,
+    classes and arguments as ``load_hyperyaml`` on the recipe's yaml, with
+    the same overrides. The wav2vec2 bridge is built at TINY width on both
+    sides (its arguments are compared as given)."""
     import chip_smoke
     from svt_speechbrain_tpu_torch.config import load_hyperyaml
     from svt_speechbrain_tpu_torch.models import wav2vec2

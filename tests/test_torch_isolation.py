@@ -45,6 +45,11 @@ from svt_speechbrain_tpu_torch.recipes.N20EMv2.audio_only import (
 from svt_speechbrain_tpu_torch.recipes.N20EMv2.audio_visual import (
     prepare_musan, prepare_n20emv2 as av_prep, run_noise_sweep,
     synthesis_noise, train_rca_a, train_rca_av)
+from svt_speechbrain_tpu_torch.pretrained import fetching
+from svt_speechbrain_tpu_torch.dataio import (encoder, iterators, legacy,
+                                             preprocess, wer)
+from svt_speechbrain_tpu_torch.utils import (callchains, edit_distance,
+                                             parameter_transfer, superpowers)
 rca = quantize.quantize_fusion(fusion.FusionRCA(0.5, 4, 32, 16),
                                quantize_attn=True)
 with torch.no_grad():
@@ -134,7 +139,8 @@ def test_brain_raises_without_cuda_unless_cpu_is_named():
 
 _WITHOUT_YAML_OR_TQDM = """
 import sys
-sys.modules["yaml"] = None      # an import of either now raises ImportError
+sys.modules["yaml"] = None      # an import of any now raises ImportError
+sys.modules["msgpack"] = None
 sys.modules["tqdm"] = None
 import tempfile
 import numpy as np
@@ -164,7 +170,8 @@ brain.on_stage_start(Stage.VALID, 1)
 eval_loss = brain.evaluate_batch(next(iter(brain.make_dataloader(
     valid, Stage.VALID, **hp["valid_dataloader_opts"]))), Stage.VALID)
 assert np.isfinite(loss) and np.isfinite(eval_loss), (loss, eval_loss)
-assert "yaml" not in [m.split(".")[0] for m in sys.modules if sys.modules[m]]
+loaded = [m.split(".")[0] for m in sys.modules if sys.modules[m]]
+assert "yaml" not in loaded and "msgpack" not in loaded
 print("FIT-AND-EVALUATE-OK", loss, eval_loss)
 """
 
@@ -172,9 +179,9 @@ print("FIT-AND-EVALUATE-OK", loss, eval_loss)
 def test_engine_and_recipe_run_without_yaml_or_tqdm():
     """The engine, the data loading and the recipe import and run one TINY
     training step and one evaluated utterance, through loader worker
-    processes, with PyYAML and tqdm unavailable (the card machine need not
-    have them): the recipe's objects come from ``chip_smoke.py``'s Python
-    hparams."""
+    processes, with PyYAML, msgpack and tqdm unavailable (the card machine
+    need not have them): the recipe's objects come from ``chip_smoke.py``'s
+    Python hparams."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     res = subprocess.run([sys.executable, "-c", _WITHOUT_YAML_OR_TQDM],
@@ -182,3 +189,67 @@ def test_engine_and_recipe_run_without_yaml_or_tqdm():
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "FIT-AND-EVALUATE-OK" in res.stdout, res.stdout
+
+
+_DEPLOY_WITHOUT_PACKAGES = """
+import json, os, shutil, sys, tempfile
+sys.modules["yaml"] = None      # an import of any now raises ImportError
+sys.modules["msgpack"] = None
+sys.modules["tqdm"] = None
+import numpy as np
+import torch
+from svt_speechbrain_tpu_torch.config import load_hyperyaml
+from svt_speechbrain_tpu_torch.convert_jax import load_msgpack
+from svt_speechbrain_tpu_torch.dataio.dataio import write_audio
+from svt_speechbrain_tpu_torch.flagship import build_flagship
+from svt_speechbrain_tpu_torch.models.wav2vec2 import TINY_ARCH
+from svt_speechbrain_tpu_torch.pretrained.interfaces import SingingTranscriber
+from svt_speechbrain_tpu_torch.tasks.amt import save_state_dict
+tiny = ("wav2vec2: !new:svt_speechbrain_tpu_torch.models.wav2vec2."
+        "HuggingFaceWav2Vec2 {source: tiny-test, arch_overrides: "
+        + json.dumps(dict(TINY_ARCH)) + "}\\nfeat_dim: 64\\n")
+root = tempfile.mkdtemp()
+with open("svt_speechbrain_tpu_torch/recipes/MIR_ST500/hparams/"
+          "train_audio_ssl.yaml") as f:
+    hp = load_hyperyaml(f, "data_folder: " + root + "\\n" + tiny)
+assert hp["modules"]["wav2vec2"].config.hidden_size == 64
+model = build_flagship(tiny=True, device="cpu")
+export = os.path.join(root, "export")
+os.makedirs(export)
+shutil.copy("tests/fixtures/singing_transcriber_hyperparams.yaml",
+            os.path.join(export, "hyperparams.yaml"))
+save_state_dict(model.bridge, os.path.join(export, "wav2vec2.pt"))
+save_state_dict(model.head, os.path.join(export, "model.pt"))
+wav = os.path.join(root, "song.wav")
+write_audio(wav, 0.1 * np.random.default_rng(0).standard_normal(24000)
+            .astype(np.float32), 16000)
+face = SingingTranscriber.from_hparams(
+    export, savedir=os.path.join(root, "saved"), overrides=tiny,
+    device="cpu", batch_size=2, chunk_seconds=1.0)
+notes = face.transcribe_file(wav)
+assert all(len(ev) == 3 for ev in notes)
+tree = load_msgpack("tests/fixtures/jax_export_small.msgpack")
+assert tree["model"]["w"].shape == (16, 20)
+loaded = [m.split(".")[0] for m in sys.modules if sys.modules[m]]
+assert "yaml" not in loaded and "msgpack" not in loaded
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "svt_speechbrain_tpu" or m.startswith("svt_speechbrain_tpu."))
+print("DEPLOY-OK", len(notes), bad)
+"""
+
+
+def test_deployment_runs_without_yaml_or_msgpack():
+    """``load_hyperyaml`` of a recipe yaml, a TINY ``from_hparams`` on the
+    inference yaml of ``tests/fixtures/`` with ``transcribe_file``, and the
+    small JAX export read by ``load_msgpack``, with PyYAML, msgpack and tqdm
+    unavailable and without loading JAX: the port reads both formats with
+    its own readers."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    res = subprocess.run([sys.executable, "-c", _DEPLOY_WITHOUT_PACKAGES],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "DEPLOY-OK" in res.stdout and res.stdout.rstrip().endswith(
+        "[]"), res.stdout

@@ -722,10 +722,11 @@ def test_fusion_recipe_matches_the_jax_recipe(fusion_dataset, jax_scripts,
 def test_yaml_equals_the_python_hparams_of_chip_smoke(tmp_path, monkeypatch,
                                                       which):
     """``chip_smoke.n20em_hparams`` and ``rca_hparams`` build the recipes'
-    objects without PyYAML: the same keys, values, classes and arguments as
-    ``load_hyperyaml`` on the port's yamls, with the same overrides (the
-    wav2vec2 bridge at TINY width on both sides, its arguments compared as
-    given)."""
+    objects from the port's yamls through the port's own reader (they were
+    Python copies of the yamls' values while the reader needed PyYAML): the
+    same keys, values, classes and arguments as ``load_hyperyaml`` on the
+    port's yamls, with the same overrides (the wav2vec2 bridge at TINY width
+    on both sides, its arguments compared as given)."""
     import chip_smoke
     from svt_speechbrain_tpu_torch.models import wav2vec2
     from tests.test_torch_engine import _describe

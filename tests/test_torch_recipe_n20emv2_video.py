@@ -473,11 +473,12 @@ def test_dropout_training_forward_matches_jax_in_the_mean():
 @pytest.mark.parametrize("which", ["train", "extract"])
 def test_yaml_equals_the_python_hparams_of_chip_smoke(tmp_path, monkeypatch,
                                                       which):
-    """``chip_smoke.video_hparams`` builds the video recipe's objects
-    without PyYAML: the same keys, values, classes and arguments as
-    ``load_hyperyaml`` on the port's yamls with the same overrides (the
-    encoder at a tiny width on both sides, its arguments compared as
-    given)."""
+    """``chip_smoke.video_hparams`` builds the video recipe's objects from
+    the port's yamls through the port's own reader (it was a Python copy of
+    the yamls' values while the reader needed PyYAML): the same keys,
+    values, classes and arguments as ``load_hyperyaml`` on the port's yamls
+    with the same overrides (the encoder at a tiny width on both sides, its
+    arguments compared as given)."""
     import chip_smoke
     from svt_speechbrain_tpu_torch.models import avhubert
     from tests.test_torch_engine import _describe

@@ -132,7 +132,7 @@ def test_int8_interface_keeps_to_the_float_notes(tiny):
     assert agree / len(notes[None]) > 0.7
 
 
-def test_interface_checks_its_arguments(tiny):
+def test_interface_checks_its_arguments(tiny, tmp_path):
     _, _, _, bridge, head = tiny
     modules = {"wav2vec2": bridge, "model": head}
     with pytest.raises(ValueError, match="int4"):
@@ -144,10 +144,17 @@ def test_interface_checks_its_arguments(tiny):
         SingingTranscriber(modules={"wav2vec2": bridge}, hparams=HP,
                            device="cpu")
     iface = SingingTranscriber(modules=modules, hparams=HP, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        iface.transcribe_file("song.wav")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        SingingTranscriber.from_hparams("some/source")
+    with pytest.raises(FileNotFoundError):
+        iface.transcribe_file(str(tmp_path / "song.wav"))
+    with pytest.raises(FileNotFoundError):
+        SingingTranscriber.from_hparams(str(tmp_path / "missing"),
+                                        savedir=str(tmp_path / "s"),
+                                        device="cpu")
+    for remote in ("some/source", "https://example.org/model"):
+        with pytest.raises(ValueError, match="no network"):
+            SingingTranscriber.from_hparams(remote,
+                                            savedir=str(tmp_path / "s"),
+                                            device="cpu")
 
 
 def test_interface_needs_a_device_without_cuda(tiny):

@@ -283,17 +283,45 @@ def test_bf16_precision_casts_parameters_and_keeps_f32_masters():
 @pytest.mark.parametrize("where,factor", [("run_opts", 1),
                                           ("run_opts", 2), ("hparams", 2)])
 def test_grad_accumulation_is_refused_until_ported(where, factor):
-    """The JAX Brain splits a batch into ``grad_accumulation_factor``
-    micro-batches; the port has no accumulation yet, so it refuses any
-    factor but 1 instead of silently training on the whole batch."""
+    """``grad_accumulation_factor`` is taken from run_opts or hparams, as
+    the JAX Brain takes it (it was refused before accumulation was
+    ported). At factor 2 a batch of 4 rows runs as two micro-batches of 2
+    whose gradients are summed and divided by 2: with a loss that sums its
+    rows, the update is half that of one unaccumulated step on the 4 rows
+    (the parity with the JAX step is held in
+    ``test_torch_grad_accumulation.py``)."""
     opts = {"grad_accumulation_factor": factor}
     kwargs = {"run_opts": {"device": "cpu", **opts}} if where == "run_opts" \
         else {"run_opts": {"device": "cpu"}, "hparams": {"seed": 0, **opts}}
+
+    class Mean(Brain):
+        def compute_forward(self, batch, stage, rng=None):
+            return self.modules.model(batch["x"])
+
+        def compute_objectives(self, predictions, batch, stage):
+            return (predictions.square().sum(-1)
+                    * batch["valid_rows"]).sum() / 2.0
+
+    x = np.arange(8, dtype=np.float32).reshape(4, 2) / 8
+    updates = []
+    for accum_kwargs in (kwargs, {"run_opts": {"device": "cpu"}}):
+        head = Linear(2, 2)
+        with torch.no_grad():
+            head.w.copy_(torch.tensor([[0.5, -0.25], [0.125, 1.0]]))
+            head.b.zero_()
+        brain = Mean({"model": head}, **accum_kwargs)
+        brain.add_optimizer("sgd", torch.optim.SGD, ["model"], lr=0.1)
+        before = head.w.detach().clone()
+        brain.fit_batch({"x": x[:factor * 2] if factor > 1 else x[:2]})
+        updates.append(head.w.detach() - before)
+    assert brain.grad_accumulation_factor == 1
+    assert Mean({"model": Linear(2, 2)}, **kwargs).grad_accumulation_factor \
+        == factor
     if factor == 1:
-        assert Brain({"model": Linear(2, 2)}, **kwargs).device.type == "cpu"
         return
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Brain({"model": Linear(2, 2)}, **kwargs)
+    # two micro-batches of 2 rows: (g1 + g2) / 2 is the mean over 4 rows of
+    # a loss that sums 2 rows, half the unaccumulated step's sum over 4
+    torch.testing.assert_close(updates[0], updates[1] / 2)
 
 
 def test_nonfinite_steps_are_skipped_then_raise():
