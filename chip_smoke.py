@@ -160,7 +160,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``tests/fixtures/jax_export_small.msgpack`` read by the port's own
    msgpack decoder, bit for bit against its ``.npz``.
 
-Phases run in the order 1-5, 8, 9, 6, 7, 10-15, 19, 17, 18, 16.
+20. the SSL families at full width and depth, seeded weights:
+   wav2vec2-base ("group" extractor, post-LN, 12 x 768),
+   data2vec-audio-large (no conv bias, stacked positional convs, post-LN)
+   and WavLM-large (gated relative position bias), each built by name
+   through the bridge's name check and served in bf16 at batch 8 on phase
+   3's song lengths with a ``Linear(hidden, 20)`` head: ms a batch, RTFx,
+   launches, asserting row 1 7 times a batch for data2vec and WavLM and
+   never for base (its GroupNorm takes the plain frontend), row 2 once a
+   layer a batch for base and data2vec and never for WavLM (its biased
+   attention runs eagerly); one f32 batch with exact lengths at 2 layers of
+   each family and AV-HuBERT base's post-LN encoder card vs CPU; one
+   data2vec-audio-large f32 step at batch 8 x 30 s, dropouts 0.1, without
+   ``remat`` (twice), with ``remat`` and with ``remat_frontend`` too (the
+   losses and clipped gradients held to the first step at phase 7's
+   tolerance; 48 launches of 3b under remat; step ms and peak memory of a
+   second step), one WavLM-large step at 8 x 5 s with ``remat``; row 5 bit
+   for bit at int8 wav2vec2-base's shapes (K or N 768 and 3072) and timed
+   beside bf16 ``torch.matmul``, int8 base served (25 launches a batch);
+   and the MIR-ST500 recipe's command line with
+   ``--ssl_model=wav2vec2-base --feat_dim=768`` (a probe and a finetune
+   epoch, ``evaluate``).
+
+Phases run in the order 1-5, 8, 9, 6, 7, 10-15, 19, 17, 18, 16, 20.
 
 Phases 2 and 5 also hold and time the two RNN-T kernels (the lattice on
 alpha and on beta panels, the gradient) against their plain versions at the
@@ -185,7 +207,9 @@ The last lines are the card's ``nvidia-smi`` name and power limit, one
 repository beside it, the script exits non-zero and prints no result.
 """
 import copy
+import dataclasses
 import functools
+import gc
 import json
 import os
 import shutil
@@ -206,9 +230,9 @@ from svt_speechbrain_tpu_torch.dataio.batch import PaddedData  # noqa: E402
 from svt_speechbrain_tpu_torch.flagship import (HEAD_OUTPUTS,  # noqa: E402
                                                 build_modules)
 from svt_speechbrain_tpu_torch.convert_jax import (  # noqa: E402
-    _flatten, init_embedding, init_linear, init_modules, init_params,
-    init_rnn, init_wav2vec2, load_jax_params, load_module_tree, load_msgpack,
-    module_tree)
+    _flatten, init_avhubert, init_embedding, init_linear, init_modules,
+    init_params, init_rnn, init_wav2vec2, load_jax_params, load_module_tree,
+    load_msgpack, module_tree)
 from svt_speechbrain_tpu_torch.decoders import (  # noqa: E402
     TransducerBeamSearcher)
 from svt_speechbrain_tpu_torch.models.wav2vec2 import (  # noqa: E402
@@ -226,7 +250,7 @@ from svt_speechbrain_tpu_torch.tasks.amt import AudioAMT  # noqa: E402
 from svt_speechbrain_tpu_torch.inference import (  # noqa: E402
     BatchedAMTTranscriber)
 from svt_speechbrain_tpu_torch.models.avhubert import (  # noqa: E402
-    FairseqAVHubert)
+    AVHubertConfig, FairseqAVHubert)
 from svt_speechbrain_tpu_torch.models.quantize import (  # noqa: E402
     quantize_avhubert, quantize_fusion, quantize_wav2vec2)
 from svt_speechbrain_tpu_torch.ops import _build  # noqa: E402
@@ -3901,6 +3925,305 @@ def fusion_phase(root, rng):
     return counts, summary
 
 
+# ---------------------------------------------------------------- phase 20
+# the SSL families served by name at full width and depth, and what rows 1
+# (7 launches a batch) and 2 (one a layer a batch) must show for each:
+# wav2vec2-base's "group" extractor takes the plain frontend (can_fuse),
+# WavLM's biased attention runs eagerly
+FAMILY_NAMES = {"wav2vec2-base": "facebook/wav2vec2-base",
+                "data2vec-audio-large": "facebook/data2vec-audio-large-960h",
+                "wavlm-large": "microsoft/wavlm-large"}
+FAMILY_ROWS = {"wav2vec2-base": (False, True),
+               "data2vec-audio-large": (True, True),
+               "wavlm-large": (True, False)}
+# int8 wav2vec2-base: feat_proj, ffn1 and ffn2 of a chunked batch (8 x 249
+# frames); 2 launches a layer and feat_proj's
+BASE_INT8_SHAPES = ((1992, 512, 768), (1992, 768, 3072), (1992, 3072, 768))
+BASE_INT8_LAUNCHES = 25
+# phase 20's recipe run: a probe and a finetune epoch of wav2vec2-base
+FAMILY_RECIPE_SONGS = {"train": (12, 13, 14), "valid": (11,), "test": (12,)}
+
+
+def seeded_bridge(source, seed, **arch):
+    """A bridge picked by ``source`` (the name check), ``arch`` overrides,
+    seeded weights, and a ``Linear(hidden, 20)`` head."""
+    bridge = HuggingFaceWav2Vec2(source=source, output_norm=True,
+                                 arch_overrides=arch or None)
+    head = Linear(HEAD_OUTPUTS, bridge.config.hidden_size)
+    gen = torch.Generator().manual_seed(seed)
+    load_module_tree(bridge, init_wav2vec2(bridge.config, gen))
+    load_module_tree(head, init_linear(gen, bridge.config.hidden_size,
+                                       HEAD_OUTPUTS))
+    return bridge.eval(), head.eval()
+
+
+def family_serving(rng):
+    """Each family built by name, served in bf16 at batch 8; the rows'
+    launches asserted. Returns {family: summary}."""
+    songs = songs_for(rng, (7, 16, 23), int16_index=1)
+    audio_s = sum(len(w) for w in songs.values()) / SR
+    out = {}
+    for i, (family, source) in enumerate(FAMILY_NAMES.items()):
+        bridge, head = seeded_bridge(source, SEED + 20 + i)
+        c = bridge.config
+        tr = BatchedAMTTranscriber(bridge, head, chunk_seconds=5.0,
+                                   batch_size=8, compute_dtype=torch.bfloat16,
+                                   device="cuda")
+        del bridge
+        tr.transcribe(songs)                       # warm-up
+        notes, wall, counts = run_path(tr, songs)
+        check_frames(tr, songs)
+        n_batches = len(tr._jobs(songs))
+        fused, short = FAMILY_ROWS[family]
+        expect_counts(counts, {"conv_frontend": 7 * n_batches * fused,
+                               "flash_attention_short":
+                               c.num_layers * n_batches * short},
+                      f"{family} serving")
+        log(f"  {family} ({source}: {c.num_layers} layers, "
+            f"{c.hidden_size} wide, {c.num_heads} heads, "
+            f"{c.feat_extract_norm} extractor, conv_bias={c.conv_bias}, "
+            f"{'pre' if c.do_stable_layer_norm else 'post'}-LN, pos_conv "
+            f"{c.pos_conv_type}, rel_pos_bias={c.rel_pos_bias}, "
+            f"normalize_wav={tr.bridge.normalize_wav}): {audio_s:.1f} s in "
+            f"{wall * 1e3:.1f} ms, RTFx={audio_s / wall:.1f}, "
+            f"{wall * 1e3 / n_batches:.2f} ms a batch over {n_batches} "
+            f"batches; launches {counts} (rows 1/2 expected: "
+            f"{'7 a batch' if fused else 'none, plain frontend'} / "
+            f"{'one a layer a batch' if short else 'none, eager biased attention'}"
+            f"); notes { {k: len(v) for k, v in notes.items()} }")
+        out[family] = dict(ms_batch=wall * 1e3 / n_batches,
+                           rtfx=audio_s / wall, counts=counts)
+        del tr, head
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_card_vs_cpu(rng):
+    """One f32 batch, exact lengths, 2 layers at each family's full width
+    (``f32_batch_check``), and AV-HuBERT base's post-LN encoder (2 layers,
+    768 wide, audio features) card vs CPU at the same tolerance."""
+    for i, (family, source) in enumerate(FAMILY_NAMES.items()):
+        log(f"  {family}, 2 layers:")
+        bridge, head = seeded_bridge(source, SEED + 30 + i, num_layers=2)
+        f32_batch_check(bridge, head, rng)
+    cfg = dict(encoder_layers=2)
+    enc = FairseqAVHubert(config=dataclasses.replace(AVHubertConfig.base(),
+                                                     **cfg))
+    gen = torch.Generator().manual_seed(SEED + 33)
+    params, state = init_avhubert(enc.config, gen)
+    load_module_tree(enc.model, params, state)
+    audio = torch.from_numpy(rng.standard_normal((2, 150, 104))
+                             .astype(np.float32))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(enc).to(dev).eval()
+        with torch.inference_mode():
+            outs[dev] = model({"audio": audio.to(dev)}).float().cpu()
+    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    ok = err <= TOL_E2E_F32 and torch.isfinite(outs["cuda"]).all().item()
+    log(f"  AV-HuBERT base (post-LN, encoder_ln before the layers), 2 layers "
+        f"x 768, audio (2, 150, 104) f32: card vs CPU features max_abs_err="
+        f"{err:.3e} tol={TOL_E2E_F32:.1e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("AV-HuBERT base on the card disagrees with the "
+                             "CPU")
+
+
+def remat_steps(rng):
+    """One data2vec-audio-large f32 step at batch 8 x 30 s, dropouts 0.1,
+    from one seeded tree and the recipe's seed, without remat (twice: how
+    far the card's own reductions let two equal steps part), with remat and
+    with remat + remat_frontend: the steps' losses and clipped gradients
+    held to the first, then a second step timed with its peak memory; and
+    one WavLM-large step at batch 8 x 5 s with remat."""
+    source = FAMILY_NAMES["data2vec-audio-large"]
+    tree = init_wav2vec2(Wav2Vec2Config.data2vec_audio_large(),
+                         torch.Generator().manual_seed(SEED + 40))
+    head_tree = init_linear(torch.Generator().manual_seed(SEED + 41), 1024,
+                            HEAD_OUTPUTS)
+    batch = train_batch(rng, TRAIN_BATCH, TRAIN_SECONDS)
+    ref, out = None, {}
+    for mode, arch in (("no remat", {}), ("no remat, again", {}),
+                       ("remat", dict(remat=True)),
+                       ("remat + remat_frontend",
+                        dict(remat=True, remat_frontend=True))):
+        bridge = HuggingFaceWav2Vec2(source=source, output_norm=True,
+                                     arch_overrides=arch or None)
+        head = Linear(HEAD_OUTPUTS, 1024)
+        load_module_tree(bridge, tree)
+        load_module_tree(head, head_tree)
+        brain = AudioAMT({"wav2vec2": bridge, "model": head},
+                         hparams=amt_hparams(), run_opts={"device": "cuda"})
+        brain.init_optimizers()
+        brain.on_stage_start(Stage.TRAIN, 3)
+        n = bridge.config.num_layers
+        (loss, gnorm, wall, counts), = train_steps(brain, batch, 1)
+        per_layer = 2 * n if arch else n
+        expect_counts(counts, {"flash_attention_lse": per_layer,
+                               "flash_attention_bwd_dq": n,
+                               "flash_attention_bwd_dkv": n},
+                      f"data2vec step, {mode}")
+        grads = {k: p.grad for k, p in brain.modules.named_parameters()}
+        if ref is None:
+            ref = dict(loss=loss, gnorm=gnorm,
+                       grads={k: g.clone() for k, g in grads.items()})
+            rel = {}
+        else:
+            rel = {k: (torch.linalg.vector_norm(g - ref["grads"][k])
+                       / torch.linalg.vector_norm(ref["grads"][k])).item()
+                   for k, g in grads.items()
+                   if torch.linalg.vector_norm(ref["grads"][k]) > 0}
+        bits = ref["loss"] == loss and all(
+            torch.equal(g, ref["grads"][k]) for k, g in grads.items())
+        worst = max(rel.values(), default=0.0)
+        loss_rel = abs(loss / ref["loss"] - 1)
+        ok = (np.isfinite(loss) and loss_rel <= TOL_STEP["loss_rel"]
+              and worst <= TOL_STEP["grad_rel"])
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        (_, _, wall2, _), = train_steps(brain, batch, 1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  data2vec-audio-large, {mode}: loss={loss:.6f} gnorm="
+            f"{gnorm:.6f}, launches {counts}; against no remat: loss rel "
+            f"err {loss_rel:.3e} (tol {TOL_STEP['loss_rel']:.0e}), worst "
+            f"gradient rel err {worst:.3e} (tol {TOL_STEP['grad_rel']:.0e}), "
+            f"bit for bit {bits}; second step {wall2 * 1e3:.1f} ms (first "
+            f"{wall * 1e3:.1f} ms), peak {peak:.2f} GiB of which "
+            f"{held:.2f} GiB were held before the step (weights, Adam "
+            f"moments, the reference gradients, what earlier phases left) "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the {mode} step disagrees with the step "
+                                 f"without remat")
+        out[mode] = dict(step_ms=wall2 * 1e3, peak_gb=peak, held_gb=held,
+                         bits=bits, grad_rel=worst)
+        # a Brain's references form cycles: collect them before the next
+        # mode so that its peak counts no earlier brain
+        del brain, bridge, head, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  WavLM-large at 30 s is not run: each of its 24 layers would keep "
+        "(8, 16, 1499, 1499) f32 scores, gated bias and weights (1.15 GB "
+        "each) for the backward pass without remat; one step at batch 8 x "
+        "5 s with remat instead")
+    bridge, head = seeded_bridge(FAMILY_NAMES["wavlm-large"], SEED + 42,
+                                 remat=True)
+    brain = AudioAMT({"wav2vec2": bridge.train(), "model": head.train()},
+                     hparams=amt_hparams(), run_opts={"device": "cuda"})
+    brain.init_optimizers()
+    brain.on_stage_start(Stage.TRAIN, 3)
+    short = train_batch(rng, TRAIN_BATCH, 5.0)
+    train_steps(brain, short, 1)                   # warm-up
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    (loss, gnorm, wall, counts), = train_steps(brain, short, 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect_counts(counts, {}, "WavLM-large step")
+    log(f"  wavlm-large, remat, batch 8 x 5 s: loss={loss:.6f} gnorm="
+        f"{gnorm:.6f} {wall * 1e3:.1f} ms, peak {peak:.2f} GiB ({held:.2f} "
+        f"GiB held before the step), launches {counts} (eager biased "
+        f"attention, unfused frontend in training)")
+    out["wavlm-large 5 s remat"] = dict(step_ms=wall * 1e3, peak_gb=peak,
+                                        held_gb=held)
+    del brain, bridge, head
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def base_int8(rng):
+    """Row 5 at int8 wav2vec2-base's shapes, bit for bit against its plain
+    version and timed beside bf16 ``torch.matmul``; then the base model
+    served in int8 (``quantize_wav2vec2``) with its launches asserted."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    for m, k, n in BASE_INT8_SHAPES:
+        for tag, dtype in DTYPES.items():
+            hold_int8(m, k, n, tag, dtype, gen, " (wav2vec2-base)")
+    rows = int8_timings(gen, shapes=BASE_INT8_SHAPES[1:])
+    bridge, head = seeded_bridge(FAMILY_NAMES["wav2vec2-base"], SEED + 51)
+    trs = {"float": BatchedAMTTranscriber(bridge, head, chunk_seconds=5.0,
+                                          batch_size=8),
+           "int8": BatchedAMTTranscriber(quantize_wav2vec2(bridge), head,
+                                         chunk_seconds=5.0, batch_size=8)}
+    per_batch = {}
+    for name in ("float", "int8", "int8", "float"):
+        ms, launches = batch_ms(trs[name], rng)
+        per_batch.setdefault(name, []).append(ms)
+        want = BASE_INT8_LAUNCHES if name == "int8" else 0
+        if launches != want:
+            raise AssertionError(f"wav2vec2-base {name}: {launches} int8 "
+                                 f"launches a batch, want {want}")
+    log("  wav2vec2-base, one full batch (forward only, in turns): "
+        + "; ".join(f"{k} {np.mean(v):.3f} ms {[round(x, 3) for x in v]}"
+                    for k, v in per_batch.items())
+        + f"; int8 launches a batch {BASE_INT8_LAUNCHES}")
+    del trs
+    torch.cuda.empty_cache()
+    return {"batch_ms " + k: float(np.mean(v)) for k, v in per_batch.items()} \
+        | rows
+
+
+def family_recipe(rng):
+    """The MIR-ST500 recipe's command line with ``--ssl_model=wav2vec2-base
+    --feat_dim=768``: a probe and a finetune epoch, then ``evaluate``."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_family_recipe_")
+    try:
+        csvs = make_recipe_set(root, rng, FAMILY_RECIPE_SONGS)
+        out = os.path.join(root, "results")
+        argv = [os.path.join(RECIPE_YAMLS,
+                             "MIR_ST500/hparams/train_audio_ssl.yaml"),
+                "--device", "cuda", "--noprogressbar",
+                f"--data_folder={root}", f"--output_folder={out}",
+                f"--train_csv={csvs['train']}",
+                f"--valid_csv={csvs['valid']}",
+                f"--test_csv=[{csvs['test']}]", "--number_of_epochs=2",
+                "--linear_prob_epochs=1", "--num_workers=2",
+                "--ssl_model=wav2vec2-base", "--feat_dim=768"]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        brain = mir_recipe.main(argv)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        c = brain.modules.wav2vec2.config
+        with open(os.path.join(out, "train_log.txt")) as f:
+            lines = f.read().splitlines()
+        n_eval = (2 * len(FAMILY_RECIPE_SONGS["valid"])
+                  + len(FAMILY_RECIPE_SONGS["test"]))
+        ok = (c == Wav2Vec2Config.base()
+              and not brain.modules.wav2vec2.normalize_wav
+              and len(lines) == 3 and lines[-1].startswith("Epoch loaded")
+              and counts["conv_frontend"] == 0
+              and counts["flash_attention_short"] >= c.num_layers * n_eval
+              and counts["flash_attention_short"] % c.num_layers == 0
+              and brain.COn_f1.count == len(FAMILY_RECIPE_SONGS["test"]))
+        log(f"  recipe --ssl_model=wav2vec2-base --feat_dim=768: "
+            f"{wall:.1f} s for 2 epochs and evaluate; config base="
+            f"{c == Wav2Vec2Config.base()}, normalize_wav="
+            f"{brain.modules.wav2vec2.normalize_wav}; launches {counts}; "
+            f"train log {lines} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the recipe did not run wav2vec2-base as "
+                                 "asked")
+        return wall
+    finally:
+        shutil.rmtree(root)
+
+
+def families_phase(rng):
+    """Phase 20; returns its summary."""
+    t0 = time.perf_counter()
+    summary = dict(serving=family_serving(rng))
+    family_card_vs_cpu(rng)
+    summary["training"] = remat_steps(rng)
+    summary["int8_base"] = base_int8(rng)
+    summary["recipe_s"] = family_recipe(rng)
+    summary["phase_s"] = time.perf_counter() - t0
+    return summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4068,6 +4391,13 @@ def main():
             "sweep, int8 serving, card vs CPU")
         fusion_counts, fusion_summary = fusion_phase(root, rng)
         log(f"  fusion summary: {json.dumps(fusion_summary)}")
+        log("phase 20: the SSL families at full width: wav2vec2-base, "
+            "data2vec-audio-large and WavLM-large served by name, 2 layers "
+            "of each and AV-HuBERT base card vs CPU, data2vec remat steps, "
+            "WavLM-large with remat, int8 wav2vec2-base, the recipe with "
+            "--ssl_model=wav2vec2-base")
+        families_summary = families_phase(rng)
+        log(f"  phase 20 summary: {json.dumps(families_summary)}")
     finally:
         shutil.rmtree(root)
 

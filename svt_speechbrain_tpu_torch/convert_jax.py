@@ -6,12 +6,15 @@ arrays (numpy, or anything ``np.asarray`` reads)::
     {"wav2vec2": {"encoder": {...}}, "model": {"w": ..., "b": ...}}
 
 with the key names of the JAX ``init``s (``feature_extractor/{i}/conv/{w,b}``,
-``feature_extractor/{i}/layer_norm/{scale,bias}``, ``feat_proj_ln``,
-``feat_proj``, ``pos_conv/{v,g,b}``, ``layers/{i}/attn/{wq..bo}``,
-``layers/{i}/{ffn1,ffn2,ln1,ln2}``, ``encoder_ln``) and fills the port's
-modules, converting conv weights from the JAX (k, in/groups, out) layout to
-torch's (out, in/groups, k). Loading is strict: a missing, extra or
-misshapen entry raises.
+``feature_extractor/{i}/layer_norm/{scale,bias}`` or, in "group" mode,
+``feature_extractor/0/group_norm/{scale,bias}``, ``feat_proj_ln`` when the
+config has it, ``feat_proj``, ``pos_conv/{v,g,b}`` or data2vec's
+``pos_conv/{i}/{w,b}``, ``layers/{i}/attn/{wq..bo}`` and for WavLM
+``layers/{i}/attn/{gru_w,gru_b,gru_const}`` and ``layers/0/attn/
+rel_attn_embed``, ``layers/{i}/{ffn1,ffn2,ln1,ln2}``, ``encoder_ln``) and
+fills the port's modules, converting conv weights from the JAX (k,
+in/groups, out) layout to torch's (out, in/groups, k). Loading is strict:
+a missing, extra or misshapen entry raises.
 
 A tree quantized by the JAX package's ``models/quantize.py`` loads too:
 wherever it holds ``w_q8``/``w_scale`` (or ``wq_q8``/``wq_scale``, ...) in
@@ -69,6 +72,8 @@ from svt_speechbrain_tpu_torch.nnet.normalization import _BatchNorm
 _RNN_LEAF = re.compile(r"(?:^|/)l(\d+)(_rev)?/([wb])_(ih|hh)$")
 _RNN_PARAM = re.compile(
     r"(?:^|/)layers/(\d+)/(weight|bias)_(ih|hh)_l0(_reverse)?$")
+# data2vec's stacked positional convs: pos_conv/{i}/w, (k, in/groups, out)
+_STACKED_POS_CONV = re.compile(r"(?:^|/)pos_conv/\d+/w$")
 
 
 def _flatten(tree, prefix=""):
@@ -94,7 +99,7 @@ def _convert(path, value):
         name, t = name[:-1] + "weight", jax_to_torch_conv_weight(t)
     elif re.search(r"feature_extractor/layers/\d+/conv/b$", name):
         name = name[:-1] + "bias"
-    elif name.endswith("pos_conv/v"):
+    elif name.endswith("pos_conv/v") or _STACKED_POS_CONV.search(name):
         t = jax_to_torch_conv_weight(t)
     elif name.endswith("pos_conv/g"):
         t = t.reshape(1, 1, -1)                # (k, 1, 1) → (1, 1, k)
@@ -296,14 +301,38 @@ def _init_pos_conv(generator, d, k, groups):
             "b": _bias(generator, (d,), in_g * k)}
 
 
-def _init_layers(generator, n, d, ffn):
+def _init_wavlm_attn(generator, d, heads, rel_attn_embed, num_buckets):
+    """WavLM's attention tree (``wav2vec2.py:375``): kaiming-uniform
+    projections with torch-style biases, the gate's ``gru_w`` (head_dim, 8)
+    and ``gru_b``, a unit ``gru_const`` (1, H, 1, 1), and in layer 0 the
+    bucket embedding ``rel_attn_embed``, normal(0, 0.02)."""
+    attn = {}
+    for name in ("q", "k", "v", "o"):
+        attn[f"w{name}"] = _kaiming(generator, (d, d), d)
+        attn[f"b{name}"] = _bias(generator, (d,), d)
+    hd = d // heads
+    attn["gru_w"] = _kaiming(generator, (hd, 8), hd)
+    attn["gru_b"] = _bias(generator, (8,), hd)
+    attn["gru_const"] = np.ones((1, heads, 1, 1), np.float32)
+    if rel_attn_embed:
+        attn["rel_attn_embed"] = (torch.randn(
+            num_buckets, heads, generator=generator) * 0.02).numpy()
+    return attn
+
+
+def _init_layers(generator, n, d, ffn, heads=None, num_buckets=None):
+    """The encoder layers' trees; with ``heads`` and ``num_buckets`` WavLM's
+    gated attention, else glorot-uniform projections with zero biases."""
     limit = math.sqrt(6.0 / (2 * d))
     layers = {}
     for i in range(n):
-        attn = {}
-        for name in ("q", "k", "v", "o"):
-            attn[f"w{name}"] = _uniform(generator, (d, d), limit)
-            attn[f"b{name}"] = np.zeros(d, np.float32)
+        if num_buckets is not None:
+            attn = _init_wavlm_attn(generator, d, heads, i == 0, num_buckets)
+        else:
+            attn = {}
+            for name in ("q", "k", "v", "o"):
+                attn[f"w{name}"] = _uniform(generator, (d, d), limit)
+                attn[f"b{name}"] = np.zeros(d, np.float32)
         layers[str(i)] = {"attn": attn,
                           "ffn1": init_linear(generator, d, ffn),
                           "ffn2": init_linear(generator, ffn, d),
@@ -312,25 +341,42 @@ def _init_layers(generator, n, d, ffn):
 
 
 def init_wav2vec2(config, generator):
-    """Seeded bridge tree {"encoder": ...} at the JAX shapes: kaiming-uniform
-    convs and linears with torch-style biases, glorot-uniform attention
-    projections with zero biases, unit LayerNorms, and a weight-norm ``g``
-    equal to the norm of ``v``."""
+    """Seeded bridge tree {"encoder": ...} at the JAX shapes of every
+    family: kaiming-uniform convs and linears with torch-style biases (no
+    conv bias without ``conv_bias``), unit LayerNorms after every conv or a
+    unit GroupNorm after the first ("group" mode), a feature-projection
+    LayerNorm unless ``feat_proj_layer_norm`` is False, a weight-norm ``g``
+    equal to the norm of ``v`` or data2vec's stacked convs ``"0"``...,
+    glorot-uniform attention projections with zero biases, or WavLM's
+    gated attention (``_init_wavlm_attn``)."""
     c = config
     fe, in_ch = {}, 1
     for i, (dim, k) in enumerate(zip(c.conv_dim, c.conv_kernel)):
         conv = {"w": _kaiming(generator, (k, in_ch, dim), in_ch * k)}
         if c.conv_bias:
             conv["b"] = _bias(generator, (dim,), in_ch * k)
-        fe[str(i)] = {"conv": conv, "layer_norm": _ln(dim)}
+        fe[str(i)] = {"conv": conv}
+        if c.feat_extract_norm == "layer":
+            fe[str(i)]["layer_norm"] = _ln(dim)
+        elif i == 0:
+            fe[str(i)]["group_norm"] = _ln(dim)
         in_ch = dim
     d = c.hidden_size
-    pos_conv = _init_pos_conv(generator, d, c.num_conv_pos_embeddings,
-                              c.num_conv_pos_embedding_groups)
-    layers = _init_layers(generator, c.num_layers, d, c.ffn_size)
-    encoder = {"feature_extractor": fe, "feat_proj_ln": _ln(c.conv_dim[-1]),
+    if c.pos_conv_type == "stacked":
+        k, in_g = c.pos_conv_kernel, d // c.num_conv_pos_embedding_groups
+        pos_conv = {str(i): {"w": _kaiming(generator, (k, in_g, d), in_g * k),
+                             "b": _bias(generator, (d,), in_g * k)}
+                    for i in range(c.pos_conv_depth)}
+    else:
+        pos_conv = _init_pos_conv(generator, d, c.num_conv_pos_embeddings,
+                                  c.num_conv_pos_embedding_groups)
+    layers = _init_layers(generator, c.num_layers, d, c.ffn_size, c.num_heads,
+                          c.num_buckets if c.rel_pos_bias else None)
+    encoder = {"feature_extractor": fe,
                "feat_proj": init_linear(generator, c.conv_dim[-1], d),
                "pos_conv": pos_conv, "encoder_ln": _ln(d), "layers": layers}
+    if c.feat_proj_layer_norm:
+        encoder["feat_proj_ln"] = _ln(c.conv_dim[-1])
     return {"encoder": encoder}
 
 
@@ -486,7 +532,7 @@ def _unconvert(name, tensor):
         path, t = path[:-len("weight")] + "w", t.permute(2, 1, 0)
     elif re.search(r"feature_extractor/\d+/conv/bias$", path):
         path = path[:-len("bias")] + "b"
-    elif path.endswith("pos_conv/v"):
+    elif path.endswith("pos_conv/v") or _STACKED_POS_CONV.search(path):
         t = t.permute(2, 1, 0)
     elif path.endswith("pos_conv/g"):
         t = t.reshape(-1, 1, 1)                # (1, 1, k) → (k, 1, 1)

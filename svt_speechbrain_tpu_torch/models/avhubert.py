@@ -6,16 +6,17 @@
 - a missing modality zero-filled at the encoder width;
 - modality fuse by channel concat (default) or add → ``layer_norm`` →
   ``post_extract_proj`` (2048 → 1024 for concat);
-- the wav2vec2 pre-LN encoder of the port (``ConvPositionalEmbedding`` and
+- the wav2vec2 encoder of the port (``ConvPositionalEmbedding`` and
   ``TransformerLayer`` of ``models/wav2vec2.py``), run without key lengths
-  (every frame attends to every frame, padding included), then
-  ``encoder_ln``.
+  (every frame attends to every frame, padding included): pre-LN layers
+  then ``encoder_ln`` for AV-HuBERT large (``layer_norm_first``), or
+  ``encoder_ln`` then post-LN layers for AV-HuBERT base
+  (``AVHubertConfig.base()``).
 
 The BatchNorm running statistics of the visual frontend are buffers of the
 modules, updated in place by a training forward (the JAX package threads
-them as a state tree). ``AVHubertConfig.base()`` is a post-LN encoder,
-which the port's encoder refuses until ROADMAP.md queue 1 item 4 ports it.
-The pretraining half (``AVHubertPretrain`` and its helpers) is not ported.
+them as a state tree). The pretraining half (``AVHubertPretrain`` and its
+helpers) is not ported.
 """
 from __future__ import annotations
 
@@ -27,8 +28,7 @@ from torch import nn
 
 from svt_speechbrain_tpu_torch.models.resnet import ResEncoder
 from svt_speechbrain_tpu_torch.models.wav2vec2 import (
-    ConvPositionalEmbedding, TransformerLayer, Wav2Vec2Config,
-    _check_supported, _drop)
+    ConvPositionalEmbedding, TransformerLayer, Wav2Vec2Config, _drop)
 from svt_speechbrain_tpu_torch.nnet.linear import Linear
 from svt_speechbrain_tpu_torch.nnet.normalization import (LayerNorm,
                                                           global_layer_norm)
@@ -124,7 +124,6 @@ class AVHubertModel(nn.Module):
         super().__init__()
         self.config = c = config or AVHubertConfig.large()
         enc_cfg = c.encoder_cfg()
-        _check_supported(enc_cfg)
         self.enc_cfg = enc_cfg
         self.feature_extractor_audio = AudioSubModel(c)
         self.feature_extractor_video = VideoSubModel(c)
@@ -167,10 +166,13 @@ class AVHubertModel(nn.Module):
         if self.post_extract_proj is not None:
             features = self.post_extract_proj(features)
         features = _drop(features, c.dropout_input, rng, train)
-        x = _drop(features + self.pos_conv(features), c.dropout, rng, train)
+        x = features + self.pos_conv(features)
+        if not c.layer_norm_first:
+            x = self.encoder_ln(x)
+        x = _drop(x, c.dropout, rng, train)
         for layer in self.layers:
             x = layer(x, rng=rng, train=train)
-        return self.encoder_ln(x)
+        return self.encoder_ln(x) if c.layer_norm_first else x
 
 
 class FairseqAVHubert(nn.Module):

@@ -11,11 +11,11 @@ onto ``models.wav2vec2.Wav2Vec2Encoder``'s. Layout changes:
   ``weight_v`` → ``v``, under both the classic names and the
   ``parametrizations.weight.original0/1`` ones.
 
-Only the family the port runs is converted: the "layer"-norm extractor with
-a pre-LN encoder and a weight-normed positional conv (wav2vec2-large-lv60).
-The "group" extractor, HuBERT without a projection LayerNorm, data2vec's
-stacked positional convs and WavLM's relative position bias raise
-``NotImplementedError`` until their models are ported.
+Every family of the name-sniffing bridge converts (``convert_hf.py:50``):
+``Wav2Vec2Model`` base and large, ``HubertModel`` (with or without the
+projection LayerNorm), ``Data2VecAudioModel`` (stacked plain positional
+convs, no conv bias) and ``WavLMModel`` (gated relative position bias).
+The "group" extractor's GroupNorm is stored as ``conv_layers.0.layer_norm``.
 """
 from __future__ import annotations
 
@@ -71,7 +71,6 @@ def convert_wav2vec2_state_dict(sd, config):
     _check_supported(config)
     for prefix in _PREFIXES:
         sd = {k.removeprefix(prefix): v for k, v in sd.items()}
-
     def get(key, transpose=False):
         t = torch.as_tensor(np.asarray(sd[key]), dtype=torch.float32)
         return (t.t() if transpose else t).contiguous().clone()
@@ -92,18 +91,28 @@ def convert_wav2vec2_state_dict(sd, config):
         out[f"{dst}.conv.weight"] = get(f"{src}.conv.weight")
         if config.conv_bias:
             out[f"{dst}.conv.bias"] = get(f"{src}.conv.bias")
-        norm(f"{dst}.layer_norm", f"{src}.layer_norm")
-    norm("feat_proj_ln", "feature_projection.layer_norm")
+        if config.feat_extract_norm == "layer":
+            norm(f"{dst}.layer_norm", f"{src}.layer_norm")
+        elif i == 0:
+            norm(f"{dst}.group_norm", f"{src}.layer_norm")
+    if config.feat_proj_layer_norm:
+        norm("feat_proj_ln", "feature_projection.layer_norm")
     linear("feat_proj", "feature_projection.projection")
 
-    pc = "encoder.pos_conv_embed.conv."
-    if pc + "weight_g" in sd:
-        g, v = pc + "weight_g", pc + "weight_v"
+    if config.pos_conv_type == "stacked":
+        for i in range(config.pos_conv_depth):
+            pc = f"encoder.pos_conv_embed.layers.{i}.conv."
+            out[f"pos_conv.{i}.w"] = get(pc + "weight")
+            out[f"pos_conv.{i}.b"] = get(pc + "bias")
     else:
-        g = pc + "parametrizations.weight.original0"
-        v = pc + "parametrizations.weight.original1"
-    out["pos_conv.g"], out["pos_conv.v"] = get(g), get(v)
-    out["pos_conv.b"] = get(pc + "bias")
+        pc = "encoder.pos_conv_embed.conv."
+        if pc + "weight_g" in sd:
+            g, v = pc + "weight_g", pc + "weight_v"
+        else:
+            g = pc + "parametrizations.weight.original0"
+            v = pc + "parametrizations.weight.original1"
+        out["pos_conv.g"], out["pos_conv.v"] = get(g), get(v)
+        out["pos_conv.b"] = get(pc + "bias")
     norm("encoder_ln", "encoder.layer_norm")
 
     for i in range(config.num_layers):
@@ -116,6 +125,15 @@ def convert_wav2vec2_state_dict(sd, config):
         out[f"{dst}.attn.wo"] = get(f"{src}.attention.out_proj.weight",
                                     transpose=True)
         out[f"{dst}.attn.bo"] = get(f"{src}.attention.out_proj.bias")
+        if config.rel_pos_bias:
+            att = f"{src}.attention."
+            out[f"{dst}.attn.gru_const"] = get(att + "gru_rel_pos_const")
+            out[f"{dst}.attn.gru_w"] = get(
+                att + "gru_rel_pos_linear.weight", transpose=True)
+            out[f"{dst}.attn.gru_b"] = get(att + "gru_rel_pos_linear.bias")
+            if i == 0:
+                out[f"{dst}.attn.rel_attn_embed"] = get(
+                    att + "rel_attn_embed.weight")
         norm(f"{dst}.ln1", f"{src}.layer_norm")
         norm(f"{dst}.ln2", f"{src}.final_layer_norm")
         linear(f"{dst}.ffn1", f"{src}.feed_forward.intermediate_dense")
@@ -124,13 +142,14 @@ def convert_wav2vec2_state_dict(sd, config):
 
 
 def config_from_hf(hf):
-    """The port's ``Wav2Vec2Config`` for a HF ``config.json`` dict; a family
-    the port does not run raises ``NotImplementedError``."""
+    """The port's ``Wav2Vec2Config`` for a HF ``config.json`` dict of any
+    family (``convert_hf.py:202-229``): a data2vec-audio config without
+    ``feat_extract_norm`` is "layer" (others default to "group"), its depth
+    of stacked positional convs is ``num_conv_pos_embeddings`` and their
+    kernel ``conv_pos_kernel_size``; WavLM takes its bucket settings."""
     model_type = hf.get("model_type", "wav2vec2")
-    if model_type != "wav2vec2":
-        raise NotImplementedError(
-            f"not ported yet: model_type={model_type!r} checkpoints")
-    config = Wav2Vec2Config(
+    data2vec = model_type == "data2vec-audio"
+    return Wav2Vec2Config(
         hidden_size=hf["hidden_size"],
         num_layers=hf["num_hidden_layers"],
         num_heads=hf["num_attention_heads"],
@@ -138,15 +157,21 @@ def config_from_hf(hf):
         conv_dim=tuple(hf["conv_dim"]),
         conv_kernel=tuple(hf["conv_kernel"]),
         conv_stride=tuple(hf["conv_stride"]),
-        feat_extract_norm=hf.get("feat_extract_norm", "group"),
+        feat_extract_norm=hf.get("feat_extract_norm",
+                                 "layer" if data2vec else "group"),
         conv_bias=hf.get("conv_bias", False),
         num_conv_pos_embeddings=hf["num_conv_pos_embeddings"],
         num_conv_pos_embedding_groups=hf["num_conv_pos_embedding_groups"],
         do_stable_layer_norm=hf.get("do_stable_layer_norm", False),
         layer_norm_eps=hf.get("layer_norm_eps", 1e-5),
-        feat_proj_layer_norm=hf.get("feat_proj_layer_norm", True))
-    _check_supported(config)
-    return config
+        feat_proj_layer_norm=hf.get("feat_proj_layer_norm", True),
+        pos_conv_type="stacked" if data2vec else "weight_norm",
+        pos_conv_depth=(hf.get("num_conv_pos_embeddings", 5) if data2vec
+                        else 5),
+        pos_conv_kernel=hf.get("conv_pos_kernel_size", 19),
+        rel_pos_bias=model_type == "wavlm",
+        num_buckets=hf.get("num_buckets", 320),
+        max_bucket_distance=hf.get("max_bucket_distance", 800))
 
 
 def load_wav2vec2(path, config=None):

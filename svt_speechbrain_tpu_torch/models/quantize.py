@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import copy
 
+from svt_speechbrain_tpu_torch.nnet.attention import MultiheadAttention
 from svt_speechbrain_tpu_torch.ops.quant import quantize_weight
 
 _MHA_WEIGHTS = ("wq", "wk", "wv", "wo")
@@ -76,15 +77,18 @@ def quantize_mha_params(mha):
 
 def quantize_wav2vec2(bridge, quantize_attn=False, quantize_feat_proj=True):
     """A copy of ``bridge`` (a ``HuggingFaceWav2Vec2``, or a bare
-    ``Wav2Vec2Encoder``) with int8 FFN weights in every layer, an int8
-    ``feat_proj`` unless ``quantize_feat_proj`` is False, and int8 attention
-    projections if ``quantize_attn``."""
+    ``Wav2Vec2Encoder``) of any family with int8 FFN weights in every
+    layer, an int8 ``feat_proj`` unless ``quantize_feat_proj`` is False, and
+    int8 attention projections if ``quantize_attn`` (not WavLM's gated
+    attention, which stays float)."""
     out = copy.deepcopy(bridge).requires_grad_(False)
     encoder = getattr(out, "encoder", out)
     for layer in encoder.layers:
         _quantize_(layer.ffn1, ("w",))
         _quantize_(layer.ffn2, ("w",))
-        if quantize_attn:
+        # WavLM's gated attention stays float, as in the JAX package
+        # (``quantize.py:81-84``)
+        if quantize_attn and isinstance(layer.attn, MultiheadAttention):
             _quantize_(layer.attn, _MHA_WEIGHTS)
     if quantize_feat_proj:
         _quantize_(encoder.feat_proj, ("w",))

@@ -1,4 +1,4 @@
-"""Layer and batch normalization (port of
+"""Layer, group and batch normalization (port of
 ``svt_speechbrain_tpu/nnet/normalization.py``). Channel-last; statistics are
 taken in f32 for low-precision inputs and the result is cast back."""
 from __future__ import annotations
@@ -98,6 +98,41 @@ def per_item_masked_layer_norm(x, valid, eps=1e-5):
     m = m.expand(x32.shape)
     mean, var = _masked_stats(x32, m, tuple(range(1, x32.dim())))
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """Group norm over channel-last input (``normalization.py:122``, the
+    affine form): (batch, ..., channels), the channels split into
+    ``num_groups`` groups, statistics in f32 over every axis but (batch,
+    group), the result cast back.
+
+    Example
+    -------
+    >>> import torch
+    >>> gn = GroupNorm(input_size=4, num_groups=2)
+    >>> x = torch.arange(24, dtype=torch.float32).reshape(2, 3, 4)
+    >>> y = gn(x)
+    >>> y.shape, round(float(y[0, :, :2].mean()), 6)
+    (torch.Size([2, 3, 4]), 0.0)
+    """
+
+    def __init__(self, input_size, num_groups, eps=1e-05):
+        super().__init__()
+        if input_size % num_groups:
+            raise ValueError("input_size must be divisible by num_groups")
+        self.input_size = input_size
+        self.num_groups = num_groups
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(input_size))
+        self.bias = nn.Parameter(torch.zeros(input_size))
+
+    def forward(self, x):
+        b, g = x.shape[0], self.num_groups
+        x32 = x.float().reshape(b, -1, g, self.input_size // g)
+        mean = x32.mean(dim=(1, 3), keepdim=True)
+        var = (x32 - mean).square().mean(dim=(1, 3), keepdim=True)
+        y = ((x32 - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        return (y * self.scale + self.bias).to(x.dtype)
 
 
 class _BatchNorm(nn.Module):

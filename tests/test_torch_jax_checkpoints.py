@@ -36,6 +36,7 @@ from svt_speechbrain_tpu_torch.utils import checkpoints
 from tests.test_torch_recipe_mir_st500 import (  # noqa: F401 (fixture)
     ARCH, JAX_YAML, NO_DROPOUT, _load_jax_recipe, _overrides, _port_hparams,
     _recording, _run, songs)
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 import tests.test_torch_recipe_mir_st500 as mir
 from svt_speechbrain_tpu_torch.recipes.MIR_ST500 import \

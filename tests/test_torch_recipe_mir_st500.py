@@ -39,6 +39,7 @@ from svt_speechbrain_tpu_torch.recipes.MIR_ST500 import \
 from svt_speechbrain_tpu_torch.tasks import amt
 from tests.conftest import REPO_ROOT
 from tests.test_recipe_mir_st500 import _make_note_track
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 JAX_RECIPE = os.path.join(REPO_ROOT, "recipes", "MIR_ST500")
 JAX_YAML = os.path.join(JAX_RECIPE, "hparams", "train_audio_ssl.yaml")
@@ -287,17 +288,30 @@ def _killed_at(step):
     return Killed
 
 
+def _recovery_tree():
+    return init_params(Wav2Vec2Config(**dict(ARCH, conv_dim=(16,) * 7)),
+                       torch.Generator().manual_seed(1))
+
+
+@pytest.fixture(scope="module")
+def uninterrupted(songs, tmp_path_factory):
+    """The 2 straight epochs (dropout on) that both recovery cases end
+    against, run once."""
+    return _port_run(songs, tmp_path_factory.mktemp("straight"),
+                     _recovery_tree(), ARCH)
+
+
 @pytest.mark.parametrize("where", ["end_of_epoch", "mid_epoch"])
-def test_recovered_run_equals_an_uninterrupted_one(songs, tmp_path, where):
+def test_recovered_run_equals_an_uninterrupted_one(songs, uninterrupted,
+                                                   tmp_path, where):
     """Dropout on (0.1 everywhere). ``end_of_epoch``: 1 epoch, then a new
     brain recovers and runs the second. ``mid_epoch``: intra-epoch
     checkpoints after every step, the run killed before the second step of
     epoch 2, a new brain recovers (the loader skips the batch consumed) and
     finishes. Parameters, optimizer states and the train log are bit for
-    bit those of 2 straight epochs."""
-    tree = init_params(Wav2Vec2Config(**dict(ARCH, conv_dim=(16,) * 7)),
-                       torch.Generator().manual_seed(1))
-    straight = _port_run(songs, tmp_path / "straight", tree, ARCH)
+    bit those of 2 straight epochs (``uninterrupted``)."""
+    tree = _recovery_tree()
+    straight = uninterrupted
     if where == "end_of_epoch":
         _port_run(songs, tmp_path / "resumed", tree, ARCH, epochs=1,
                   evaluate=False)
@@ -361,6 +375,9 @@ def test_command_line_trains_and_evaluates(songs, tmp_path):
     out = tmp_path / "results"
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO_ROOT
+    # the recipe's process, like this module, on two torch threads
+    # (``tests/torch_threads.py``)
+    env["OMP_NUM_THREADS"] = "2"
     res = subprocess.run(
         [sys.executable, "-m",
          "svt_speechbrain_tpu_torch.recipes.MIR_ST500.train_audio_ssl",

@@ -44,6 +44,7 @@ from svt_speechbrain_tpu_torch.recipes.N20EMv2.video_only import (
     extract_ssl_feats, prepare_n20emv2, train_video_ssl)
 from tests.test_torch_recipe_n20emv2 import _load, _recording
 from tests.test_recipe_n20emv2 import _make_notes
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 JAX_RECIPES = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "recipes")

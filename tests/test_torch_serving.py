@@ -520,21 +520,27 @@ def test_convert_hf_fills_the_encoder_like_jax(weight_norm_names):
 
 
 def test_convert_hf_refuses_families_the_port_does_not_run(tmp_path):
-    with pytest.raises(NotImplementedError, match="group"):
+    """Every family converts now; only activation sharding is refused."""
+    with pytest.raises(NotImplementedError, match="act_sharding"):
         convert_hf.convert_wav2vec2_state_dict(
-            {}, Wav2Vec2Config(feat_extract_norm="group"))
+            {}, Wav2Vec2Config(act_sharding=("data", None, None)))
     base = {"hidden_size": 64, "num_hidden_layers": 1,
             "num_attention_heads": 4, "intermediate_size": 128,
             "conv_dim": [32] * 7, "conv_kernel": [10, 3, 3, 3, 3, 2, 2],
             "conv_stride": [5, 2, 2, 2, 2, 2, 2],
             "num_conv_pos_embeddings": 16,
             "num_conv_pos_embedding_groups": 4}
-    for extra in ({"model_type": "wavlm"}, {"model_type": "data2vec-audio"},
-                  {"model_type": "hubert"}, {"feat_extract_norm": "group"},
-                  {"feat_extract_norm": "layer",
-                   "do_stable_layer_norm": False}):
-        with pytest.raises(NotImplementedError):
-            convert_hf.config_from_hf({**base, **extra})
+    for extra, want in (
+            ({"model_type": "wavlm"}, dict(rel_pos_bias=True)),
+            ({"model_type": "data2vec-audio"},
+             dict(pos_conv_type="stacked", pos_conv_depth=16,
+                  feat_extract_norm="layer")),
+            ({"model_type": "hubert"}, dict(feat_extract_norm="group")),
+            ({"feat_extract_norm": "group"}, dict(feat_extract_norm="group")),
+            ({"feat_extract_norm": "layer", "do_stable_layer_norm": False},
+             dict(feat_extract_norm="layer", do_stable_layer_norm=False))):
+        got = convert_hf.config_from_hf({**base, **extra})
+        assert {k: getattr(got, k) for k in want} == want, extra
     # a checkpoint directory with a config.json and a torch state dict
     hf = {**base, "feat_extract_norm": "layer", "do_stable_layer_norm": True,
           "conv_bias": True}

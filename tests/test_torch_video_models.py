@@ -357,8 +357,14 @@ def test_fairseq_avhubert_output_norm_and_freeze(avhubert_runs):
 
 
 def test_base_config_and_missing_streams_raise():
-    with pytest.raises(NotImplementedError, match="post-LN"):
-        avhubert.AVHubertModel(avhubert.AVHubertConfig.base())
+    """AV-HuBERT base builds (post-LN layers; its parity with the JAX model
+    is held in ``test_torch_wav2vec2_families.py``); a source with neither
+    stream raises."""
+    with torch.device("meta"):
+        base = avhubert.AVHubertModel(avhubert.AVHubertConfig.base())
+    assert len(base.layers) == 12 and base.post_extract_proj.w.shape == (
+        1536, 768)
+    assert not base.layers[0].config.do_stable_layer_norm
     with pytest.raises(ValueError):
         avhubert.AVHubertModel(avhubert.AVHubertConfig(**TINY)
                                ).extract_finetune({})
