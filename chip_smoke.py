@@ -181,8 +181,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and the MIR-ST500 recipe's command line with
    ``--ssl_model=wav2vec2-base --feat_dim=768`` (a probe and a finetune
    epoch, ``evaluate``).
+21. AV-HuBERT seq2seq ASR at full width: ``AVHubertASR.from_fairseq`` on a
+   state dict built on the card from one seed with exactly the keys and
+   shapes of ``tests/fixtures/ckpt_manifests.json``'s
+   ``avhubert-asr-seq2seq`` (AV-HuBERT large, 24 x 1024, and the fairseq
+   decoder, 6 x 1024, V 1000), f32; a batch of 4 utterances of 5 s at 25
+   fps (audio features (4, 125, 104), lip ROIs (4, 125, 88, 88, 1)), one
+   shorter through ``frame_lengths``, beam 5, ``max_len_b`` 200:
+   ``encode`` (24 launches of row 2, nothing else) and ``transcribe`` on
+   the generator's fast path, the same search forced onto its host path
+   (an LM of zeros) and ``transcribe(device_search=True)``, each with 24
+   launches of row 2 for its encode and none in its decoder steps, the
+   three giving equal tokens and scores within 1e-5; encode ms, ms a batch,
+   a step, best-hypothesis tokens a second, device-to-host reads a step of
+   each route, peak memory; then 2 encoder and 2 decoder layers at full
+   width, f32, on the card against the CPU (features, tokens, scores).
 
-Phases run in the order 1-5, 8, 9, 6, 7, 10-15, 19, 17, 18, 16, 20.
+Phases run in the order 1-5, 8, 9, 6, 7, 10-15, 19, 17, 18, 16, 20, 21.
 
 Phases 2 and 5 also hold and time the two RNN-T kernels (the lattice on
 alpha and on beta panels, the gradient) against their plain versions at the
@@ -211,6 +226,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -230,11 +246,11 @@ from svt_speechbrain_tpu_torch.dataio.batch import PaddedData  # noqa: E402
 from svt_speechbrain_tpu_torch.flagship import (HEAD_OUTPUTS,  # noqa: E402
                                                 build_modules)
 from svt_speechbrain_tpu_torch.convert_jax import (  # noqa: E402
-    _flatten, init_avhubert, init_embedding, init_linear, init_modules,
-    init_params, init_rnn, init_wav2vec2, load_jax_params, load_module_tree,
-    load_msgpack, module_tree)
+    _flatten, init_avhubert, init_avhubert_asr, init_embedding, init_linear,
+    init_modules, init_params, init_rnn, init_wav2vec2, load_jax_params,
+    load_module_tree, load_msgpack, module_tree)
 from svt_speechbrain_tpu_torch.decoders import (  # noqa: E402
-    TransducerBeamSearcher)
+    FairseqSequenceGenerator, TransducerBeamSearcher)
 from svt_speechbrain_tpu_torch.models.wav2vec2 import (  # noqa: E402
     HuggingFaceWav2Vec2, Wav2Vec2Config)
 from svt_speechbrain_tpu_torch.nnet import losses  # noqa: E402
@@ -251,6 +267,8 @@ from svt_speechbrain_tpu_torch.inference import (  # noqa: E402
     BatchedAMTTranscriber)
 from svt_speechbrain_tpu_torch.models.avhubert import (  # noqa: E402
     AVHubertConfig, FairseqAVHubert)
+from svt_speechbrain_tpu_torch.models.avhubert_asr import (  # noqa: E402
+    AVHubertASR, default_decoder_config)
 from svt_speechbrain_tpu_torch.models.quantize import (  # noqa: E402
     quantize_avhubert, quantize_fusion, quantize_wav2vec2)
 from svt_speechbrain_tpu_torch.ops import _build  # noqa: E402
@@ -4224,6 +4242,243 @@ def families_phase(rng):
     return summary
 
 
+# ---------------------------------------------------------------- phase 21
+# AV-HuBERT seq2seq ASR at full width: the encoder of AV-HuBERT large and
+# the 6 x 1024 fairseq decoder (V 1000), from a seeded state dict with the
+# key names and shapes of tests/fixtures/ckpt_manifests.json
+ASR_MANIFEST = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures", "ckpt_manifests.json")
+ASR_BATCH, ASR_FRAMES, ASR_SIDE = 4, 125, 88          # 4 x 5 s at 25 fps
+ASR_LENGTHS = [125, 125, 90, 125]
+ASR_BEAM = 5
+# the decode routes on one card: the same steps on the same inputs, so the
+# scores of equal tokens differ only where the host adds in numpy what the
+# device adds in torch (IEEE, the same bits); held within 1e-5
+TOL_ASR_ROUTES = 1e-5
+# card vs CPU, 2 encoder and 2 decoder layers at full width, f32: the
+# encoder features at the end-to-end f32 tolerance, each hypothesis score
+# (a sum of up to ASR_CPU_STEPS + 1 log-probs of a 1000-way softmax whose
+# logits agree to ~1e-5) within 1e-3
+TOL_ASR_SCORE = 1e-3
+ASR_CPU_STEPS = 30
+
+
+def _zero_lm(tokens):
+    """A shallow-fusion LM that adds nothing: it sends ``generate`` down its
+    host path (the full log-probs read each step) without changing a
+    score."""
+    return torch.zeros(tokens.shape[0], 1000, device=tokens.device)
+
+
+def seeded_asr_state_dict(seed):
+    """A flat fairseq ``av_hubert_seq2seq`` state dict with exactly the
+    manifest's keys and shapes, built on the card from one seed: weights
+    of 2 or more dims normal(0, 1/sqrt(fan in)), biases normal(0, 0.02),
+    LayerNorm and BatchNorm scales 1, PReLU slopes 0.25, running means 0
+    and variances 1, ``mask_emb`` normal(0, 1); the batch counters and the
+    sinusoidal buffer as fairseq keeps them."""
+    with open(ASR_MANIFEST) as f:
+        manifest = json.load(f)["avhubert-asr-seq2seq"]
+    device = "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sd = {}
+    for key, shape in sorted(manifest.items()):
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf == "num_batches_tracked":
+            sd[key] = torch.zeros(shape, dtype=torch.long, device=device)
+        elif leaf in ("running_mean", "_float_tensor"):
+            sd[key] = torch.zeros(shape, device=device)
+        elif leaf == "running_var":
+            sd[key] = torch.ones(shape, device=device)
+        elif len(shape) >= 2:
+            fan_in = int(np.prod(shape[1:]))
+            sd[key] = torch.randn(shape, generator=gen, device=device) \
+                / math.sqrt(fan_in)
+        elif leaf == "bias":
+            sd[key] = torch.randn(shape, generator=gen, device=device) * 0.02
+        elif key.endswith(("relu1.weight", "relu2.weight",
+                           "frontend3D.2.weight")):
+            sd[key] = torch.full(shape, 0.25, device=device)
+        elif leaf == "weight":
+            sd[key] = torch.ones(shape, device=device)
+        else:
+            sd[key] = torch.randn(shape, generator=gen, device=device)
+    return sd
+
+
+def asr_inputs(rng, batch, frames):
+    audio = torch.from_numpy(rng.standard_normal((batch, frames, 104))
+                             .astype(np.float32))
+    video = torch.from_numpy(rng.standard_normal(
+        (batch, frames, ASR_SIDE, ASR_SIDE, 1)).astype(np.float32))
+    return audio, video
+
+
+def _same_hyps(a, b):
+    """(tokens equal, worst score difference) of two generators' outputs."""
+    equal, worst = True, 0.0
+    for ha, hb in zip(a, b):
+        equal &= len(ha) == len(hb) and all(
+            torch.equal(x["tokens"], y["tokens"]) for x, y in zip(ha, hb))
+        worst = max([worst] + [abs(x["score"] - y["score"])
+                               for x, y in zip(ha, hb)])
+    return equal and len(a) == len(b), worst
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def asr_full_width(rng):
+    """Phase 21's full-width half: build, encode, the three decode routes.
+    Returns the summary."""
+    t0 = time.perf_counter()
+    sd = seeded_asr_state_dict(SEED + 60)
+    n_keys = len(sd)
+    asr = AVHubertASR.from_fairseq(sd, beam_size=ASR_BEAM, device="cuda")
+    del sd
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in asr.parameters())
+    audio, video = asr_inputs(rng, ASR_BATCH, ASR_FRAMES)
+    audio, video = audio.cuda(), video.cuda()
+    layers = asr.encoder_config.encoder_layers
+    enc_cfg, dec_cfg = asr.encoder_config, asr.decoder_config
+    log(f"  AVHubertASR.from_fairseq on a seeded state dict of the "
+        f"avhubert-asr-seq2seq manifest's {n_keys} keys (the module's "
+        f"{len(asr.state_dict())} tensors): encoder "
+        f"{layers} x {enc_cfg.encoder_embed_dim} ({enc_cfg.encoder_attention_heads}"
+        f" heads), decoder {dec_cfg.num_layers} x {dec_cfg.embed_dim} (ffn "
+        f"{dec_cfg.ffn_dim}, {dec_cfg.num_heads} heads, post-LN), V "
+        f"{dec_cfg.vocab_size}; {n_params / 1e6:.1f} M parameters, built in "
+        f"{build_s:.1f} s")
+
+    # encode: row 2 once a layer, nothing else
+    asr.encode(audio=audio, video=video)                      # warm-up
+    ops.reset_launch_counts()
+    enc = asr.encode(audio=audio, video=video)
+    expect_counts(ops.launch_counts(), {"flash_attention_short": layers},
+                  "AVHubertASR.encode")
+    encode_ms = time_ms(lambda: asr.encode(audio=audio, video=video),
+                        iters=5, warmup=1)
+    assert enc.shape == (ASR_BATCH, ASR_FRAMES, 1024) and \
+        torch.isfinite(enc).all()
+
+    lengths = torch.tensor(ASR_LENGTHS, device="cuda")
+    mask = torch.arange(ASR_FRAMES, device="cuda")[None] >= lengths[:, None]
+    host_gen = FairseqSequenceGenerator(asr.decoder, beam_size=ASR_BEAM,
+                                        lm=_zero_lm)
+    routes = {
+        "fast": (asr.generator, lambda: asr.transcribe(
+            audio=audio, video=video, frame_lengths=ASR_LENGTHS)),
+        "host": (host_gen, lambda: host_gen.generate(
+            asr.encode(audio=audio, video=video),
+            encoder_padding_mask=mask)),
+        "device": (asr.generator, lambda: asr.transcribe(
+            audio=audio, video=video, frame_lengths=ASR_LENGTHS,
+            device_search=True)),
+    }
+    results, rows = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, (gen, run) in routes.items():
+        run()                                                 # warm-up
+        ops.reset_launch_counts()
+        hyps, wall = _timed(run)
+        expect_counts(ops.launch_counts(), {"flash_attention_short": layers},
+                      f"transcribe, {name} route (encode + decode)")
+        steps = gen.stats["steps"]
+        reads = gen.stats["host_reads"]
+        decode_s = wall - encode_ms / 1e3
+        n_tok = sum(len(h[0]["tokens"]) for h in hyps)
+        results[name] = hyps
+        rows[name] = dict(
+            ms_batch=wall * 1e3, decode_ms=decode_s * 1e3, steps=steps,
+            ms_step=decode_s * 1e3 / steps,
+            tokens_per_s=n_tok / decode_s,
+            host_reads_per_step=reads / steps)
+        log(f"  {name} route: {wall * 1e3:.1f} ms a batch (encode "
+            f"{encode_ms:.1f} ms + decode {decode_s * 1e3:.1f} ms), {steps} "
+            f"steps, {decode_s * 1e3 / steps:.3f} ms a step, "
+            f"{n_tok / decode_s:.1f} best-hypothesis tokens/s, "
+            f"{reads / steps:.3f} device-to-host reads a step ({reads} in "
+            f"all), best lengths {[len(h[0]['tokens']) for h in hyps]}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ("host", "device"):
+        equal, worst = _same_hyps(results["fast"], results[name])
+        ok = equal and worst <= TOL_ASR_ROUTES
+        log(f"  {name} route against the fast path: tokens equal {equal}, "
+            f"worst score difference {worst:.3e} (tol {TOL_ASR_ROUTES:.0e})"
+            f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the {name} decode route disagrees with "
+                                 f"the fast path")
+    for hyps in results["fast"]:
+        assert len(hyps) == ASR_BEAM and all(
+            int(h["tokens"][-1]) == asr.generator.eos
+            and np.isfinite(h["score"]) for h in hyps)
+    log(f"  peak memory over the three routes {peak:.2f} GiB "
+        f"(weights {n_params * 4 / 2 ** 30:.2f} GiB)")
+    summary = dict(encode_ms=encode_ms, routes=rows, peak_gb=peak,
+                   build_s=build_s)
+    del asr, enc, host_gen, routes, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def asr_card_vs_cpu(rng):
+    """A 2-encoder-layer, 2-decoder-layer f32 AVHubertASR at full width,
+    seeded, on the card and on the CPU: encoder features, tokens and scores
+    (fast path and device search)."""
+    enc_cfg = dataclasses.replace(AVHubertConfig.large(), encoder_layers=2)
+    dec_cfg = dataclasses.replace(default_decoder_config(), num_layers=2)
+    model = AVHubertASR(enc_cfg, dec_cfg, beam_size=ASR_BEAM,
+                        max_len_b=ASR_CPU_STEPS)
+    params, state = init_avhubert_asr(enc_cfg, dec_cfg,
+                                      torch.Generator().manual_seed(SEED + 61))
+    load_module_tree(model, params, state)
+    audio, video = asr_inputs(rng, 2, 50)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev).eval()
+        feats = m.encode(audio=audio, video=video).cpu()
+        hyps = m.transcribe(audio=audio, video=video, frame_lengths=[50, 35])
+        dev_hyps = m.transcribe(audio=audio, video=video,
+                                frame_lengths=[50, 35], device_search=True)
+        out[dev] = (feats, hyps, dev_hyps)
+        del m
+    err = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
+    equal, worst = _same_hyps(out["cuda"][1], out["cpu"][1])
+    equal_d, worst_d = _same_hyps(out["cuda"][2], out["cpu"][1])
+    ok = (err <= TOL_E2E_F32 and equal and equal_d
+          and max(worst, worst_d) <= TOL_ASR_SCORE)
+    log(f"  2 + 2 layers at full width, f32, (2, 50) frames: card vs CPU "
+        f"features max_abs_err={err:.3e} (tol {TOL_E2E_F32:.0e}); tokens "
+        f"equal {equal} (fast path), {equal_d} (card's device search vs "
+        f"CPU's fast path); worst score difference "
+        f"{max(worst, worst_d):.3e} (tol {TOL_ASR_SCORE:.0e}); best "
+        f"lengths {[len(h[0]['tokens']) for h in out['cuda'][1]]} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("AVHubertASR on the card disagrees with the CPU")
+    return dict(features_max_abs=err, score_max_abs=max(worst, worst_d))
+
+
+def asr_phase(rng):
+    """Phase 21; returns its summary. TF32 stays off, as in ``main``, so
+    that the phase holds alone too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    summary = asr_full_width(rng)
+    summary["card_vs_cpu"] = asr_card_vs_cpu(rng)
+    summary["phase_s"] = time.perf_counter() - t0
+    return summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4400,6 +4655,13 @@ def main():
         log(f"  phase 20 summary: {json.dumps(families_summary)}")
     finally:
         shutil.rmtree(root)
+
+    log("phase 21: AV-HuBERT seq2seq ASR at full width (AV-HuBERT large + "
+        "the 6 x 1024 decoder, V 1000) from the manifest's key schema: "
+        "encode, the fast, host and device decode routes, beam 5; 2 + 2 "
+        "layers card vs CPU")
+    asr_summary = asr_phase(rng)
+    log(f"  phase 21 summary: {json.dumps(asr_summary)}")
 
     kernels = []
     for key, r in rows.items():

@@ -43,6 +43,15 @@ g·H), ``w_hh`` (H, g·H), ``b_ih``, ``b_hh`` fills ``layers.{k}``'s torch
 parameters (weights transposed); an ``Embedding``'s ``table`` and a
 ``Transducer_joint``'s ``joint_network`` keep their names.
 
+The fairseq seq2seq decoder (``models/seq2seq_decoder.py``) has the JAX
+tree's names (``embed_tokens/table``, ``layers/{i}/{self_attn,encoder_attn,
+ln_self,ln_cross,ln_final,fc1,fc2}``, ``embed_out``, ``embed_positions``,
+``final_ln``) and loads through ``load_module_tree``; ``AVHubertASR`` takes
+the JAX ``{"encoder", "decoder"}`` params tree with the state tree
+``{"encoder": state}``. ``module_tree`` gives both back;
+``init_fairseq_decoder`` and ``init_avhubert_asr`` draw seeded trees of
+their shapes.
+
 ``init_params`` draws a tree of the same shapes and distributions as the
 JAX ``init``s from a ``torch.Generator`` (JAX's PRNG gives other numbers;
 the machine with the card has no JAX); ``init_modules`` fills a dict of
@@ -60,7 +69,10 @@ import torch
 
 from svt_speechbrain_tpu_torch.models.avhubert import (AVHubertModel,
                                                       FairseqAVHubert)
+from svt_speechbrain_tpu_torch.models.avhubert_asr import AVHubertASR
 from svt_speechbrain_tpu_torch.models.fusion import FusionRCA
+from svt_speechbrain_tpu_torch.models.seq2seq_decoder import (
+    FairseqTransformerDecoder)
 from svt_speechbrain_tpu_torch.models.wav2vec2 import HuggingFaceWav2Vec2
 from svt_speechbrain_tpu_torch.nnet.cnn import (_ConvNd,
                                                 jax_to_torch_conv_weight,
@@ -476,6 +488,50 @@ def init_fusion(gen, d_model, d_ffn):
     return {"fusion": {"layer1": layer(), "layer2": layer()}}
 
 
+def _glorot(gen, n_in, n_out):
+    return _uniform(gen, (n_in, n_out), math.sqrt(6.0 / (n_in + n_out)))
+
+
+def _normal(gen, shape, std):
+    return (torch.randn(shape, generator=gen, dtype=torch.float32)
+            * std).numpy()
+
+
+def init_fairseq_decoder(cfg, gen):
+    """Seeded ``FairseqTransformerDecoder`` tree at the JAX shapes
+    (``seq2seq_decoder.py:172``): token embeddings (and a learned position
+    table, a separate output embedding) normal(0, d^-1/2), glorot-uniform
+    attention projections (``init_mha``) and FFN weights with zero biases,
+    unit LayerNorms."""
+    d, f = cfg.embed_dim, cfg.ffn_dim
+    std = d ** -0.5
+    tree = {"embed_tokens": {"table": _normal(gen, (cfg.vocab_size, d), std)},
+            "layers": {str(i): {
+                "self_attn": init_mha(gen, d), "encoder_attn": init_mha(gen, d),
+                "ln_self": _ln(d), "ln_cross": _ln(d), "ln_final": _ln(d),
+                "fc1": {"w": _glorot(gen, d, f), "b": np.zeros(f, np.float32)},
+                "fc2": {"w": _glorot(gen, f, d), "b": np.zeros(d, np.float32)},
+            } for i in range(cfg.num_layers)}}
+    if cfg.learned_pos:
+        n_pos = cfg.max_target_positions + cfg.padding_idx + 1
+        tree["embed_positions"] = {"table": _normal(gen, (n_pos, d), std)}
+    if not cfg.share_input_output_embed:
+        tree["embed_out"] = _normal(gen, (cfg.vocab_size, d), std)
+    if cfg.normalize_before:
+        tree["final_ln"] = _ln(d)
+    return tree
+
+
+def init_avhubert_asr(encoder_config, decoder_config, gen):
+    """Seeded ``AVHubertASR`` (params, state) trees: ``init_avhubert`` under
+    "encoder", ``init_fairseq_decoder`` under "decoder"; the state tree is
+    ``{"encoder": ...}``."""
+    enc_p, enc_s = init_avhubert(encoder_config, gen)
+    return ({"encoder": enc_p,
+             "decoder": init_fairseq_decoder(decoder_config, gen)},
+            {"encoder": enc_s})
+
+
 def init_params(config, generator, head_outputs=20):
     """Seeded flagship tree {"wav2vec2": {"encoder": ...}, "model": ...}:
     ``init_wav2vec2``, then ``init_linear`` for the frame head."""
@@ -489,14 +545,20 @@ def seeded_tree(module, generator):
     ``HuggingFaceWav2Vec2``, ``init_avhubert``'s parameters for a
     ``FairseqAVHubert`` or ``AVHubertModel``, ``init_linear`` for a
     ``Linear``,
-    ``init_fusion`` for a ``FusionRCA``), or None if it holds no
-    parameters."""
+    ``init_fusion`` for a ``FusionRCA``, ``init_fairseq_decoder`` or
+    ``init_avhubert_asr``'s parameters for a ``FairseqTransformerDecoder``
+    or an ``AVHubertASR``), or None if it holds no parameters."""
     if isinstance(module, HuggingFaceWav2Vec2):
         return init_wav2vec2(module.config, generator)
     if isinstance(module, FairseqAVHubert):
         return {"model": init_avhubert(module.config, generator)[0]}
     if isinstance(module, AVHubertModel):
         return init_avhubert(module.config, generator)[0]
+    if isinstance(module, FairseqTransformerDecoder):
+        return init_fairseq_decoder(module.cfg, generator)
+    if isinstance(module, AVHubertASR):
+        return init_avhubert_asr(module.encoder_config,
+                                 module.decoder_config, generator)[0]
     if isinstance(module, FusionRCA):
         ffn = module.fusion.layer1.pos_ffn
         return init_fusion(generator, ffn.input_size, ffn.d_ffn)

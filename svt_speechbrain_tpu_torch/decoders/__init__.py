@@ -1,5 +1,14 @@
-"""Decoding: the transducer search. The CTC and seq2seq searchers of the
-JAX package wait for later slices."""
+"""Decoding: CTC, seq2seq beam search (speechbrain searchers and the fairseq
+generator), transducer search. The searchers over an
+``AttentionalRNNDecoder`` or a ``TransformerASR`` come with those
+models."""
 
+from svt_speechbrain_tpu_torch.decoders.ctc import (  # noqa: F401
+    CTCPrefixScorer, ctc_greedy_decode, filter_ctc_output)
+from svt_speechbrain_tpu_torch.decoders.fairseq_generator import (  # noqa: F401
+    FairseqSequenceGenerator)
+from svt_speechbrain_tpu_torch.decoders.seq2seq import (  # noqa: F401
+    S2SBeamSearcher, S2SGreedySearcher, batch_filter_seq2seq_output,
+    filter_seq2seq_output, inflate_tensor, mask_by_condition)
 from svt_speechbrain_tpu_torch.decoders.transducer import (  # noqa: F401
     TransducerBeamSearcher)

@@ -1,5 +1,5 @@
 """fairseq AV-HuBERT checkpoints → the port's modules (port of
-``svt_speechbrain_tpu/models/convert_fairseq.py:15-157``).
+``svt_speechbrain_tpu/models/convert_fairseq.py``).
 
 The checkpoint's tensors are already in torch layout, so conversion is a
 renaming (and a transpose of each linear weight into the port's (in, out)
@@ -7,6 +7,8 @@ renaming (and a transpose of each linear weight into the port's (in, out)
 ``AVHubertModel.load_state_dict`` takes as it is, the BatchNorm running
 statistics among its buffers. The pretraining head (``final_proj``,
 ``label_embs_concat``) and the BatchNorm batch counters are dropped.
+``convert_fairseq_avhubert_asr`` does the same for a seq2seq ASR
+checkpoint, encoder and decoder, for ``AVHubertASR.load_state_dict``.
 """
 from __future__ import annotations
 
@@ -114,3 +116,53 @@ def convert_avhubert_state_dict(sd, config):
 def load_avhubert(path, config):
     """``convert_avhubert_state_dict`` of a local checkpoint file."""
     return convert_avhubert_state_dict(load_fairseq_state_dict(path), config)
+
+
+def convert_fairseq_seq2seq_decoder(sd, cfg):
+    """The ``decoder.*`` keys of a fairseq ``hubert_asr`` seq2seq checkpoint
+    → the state dict of the port's ``FairseqTransformerDecoder(cfg)``
+    (``convert_fairseq.py:227``): ``embed_tokens.weight``,
+    ``layers.N.{self_attn,encoder_attn}.{q,k,v,out}_proj``,
+    ``layers.N.{self_attn,encoder_attn,final}_layer_norm``,
+    ``layers.N.fc{1,2}``, and as the config asks ``embed_out``,
+    ``layer_norm`` and a learned ``embed_positions.weight``. The sinusoidal
+    ``embed_positions._float_tensor`` buffer carries nothing and is not
+    read."""
+    sd = {k.removeprefix("decoder."): v for k, v in sd.items()
+          if k.startswith("decoder.")}
+    out = {"embed_tokens.table": _t(sd["embed_tokens.weight"])}
+    for i in range(cfg.num_layers):
+        src, dst = f"layers.{i}.", f"layers.{i}."
+        for attn in ("self_attn", "encoder_attn"):
+            for proj, name in (("q_proj", "q"), ("k_proj", "k"),
+                               ("v_proj", "v"), ("out_proj", "o")):
+                out[f"{dst}{attn}.w{name}"] = _t(
+                    sd[f"{src}{attn}.{proj}.weight"]).t()
+                out[f"{dst}{attn}.b{name}"] = _t(sd[f"{src}{attn}.{proj}.bias"])
+        _norm(sd, src + "self_attn_layer_norm", dst + "ln_self", out)
+        _norm(sd, src + "encoder_attn_layer_norm", dst + "ln_cross", out)
+        _norm(sd, src + "final_layer_norm", dst + "ln_final", out)
+        _linear(sd, src + "fc1", dst + "fc1", out)
+        _linear(sd, src + "fc2", dst + "fc2", out)
+    if cfg.learned_pos:
+        out["embed_positions.table"] = _t(sd["embed_positions.weight"])
+    if not cfg.share_input_output_embed:
+        out["embed_out"] = _t(sd["embed_out"])
+    if cfg.normalize_before:
+        _norm(sd, "layer_norm", "final_ln", out)
+    return out
+
+
+def convert_fairseq_avhubert_asr(sd, encoder_config, decoder_cfg):
+    """A whole ``hubert_asr``-style seq2seq state dict (the encoder under
+    ``encoder.w2v_model.*``, the decoder under ``decoder.*``) → the state
+    dict of the port's ``AVHubertASR`` (``convert_fairseq.py:282``; the JAX
+    function returns the encoder's params and state and the decoder's
+    params apart)."""
+    enc_sd = {k.removeprefix("encoder.w2v_model."): v for k, v in sd.items()
+              if k.startswith("encoder.w2v_model.")}
+    out = {"encoder." + k: v for k, v in
+           convert_avhubert_state_dict(enc_sd, encoder_config).items()}
+    out.update({"decoder." + k: v for k, v in
+                convert_fairseq_seq2seq_decoder(sd, decoder_cfg).items()})
+    return out

@@ -1,1 +1,1 @@
-"""Specialized losses (transducer lattice)."""
+"""Specialized losses: the transducer lattice, guided attention, SI-SNR."""

@@ -21,11 +21,16 @@ MODULES = [
     "svt_speechbrain_tpu_torch.dataio.preprocess",
     "svt_speechbrain_tpu_torch.dataio.sampler",
     "svt_speechbrain_tpu_torch.dataio.wer",
+    "svt_speechbrain_tpu_torch.decoders.ctc",
+    "svt_speechbrain_tpu_torch.decoders.fairseq_generator",
+    "svt_speechbrain_tpu_torch.decoders.seq2seq",
     "svt_speechbrain_tpu_torch.decoders.transducer",
     "svt_speechbrain_tpu_torch.flagship",
     "svt_speechbrain_tpu_torch.inference",
+    "svt_speechbrain_tpu_torch.models.avhubert_asr",
     "svt_speechbrain_tpu_torch.models.convert_hf",
     "svt_speechbrain_tpu_torch.models.quantize",
+    "svt_speechbrain_tpu_torch.models.seq2seq_decoder",
     "svt_speechbrain_tpu_torch.models.wav2vec2",
     "svt_speechbrain_tpu_torch.nnet.activations",
     "svt_speechbrain_tpu_torch.nnet.attention",
@@ -33,6 +38,8 @@ MODULES = [
     "svt_speechbrain_tpu_torch.nnet.dropout",
     "svt_speechbrain_tpu_torch.nnet.embedding",
     "svt_speechbrain_tpu_torch.nnet.linear",
+    "svt_speechbrain_tpu_torch.nnet.loss.guidedattn_loss",
+    "svt_speechbrain_tpu_torch.nnet.loss.si_snr_loss",
     "svt_speechbrain_tpu_torch.nnet.loss.transducer_loss",
     "svt_speechbrain_tpu_torch.nnet.losses",
     "svt_speechbrain_tpu_torch.nnet.normalization",

@@ -89,6 +89,56 @@ def test_port_runs_without_loading_jax():
     assert "LOADED []" in res.stdout, res.stdout
 
 
+_SEQ2SEQ_PROBE = """
+import sys
+import torch
+from svt_speechbrain_tpu_torch.decoders import (
+    CTCPrefixScorer, FairseqSequenceGenerator, S2SBeamSearcher,
+    S2SGreedySearcher, ctc_greedy_decode)
+from svt_speechbrain_tpu_torch.decoders import ctc, fairseq_generator, seq2seq
+from svt_speechbrain_tpu_torch.models import (avhubert_asr, convert_fairseq,
+                                              seq2seq_decoder)
+from svt_speechbrain_tpu_torch.nnet import losses
+from svt_speechbrain_tpu_torch.nnet.loss import guidedattn_loss, si_snr_loss
+from svt_speechbrain_tpu_torch.convert_jax import init_modules
+from svt_speechbrain_tpu_torch.models.avhubert import AVHubertConfig
+asr = avhubert_asr.AVHubertASR(
+    AVHubertConfig(encoder_layers=1, encoder_embed_dim=16,
+                   encoder_ffn_embed_dim=32, encoder_attention_heads=2,
+                   audio_feat_dim=8),
+    seq2seq_decoder.FairseqDecoderConfig(vocab_size=13, embed_dim=16,
+                                         ffn_dim=32, num_layers=1,
+                                         num_heads=2),
+    beam_size=2, max_len_b=4)
+init_modules({"asr": asr}, seed=0)
+hyps = asr.transcribe(audio=torch.ones(1, 6, 8), device_search=True)
+assert int(hyps[0][0]["tokens"][-1]) == 2
+logp = torch.log_softmax(torch.randn(2, 5, 4), -1)
+loss = losses.ctc_loss(logp, torch.ones(2, 2, dtype=torch.long),
+                       torch.ones(2), torch.ones(2), 0)
+assert torch.isfinite(loss)
+scorer = CTCPrefixScorer(logp, [5, 4], 2, 1, 0, 3)
+psi, _ = scorer.forward_step(torch.zeros(2, 0, dtype=torch.long), None)
+assert psi.shape == (2, 4)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "svt_speechbrain_tpu" or m.startswith("svt_speechbrain_tpu."))
+print("LOADED", bad)
+"""
+
+
+def test_seq2seq_slice_runs_without_loading_jax():
+    """The seq2seq decoding slice (the fairseq decoder and generator,
+    ``AVHubertASR``, the CTC and speechbrain searchers, the losses) imports
+    and runs a TINY decode without loading JAX or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    res = subprocess.run([sys.executable, "-c", _SEQ2SEQ_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "LOADED []" in res.stdout, res.stdout
+
+
 _IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|svt_speechbrain_tpu)"
     r"(?![\w])", re.MULTILINE)
