@@ -196,8 +196,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    a step, best-hypothesis tokens a second, device-to-host reads a step of
    each route, peak memory; then 2 encoder and 2 decoder layers at full
    width, f32, on the card against the CPU (features, tokens, scores).
+22. the CRDNN ASR path at the widths of SpeechBrain's TIMIT seq2seq recipe
+   (``crdnn-ligru-timit``): ``Fbank(n_mels=40)`` → global
+   ``InputNormalization`` → ``CRDNN`` (2 CNN blocks of 128 and 256
+   channels, time pooling 2, 4 bidirectional LiGRU layers of 512, 2 DNN
+   blocks of 512, dropout 0.15) → a 42-way CTC head, and a location-aware
+   GRU ``AttentionalRNNDecoder`` (256 wide, 10 channels, kernel 100, over
+   ``Embedding(42, 128)``) → a 42-way sequence head, f32, about 10 M
+   parameters drawn by the ``Brain`` from its seed (no ``init_modules``);
+   a batch of 8 utterances of 4.5-2.0 s of seeded noise with about 12
+   tokens a second: the eval forward (ms a batch, launches, busy share,
+   peak memory), a warm-up and 3 timed Adam steps of 0.2 CTC + 0.8 NLL
+   (ms a step, launches, peak memory; every running statistic and the
+   normalization's state moved, no parameter left at zero), and at 2
+   LiGRU layers, dropouts 0, the card against the CPU: log-probabilities,
+   loss and the running statistics after one training forward in f32,
+   every gradient of the same step in f64, and the f32 gradients against
+   f64. No kernel of ``csrc/`` lies on this path.
 
-Phases run in the order 1-5, 8, 9, 6, 7, 10-15, 19, 17, 18, 16, 20, 21.
+Phases run in the order 1-5, 8, 9, 6, 7, 10-15, 19, 17, 18, 16, 20, 21,
+22.
 
 Phases 2 and 5 also hold and time the two RNN-T kernels (the lattice on
 alpha and on beta panels, the gradient) against their plain versions at the
@@ -247,8 +265,8 @@ from svt_speechbrain_tpu_torch.flagship import (HEAD_OUTPUTS,  # noqa: E402
                                                 build_modules)
 from svt_speechbrain_tpu_torch.convert_jax import (  # noqa: E402
     _flatten, init_avhubert, init_avhubert_asr, init_embedding, init_linear,
-    init_modules, init_params, init_rnn, init_wav2vec2, load_jax_params,
-    load_module_tree, load_msgpack, module_tree)
+    init_modules, init_params, init_rnn, init_wav2vec2, is_unseeded,
+    load_jax_params, load_module_tree, load_msgpack, module_tree)
 from svt_speechbrain_tpu_torch.decoders import (  # noqa: E402
     FairseqSequenceGenerator, TransducerBeamSearcher)
 from svt_speechbrain_tpu_torch.models.wav2vec2 import (  # noqa: E402
@@ -259,7 +277,12 @@ from svt_speechbrain_tpu_torch.nnet.embedding import Embedding  # noqa: E402
 from svt_speechbrain_tpu_torch.nnet.linear import Linear  # noqa: E402
 from svt_speechbrain_tpu_torch.nnet.loss.transducer_loss import (  # noqa: E402
     TransducerLoss, transducer_loss)
-from svt_speechbrain_tpu_torch.nnet.rnn import GRU, GRUCell  # noqa: E402
+from svt_speechbrain_tpu_torch.nnet.rnn import (  # noqa: E402
+    GRU, AttentionalRNNDecoder, GRUCell)
+from svt_speechbrain_tpu_torch.models.crdnn import CRDNN  # noqa: E402
+from svt_speechbrain_tpu_torch.models.features import Fbank  # noqa: E402
+from svt_speechbrain_tpu_torch.processing.features import (  # noqa: E402
+    InputNormalization)
 from svt_speechbrain_tpu_torch.nnet.transducer_joint import (  # noqa: E402
     Transducer_joint)
 from svt_speechbrain_tpu_torch.tasks.amt import AudioAMT  # noqa: E402
@@ -4479,6 +4502,391 @@ def asr_phase(rng):
     return summary
 
 
+# --------------------------------------------------------------- phase 22
+# crdnn-ligru-timit: the widths of SpeechBrain's TIMIT seq2seq CRDNN recipe
+# (recipes/TIMIT/ASR/seq2seq/hparams/train.yaml), on the JAX CRDNN's own
+# arguments; 42 phoneme classes (blank, bos and eos are index 0 there)
+CRDNN_ARCH = dict(input_size=40, cnn_blocks=2, cnn_channels=(128, 256),
+                  cnn_kernelsize=(3, 3), time_pooling=True,
+                  time_pooling_size=2, freq_pooling_size=2,
+                  rnn_class="ligru", rnn_layers=4, rnn_neurons=512,
+                  rnn_bidirectional=True, dnn_blocks=2, dnn_neurons=512,
+                  dropout=0.15)
+CRDNN_DEC = dict(hidden_size=256, attn_dim=256, num_layers=1, channels=10,
+                 kernel_size=100, dropout=0.5)
+CRDNN_VOCAB = 42
+CRDNN_EMB = 128
+CRDNN_BLANK = CRDNN_BOS = CRDNN_EOS = 0
+CRDNN_SECONDS = (4.5, 4.0, 3.6, 3.2, 2.9, 2.6, 2.3, 2.0)
+CRDNN_TOKENS_PER_S = 12
+CRDNN_CTC_WEIGHT = 0.2
+CRDNN_LR = 3e-4
+# card vs CPU, 2 LiGRU layers, TF32 off. In f32, cuDNN's convolutions and
+# the CPU's sum in other orders. Measured on an H100 (phase 22): eval
+# log-probabilities 4.8-7.2e-07 apart, the loss equal, running statistics
+# 1.3-2.3e-06 of their norms; each tolerance is 4-10x its reading. The f32
+# gradients behind the batch norms and the CNN's LayerNorms over channels
+# (the CNN blocks, the LiGRU, the DNN blocks) are not held tightly: against
+# the same step in f64 they strayed up to 1.6e-03 and 2.9e-03 on the card
+# and 2.3e-04, 3.0e-04 and 3.5e-03 on the CPU, on two batches; with cuDNN
+# off the card's LiGRU and DNN gradients came within 1.9e-05 of f64 while
+# its CNN's stayed at 2.4-4.2e-03 (`tools/crdnn_grad_probe.py`). Those are
+# sums that cancel once a norm projects out the gradient's mean and scale
+# parts, behind ReLUs and max pools whose switches follow the forward's
+# last bits. So the same step also runs in f64 on both devices, and there
+# every leaf is held to 1e-9 of its norm (6.0e-14 measured): the card
+# computes the CPU's function. In f32 the leaves no norm stands between and
+# the loss (the heads, the embedding, the decoder) are held to 1e-4 of
+# their norms against f64 (1.2e-05-3.0e-05 measured; one TF32 product
+# would put them near 1e-3), the others to 1e-2 (about 3x the worst seen).
+TOL_CRDNN = {"logp_abs": 5e-6, "loss_rel": 1e-5, "stats_rel": 1e-5,
+             "grad_f64_rel": 1e-9, "grad_f32_heads": 1e-4,
+             "grad_f32_normed": 1e-2}
+# the modules whose parameters' gradients reach the loss through no norm
+CRDNN_HEADS = ("ctc_lin.", "seq_lin.", "emb.", "dec.")
+
+
+def crdnn_modules(arch=CRDNN_ARCH, dec=CRDNN_DEC, vocab=CRDNN_VOCAB,
+                  emb=CRDNN_EMB):
+    """The assembly's modules, unseeded: Fbank, the global input
+    normalization, the CRDNN, the CTC head, the embedding, the
+    location-aware GRU decoder and the sequence head."""
+    return {"compute_features": Fbank(n_mels=arch["input_size"]),
+            "normalize": InputNormalization(norm_type="global"),
+            "enc": CRDNN(**arch),
+            "ctc_lin": Linear(vocab, arch["dnn_neurons"]),
+            "emb": Embedding(vocab, emb),
+            "dec": AttentionalRNNDecoder(
+                "gru", "location", enc_dim=arch["dnn_neurons"],
+                input_size=emb, **dec),
+            "seq_lin": Linear(vocab, dec["hidden_size"])}
+
+
+def crdnn_batch(rng, seconds=CRDNN_SECONDS, vocab=CRDNN_VOCAB,
+                tokens_per_s=CRDNN_TOKENS_PER_S, sr=SR):
+    """Seeded noise rows of ``seconds``, zero-padded to the longest, with
+    relative lengths; round(tokens_per_s · s) tokens in 1..vocab-1 a row,
+    ``tokens_bos`` (bos first) and ``tokens_eos`` (eos after each row's
+    tokens), each with its relative lengths."""
+    n = [int(s * sr) for s in seconds]
+    wav = np.zeros((len(n), max(n)), np.float32)
+    for i, k in enumerate(n):
+        wav[i, :k] = 0.1 * rng.standard_normal(k)
+    u = [int(round(tokens_per_s * s)) for s in seconds]
+    umax = max(u)
+    tokens = np.zeros((len(u), umax), np.int64)
+    eos = np.full((len(u), umax + 1), CRDNN_EOS, np.int64)
+    for i, k in enumerate(u):
+        tokens[i, :k] = rng.integers(1, vocab, k)
+        eos[i, :k] = tokens[i, :k]
+    bos = np.concatenate([np.full((len(u), 1), CRDNN_BOS), tokens], axis=1)
+    rel = np.asarray(u, np.float32)
+    return {"sig": PaddedData(torch.from_numpy(wav),
+                              np.asarray(n, np.float32) / max(n)),
+            "tokens": PaddedData(torch.from_numpy(tokens), rel / umax),
+            "tokens_bos": PaddedData(torch.from_numpy(bos),
+                                     (rel + 1) / (umax + 1)),
+            "tokens_eos": PaddedData(torch.from_numpy(eos),
+                                     (rel + 1) / (umax + 1))}
+
+
+class CRDNNBrain(Brain):
+    """The CRDNN seq2seq assembly of SpeechBrain's TIMIT recipe: features
+    → global normalization (updated in training, ``self.epoch`` its epoch)
+    → CRDNN → CTC log-probabilities; bos-prefixed tokens → embedding →
+    location-aware decoder over the encoder → sequence log-probabilities.
+    The loss is ``CRDNN_CTC_WEIGHT`` · CTC + the rest · NLL, Adam over
+    every module."""
+
+    epoch = 0
+
+    def compute_forward(self, batch, stage, rng=None):
+        m = self.modules
+        train = stage == Stage.TRAIN
+        wavs, wav_lens = batch["sig"]
+        feats = m.normalize(m.compute_features(wavs), wav_lens,
+                            epoch=self.epoch, train=train)
+        x = m.enc(feats, rng=rng, train=train)
+        p_ctc = torch.log_softmax(m.ctc_lin(x), dim=-1)
+        h, _ = m.dec(m.emb(batch["tokens_bos"].data), x, wav_lens,
+                     train=train, rng=rng)
+        p_seq = torch.log_softmax(m.seq_lin(h), dim=-1)
+        return p_ctc, p_seq
+
+    def compute_objectives(self, predictions, batch, stage):
+        p_ctc, p_seq = predictions
+        tokens, token_lens = batch["tokens"]
+        tokens_eos, eos_lens = batch["tokens_eos"]
+        ctc = losses.ctc_loss(p_ctc, tokens, batch["sig"].lengths,
+                              token_lens, CRDNN_BLANK)
+        nll = losses.nll_loss(p_seq, tokens_eos, length=eos_lens)
+        return CRDNN_CTC_WEIGHT * ctc + (1 - CRDNN_CTC_WEIGHT) * nll
+
+    def init_optimizers(self):
+        self.add_optimizer("opt", torch.optim.Adam, list(self.modules.keys()),
+                           lr=self.hparams.lr)
+
+
+def crdnn_brain(modules, device, seed):
+    brain = CRDNNBrain(modules, hparams={"seed": seed, "lr": CRDNN_LR},
+                       run_opts={"device": device})
+    brain.init_optimizers()
+    return brain
+
+
+def crdnn_state(brain):
+    """Every running statistic of the assembly (the LiGRU's and DNN
+    blocks' batch norms, the input normalization's state), by name."""
+    return {name: buf.detach().clone() for name, buf in
+            brain.modules.named_buffers()
+            if name.rsplit(".", 1)[-1] in ("mean", "var", "glob_mean",
+                                           "glob_std", "count")}
+
+
+def kernel_launches(fn):
+    """Device kernels launched by one call of ``fn`` (torch.profiler;
+    memory copies and sets are not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(ev, "is_user_annotation", False)
+               and not ev.name.lower().startswith(("memcpy", "memset")))
+
+
+def crdnn_segments(brain, arrays):
+    """Kernel launches of the eval forward's segments (features and
+    normalization, the CRDNN, the decoder with its head) and of a forward
+    and backward of the LiGRU stack and of ``ctc_loss`` alone, on the
+    batch's own shapes. The LiGRU's pass runs in training (its batch
+    statistics move); the gradients it leaves are cleared."""
+    m = brain.modules
+    wavs, wav_lens = arrays["sig"]
+    with torch.no_grad():
+        feats = m.normalize(m.compute_features(wavs), wav_lens, train=False)
+        x = m.enc(feats)
+        emb = m.emb(arrays["tokens_bos"].data)
+        h = m.enc.time_pool(m.enc.cnn1(m.enc.cnn0(feats[..., None])))
+        p_ctc = torch.log_softmax(m.ctc_lin(x), -1)
+    h = h.reshape(h.shape[0], h.shape[1], -1).requires_grad_()
+    p_ctc.requires_grad_()
+    tokens, token_lens = arrays["tokens"]
+
+    def infer(fn):
+        def run():
+            with torch.no_grad():
+                fn()
+        return run
+
+    out = {
+        "features": kernel_launches(infer(lambda: m.normalize(
+            m.compute_features(wavs), wav_lens, train=False))),
+        "crdnn": kernel_launches(infer(lambda: m.enc(feats))),
+        "decoder": kernel_launches(infer(lambda: m.seq_lin(m.dec(
+            emb, x, wav_lens)[0]))),
+        "ligru_fwd_bwd": kernel_launches(lambda: m.enc.rnn(
+            h, train=True)[0].sum().backward()),
+        "ctc_fwd_bwd": kernel_launches(lambda: losses.ctc_loss(
+            p_ctc, tokens, wav_lens, token_lens, CRDNN_BLANK).backward())}
+    brain.modules.zero_grad(set_to_none=True)
+    return out
+
+
+def crdnn_full_width(rng):
+    """Phase 22's full-width half: the Brain seeds the modules on the card;
+    the eval forward (its busy share and launches by segment from the
+    profiler), a warm-up and 3 timed training steps and one more whose
+    launches are counted. Returns the summary."""
+    t0 = time.perf_counter()
+    modules = crdnn_modules()
+    brain = crdnn_brain(modules, "cuda", SEED + 70)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in brain.modules.parameters())
+    left_zero = [n for n, p in brain.modules.named_parameters()
+                 if not bool(p.detach().any())]
+    if any(is_unseeded(m) for m in brain.modules.values()) or [
+            n for n in left_zero if not n.endswith((".b", ".bias"))]:
+        raise AssertionError(f"the Brain left modules unseeded: {left_zero}")
+    log(f"  crdnn-ligru-timit: {n_params / 1e6:.2f} M parameters seeded by "
+        f"the Brain from seed {SEED + 70} in {build_s:.1f} s (zero-valued "
+        f"at the start only the biases the JAX init zeroes: "
+        f"{len(left_zero)})")
+    batch = crdnn_batch(rng)
+    arrays = brain._batch_to_device(batch)
+    audio_s = sum(CRDNN_SECONDS)
+
+    def forward():
+        with torch.inference_mode():
+            return brain.compute_forward(arrays, Stage.VALID)
+
+    p_ctc, p_seq = forward()                                # warm-up
+    t_frames = int(CRDNN_SECONDS[0] * 100) + 1
+    want_ctc = (8, t_frames // 2, CRDNN_VOCAB)
+    want_seq = (8, batch["tokens_bos"].data.shape[1], CRDNN_VOCAB)
+    if tuple(p_ctc.shape) != want_ctc or tuple(p_seq.shape) != want_seq or \
+            not (torch.isfinite(p_ctc).all() and torch.isfinite(p_seq).all()):
+        raise AssertionError(f"eval outputs {tuple(p_ctc.shape)}, "
+                             f"{tuple(p_seq.shape)}: want {want_ctc}, "
+                             f"{want_seq}, finite")
+    torch.cuda.reset_peak_memory_stats()
+    walls = [_timed(forward)[1] for _ in range(3)]
+    eval_ms = float(np.median(walls)) * 1e3
+    eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    eval_launches = kernel_launches(forward)
+    log(f"  eval forward, batch 8 ({audio_s:.1f} s of audio, "
+        f"{want_ctc[1]} encoder frames, {want_seq[1]} decoder steps): "
+        f"{eval_ms:.2f} ms a batch (median of 3: "
+        f"{[round(w * 1e3, 2) for w in walls]}), RTFx "
+        f"{audio_s / (eval_ms / 1e3):.1f}, {eval_launches} kernel launches "
+        f"a batch, peak memory {eval_peak:.3f} GiB")
+    eval_idle = profile_run(forward)
+    segments = crdnn_segments(brain, arrays)
+    log(f"  kernel launches by segment: {segments}")
+
+    before = crdnn_state(brain)
+    brain.epoch = 1
+    brain.on_stage_start(Stage.TRAIN, 1)
+    torch.cuda.reset_peak_memory_stats()
+    warm = brain.fit_batch(batch)                           # warm-up
+    steps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = brain.fit_batch(batch)
+        torch.cuda.synchronize()
+        steps.append((loss, time.perf_counter() - t1))
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_launches = kernel_launches(lambda: brain.fit_batch(batch))
+    after = crdnn_state(brain)
+    losses_seen = [warm] + [s[0] for s in steps]
+    still = [n for n in before if torch.equal(before[n], after[n])]
+    zero = [n for n, p in brain.modules.named_parameters()
+            if not bool(p.detach().any())]
+    step_ms = float(np.median([s[1] for s in steps])) * 1e3
+    log(f"  training: losses {[round(v, 4) for v in losses_seen]} (warm-up "
+        f"first), {step_ms:.1f} ms a step (median of 3: "
+        f"{[round(s[1] * 1e3, 1) for s in steps]}), {step_launches} kernel "
+        f"launches a step, peak memory {train_peak:.3f} GiB; "
+        f"{len(before) - len(still)} of {len(before)} running statistics "
+        f"moved, normalization count {float(after['normalize.count'])}")
+    if not all(np.isfinite(v) for v in losses_seen):
+        raise AssertionError(f"nonfinite CRDNN losses {losses_seen}")
+    if still or zero:
+        raise AssertionError(f"unmoved statistics {still}, parameters at "
+                             f"zero {zero}")
+    summary = dict(params_m=n_params / 1e6, eval_ms=eval_ms,
+                   eval_launches=eval_launches, eval_idle=eval_idle,
+                   segment_launches=segments,
+                   eval_peak_gb=eval_peak, step_ms=step_ms,
+                   step_launches=step_launches, train_peak_gb=train_peak,
+                   losses=losses_seen, build_s=build_s)
+    del brain, modules, arrays
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def crdnn_step(modules, batch, device, dtype=torch.float32):
+    """One training forward and backward of the assembly at dropouts 0 on
+    ``device`` in ``dtype`` (no optimizer step): the eval
+    log-probabilities, the loss, the gradients by name and the running
+    statistics after it, on the CPU in f64."""
+    brain = crdnn_brain({k: m.to(dtype) for k, m in modules.items()},
+                        device, SEED)
+    arrays = {k: PaddedData(v.data.to(dtype) if v.data.is_floating_point()
+                            else v.data, v.lengths)
+              if isinstance(v, PaddedData) else v
+              for k, v in brain._batch_to_device(batch).items()}
+    with torch.inference_mode():
+        eval_out = brain.compute_forward(arrays, Stage.VALID)
+    eval_out = [t.double().cpu() for t in eval_out]
+    loss = brain.compute_objectives(
+        brain.compute_forward(arrays, Stage.TRAIN), arrays, Stage.TRAIN)
+    loss.backward()
+    return dict(logp=eval_out, loss=loss.item(),
+                grads={n: p.grad.double().cpu() for n, p in
+                       brain.modules.named_parameters()},
+                stats={n: t.double().cpu() for n, t in
+                       crdnn_state(brain).items()})
+
+
+def crdnn_card_vs_cpu(rng):
+    """The assembly with 2 LiGRU layers and every other width as in phase
+    22, dropouts 0, seeded once, on the batch's longest and shortest rows:
+    one step in f32 and one in f64 on the card and on the CPU."""
+    arch = dict(CRDNN_ARCH, rnn_layers=2, dropout=0.0)
+    modules = crdnn_modules(arch, dict(CRDNN_DEC, dropout=0.0))
+    init_modules(modules, SEED + 71)
+    batch = crdnn_batch(rng, (CRDNN_SECONDS[0], CRDNN_SECONDS[-1]))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        for dtype in (torch.float32, torch.float64):
+            tag = f"{dev}_{str(dtype)[-2:]}"
+            t0 = time.perf_counter()
+            out[tag] = crdnn_step(copy.deepcopy(modules), batch, dev, dtype)
+            log(f"  {tag}: loss {out[tag]['loss']:.9f} in "
+                f"{time.perf_counter() - t0:.1f} s")
+    t = TOL_CRDNN
+    got, want = out["cuda_32"], out["cpu_32"]
+    logp_err = max((g - w).abs().max().item()
+                   for g, w in zip(got["logp"], want["logp"]))
+    loss_rel = abs(got["loss"] / want["loss"] - 1)
+    stats_rel = {n: (torch.linalg.vector_norm(got["stats"][n] - w)
+                     / torch.linalg.vector_norm(w)).item()
+                 for n, w in want["stats"].items()}
+    worst_stat = max(stats_rel, key=stats_rel.get)
+    f64, exempt = leaf_errors(out["cuda_64"], out["cpu_64"],
+                              {"grad_rel": "grads"})
+    worst64 = max(f64["grad_rel"], key=f64["grad_rel"].get)
+    f32 = {dev: leaf_errors(out[f"{dev}_32"], out[f"{dev}_64"],
+                            {"grad_rel": "grads"})[0]["grad_rel"]
+           for dev in ("cuda", "cpu")}
+    worst32 = {}
+    for dev, errs in f32.items():
+        for part, heads in (("heads", True), ("normed", False)):
+            names = [n for n in errs if n.startswith(CRDNN_HEADS) == heads]
+            worst = max(names, key=errs.get)
+            worst32[dev, part] = (worst, errs[worst])
+    ok = (logp_err <= t["logp_abs"] and loss_rel <= t["loss_rel"]
+          and stats_rel[worst_stat] <= t["stats_rel"]
+          and f64["grad_rel"][worst64] <= t["grad_f64_rel"]
+          and worst32["cuda", "heads"][1] <= t["grad_f32_heads"]
+          and worst32["cuda", "normed"][1] <= t["grad_f32_normed"])
+    log(f"  2 LiGRU layers at full width: f32 log-probabilities max abs err "
+        f"{logp_err:.3e}; loss rel err {loss_rel:.3e}; worst running-"
+        f"statistic rel err {stats_rel[worst_stat]:.3e} ({worst_stat}); f64 "
+        f"gradients card vs CPU, worst of {len(f64['grad_rel'])} leaves "
+        f"{f64['grad_rel'][worst64]:.3e} ({worst64}), exempt (zero "
+        f"gradient) {exempt}; f32 gradients against f64, worst leaf "
+        + "; ".join(f"{dev} {part} {e:.3e} ({n})"
+                    for (dev, part), (n, e) in worst32.items())
+        + f"; tols {t} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the CRDNN assembly on the card disagrees with "
+                             "the CPU")
+    return dict(logp_max_abs=logp_err, loss_rel=loss_rel,
+                stats_rel=stats_rel[worst_stat],
+                grad_rel_f64_card_vs_cpu=f64["grad_rel"][worst64],
+                grad_f32_vs_f64={f"{d}_{p}": e for (d, p), (_, e) in
+                                 worst32.items()})
+
+
+def crdnn_phase(rng):
+    """Phase 22; returns its summary. TF32 stays off, as in ``main``, so
+    that the phase holds alone too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    summary = crdnn_full_width(rng)
+    summary["card_vs_cpu"] = crdnn_card_vs_cpu(rng)
+    summary["phase_s"] = time.perf_counter() - t0
+    return summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4662,6 +5070,13 @@ def main():
         "layers card vs CPU")
     asr_summary = asr_phase(rng)
     log(f"  phase 21 summary: {json.dumps(asr_summary)}")
+
+    log("phase 22: the CRDNN ASR path (crdnn-ligru-timit): Fbank, global "
+        "input normalization, CRDNN with 4 bidirectional LiGRU layers, CTC "
+        "head and location-aware GRU decoder, f32, batch 8 of 4.5-2.0 s: "
+        "eval forward, Adam steps, 2 LiGRU layers card vs CPU")
+    crdnn_summary = crdnn_phase(rng)
+    log(f"  phase 22 summary: {json.dumps(crdnn_summary)}")
 
     kernels = []
     for key, r in rows.items():

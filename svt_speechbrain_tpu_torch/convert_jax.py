@@ -52,11 +52,21 @@ the JAX ``{"encoder", "decoder"}`` params tree with the state tree
 ``init_fairseq_decoder`` and ``init_avhubert_asr`` draw seeded trees of
 their shapes.
 
+The CRDNN path's modules load through ``load_module_tree`` too: a conv's
+``w`` (*k, in/groups, out) (a ``ConvTranspose1d``'s (k, out, in)) becomes
+its ``weight``, a ``LiGRU`` keeps its ``l{k}/{w,u,norm}`` names, and the
+JAX state tree of a ``CRDNN`` (``dnn{i}/{mean,var}``, ``rnn/l{k}/{mean,
+var}``) fills the ``norm`` children's buffers of the ``DNNBlock``s and
+LiGRU layers (``jax_state_child``); an ``InputNormalization``'s
+``glob_mean``, ``glob_std`` and ``count`` are state too.
+
 ``init_params`` draws a tree of the same shapes and distributions as the
 JAX ``init``s from a ``torch.Generator`` (JAX's PRNG gives other numbers;
-the machine with the card has no JAX); ``init_modules`` fills a dict of
-modules with such draws from one seed, as the JAX ``Brain`` initialises
-its modules when it is built.
+the machine with the card has no JAX); ``seeded_tree`` draws the tree of
+any module built from the port's leaves, and ``init_modules`` fills a dict
+of modules with such draws from one seed, as the JAX ``Brain`` initialises
+its modules when it is built (the port's ``Brain`` does it for the modules
+that ``is_unseeded`` finds still as constructed).
 """
 from __future__ import annotations
 
@@ -74,11 +84,22 @@ from svt_speechbrain_tpu_torch.models.fusion import FusionRCA
 from svt_speechbrain_tpu_torch.models.seq2seq_decoder import (
     FairseqTransformerDecoder)
 from svt_speechbrain_tpu_torch.models.wav2vec2 import HuggingFaceWav2Vec2
-from svt_speechbrain_tpu_torch.nnet.cnn import (_ConvNd,
+from svt_speechbrain_tpu_torch.nnet.activations import PReLU
+from svt_speechbrain_tpu_torch.nnet.attention import (MultiheadAttention,
+                                                      RelPosMHAXL)
+from svt_speechbrain_tpu_torch.nnet.cnn import (ConvTranspose1d, SincConv,
+                                                _ConvNd,
                                                 jax_to_torch_conv_weight,
                                                 torch_to_jax_conv_weight)
+from svt_speechbrain_tpu_torch.nnet.embedding import Embedding
 from svt_speechbrain_tpu_torch.nnet.linear import Linear
-from svt_speechbrain_tpu_torch.nnet.normalization import _BatchNorm
+from svt_speechbrain_tpu_torch.nnet.normalization import (GroupNorm,
+                                                          LayerNorm,
+                                                          _BatchNorm,
+                                                          _InstanceNorm)
+from svt_speechbrain_tpu_torch.nnet.rnn import (GRU, LSTM, _LiGRULayer,
+                                                _RNNBase)
+from svt_speechbrain_tpu_torch.processing.features import InputNormalization
 
 
 _RNN_LEAF = re.compile(r"(?:^|/)l(\d+)(_rev)?/([wb])_(ih|hh)$")
@@ -135,23 +156,37 @@ def _owner(module, name):
 
 
 def _conv_leaves(module, state):
-    """The 2-D/3-D convs' JAX leaves ``w`` (*k, in, out) and ``b`` →
-    ``weight`` (out, in, *k) and ``bias``, by the module that owns them."""
+    """The convs' JAX leaves ``w`` (*k, in, out) (a transposed conv's (k,
+    out, in)) and ``b`` → ``weight`` (out, in, *k) (in, out, k) and
+    ``bias``, by the module that owns them; the running statistics of a
+    ``jax_state_child`` norm, which the JAX state tree keeps at its
+    parent's path, → the norm's buffers."""
     out = {}
     for name, t in state.items():
         owner, leaf = _owner(module, name)
-        if isinstance(owner, _ConvNd) and leaf in ("w", "b"):
-            if leaf == "w":
-                name, t = name[:-1] + "weight", jax_to_torch_conv_weight(t)
-            else:
+        if isinstance(owner, (_ConvNd, ConvTranspose1d)) and leaf in ("w",
+                                                                      "b"):
+            if leaf == "b":
                 name = name[:-1] + "bias"
+            elif isinstance(owner, ConvTranspose1d):
+                name, t = name[:-1] + "weight", t.permute(2, 1, 0)
+            else:
+                name, t = name[:-1] + "weight", jax_to_torch_conv_weight(t)
+        elif (getattr(owner, "jax_state_child", None)
+              and leaf in ("mean", "var")):
+            name = f"{name[:-len(leaf)]}{owner.jax_state_child}.{leaf}"
         out[name] = t
     return out
 
 
+_STATE_LEAVES = ((_BatchNorm, ("mean", "var")),
+                 (InputNormalization, ("glob_mean", "glob_std", "count")))
+
+
 def _running_stat(module, name):
     owner, leaf = _owner(module, name)
-    return isinstance(owner, _BatchNorm) and leaf in ("mean", "var")
+    return any(isinstance(owner, cls) and leaf in leaves
+               for cls, leaves in _STATE_LEAVES)
 
 
 def load_module_tree(module, tree, state=None):
@@ -163,10 +198,11 @@ def load_module_tree(module, tree, state=None):
         flat.update(_flatten(state))
     keep_stats = state is None
     state = _conv_leaves(module, dict(_convert(p, v) for p, v in flat.items()))
-    if keep_stats:
-        for name, buf in module.named_buffers():
-            if _running_stat(module, name):
-                state[name] = buf
+    own = module.state_dict()
+    for name, value in own.items():
+        if ((keep_stats and _running_stat(module, name))
+                or name.endswith("_extra_state")):
+            state.setdefault(name, value)
     for name, w_q8 in state.items():
         if name.endswith("_q8"):
             owner, _, leaf = name.rpartition(".")
@@ -540,14 +576,100 @@ def init_params(config, generator, head_outputs=20):
             "model": init_linear(generator, config.hidden_size, head_outputs)}
 
 
+def _affine(module):
+    if getattr(module, "scale", None) is None:
+        return {}
+    return _ln(module.scale.shape[0])
+
+
+def _init_conv(gen, module):
+    k = module.kernel_size
+    in_g = module.in_channels // module.groups
+    fan_in = in_g * int(np.prod(k))
+    tree = {"w": _kaiming(gen, (*k, in_g, module.out_channels), fan_in)}
+    if module.bias is not None:
+        tree["b"] = _bias(gen, (module.out_channels,), fan_in)
+    return tree
+
+
+def _init_conv_transpose(gen, module):
+    fan_in = module.in_channels * module.kernel_size
+    tree = {"w": _kaiming(gen, (module.kernel_size, module.out_channels,
+                                module.in_channels), fan_in)}
+    if module.bias is not None:
+        tree["b"] = _bias(gen, (module.out_channels,), fan_in)
+    return tree
+
+
+def _init_linear_leaf(gen, module):
+    n_in, n_out = module.w.shape
+    if module.b is None:
+        return {"w": _kaiming(gen, (n_in, n_out), n_in)}
+    return init_linear(gen, n_in, n_out)
+
+
+def _init_rnn_leaf(gen, module):
+    gates = 4 if isinstance(module, LSTM) else 3 if isinstance(module, GRU) \
+        else 1
+    return init_rnn(gen, gates, module.input_size, module.hidden_size,
+                    module.num_layers, module.bidirectional, module.bias)
+
+
+def _init_ligru_layer(gen, layer):
+    h = layer.u.shape[0]
+    bound = 1.0 / math.sqrt(h)
+    return {"w": _uniform(gen, tuple(layer.w.shape), bound),
+            "u": _uniform(gen, (h, 2 * h), bound), "norm": _ln(2 * h)}
+
+
+def _init_relpos_mha(gen, module):
+    d, h, dh = module.embed_dim, module.num_heads, module.head_dim
+    tree = {name: _glorot(gen, d, d) for name in ("wq", "wk", "wv", "wo")}
+    tree["bo"] = np.zeros(d, np.float32)
+    tree["wpos"] = _glorot(gen, d, d)
+    tree["u"], tree["v"] = _glorot(gen, h, dh), _glorot(gen, h, dh)
+    return tree
+
+
+def _init_embedding(gen, module):
+    if module.consider_as_one_hot:
+        return {}
+    return init_embedding(gen, module.num_embeddings, module.embedding_dim)
+
+
+# the seeded initialiser of each of the port's leaf classes with
+# parameters: the distributions and bounds of the JAX ``init``s
+_LEAF_INITS = (
+    (Linear, _init_linear_leaf),
+    (_ConvNd, _init_conv),
+    (ConvTranspose1d, _init_conv_transpose),
+    (SincConv, lambda gen, m: dict(zip(("low_hz", "band_hz"),
+                                       m.mel_init()))),
+    ((LayerNorm, GroupNorm, _BatchNorm, _InstanceNorm),
+     lambda gen, m: _affine(m)),
+    (PReLU, lambda gen, m: {"alpha": np.full(m.num_parameters, m.init_val,
+                                             np.float32)}),
+    (Embedding, _init_embedding),
+    (_RNNBase, _init_rnn_leaf),
+    (MultiheadAttention, lambda gen, m: init_mha(gen, m.d_model, m.kdim,
+                                                 m.vdim)),
+    (RelPosMHAXL, _init_relpos_mha),
+    (_LiGRULayer, _init_ligru_layer),
+)
+
+
 def seeded_tree(module, generator):
-    """The seeded JAX-shaped tree of one module (``init_wav2vec2`` for a
-    ``HuggingFaceWav2Vec2``, ``init_avhubert``'s parameters for a
-    ``FairseqAVHubert`` or ``AVHubertModel``, ``init_linear`` for a
-    ``Linear``,
-    ``init_fusion`` for a ``FusionRCA``, ``init_fairseq_decoder`` or
-    ``init_avhubert_asr``'s parameters for a ``FairseqTransformerDecoder``
-    or an ``AVHubertASR``), or None if it holds no parameters."""
+    """The seeded JAX-shaped tree of one module, or None if it holds no
+    parameters: ``init_wav2vec2`` for a ``HuggingFaceWav2Vec2``,
+    ``init_avhubert``'s parameters for a ``FairseqAVHubert`` or
+    ``AVHubertModel``, ``init_fairseq_decoder`` or ``init_avhubert_asr``'s
+    parameters for a ``FairseqTransformerDecoder`` or an ``AVHubertASR``,
+    ``init_fusion`` for a ``FusionRCA``, the initialiser of
+    ``_LEAF_INITS`` for a leaf class (``Linear``, the convs, the norms,
+    ``PReLU``, ``Embedding``, the RNNs and cells, the attentions, a LiGRU
+    layer), and for any other module the trees of its children, in their
+    order. A module with parameters of its own and no initialiser raises
+    ``NotImplementedError`` naming its class."""
     if isinstance(module, HuggingFaceWav2Vec2):
         return init_wav2vec2(module.config, generator)
     if isinstance(module, FairseqAVHubert):
@@ -562,23 +684,52 @@ def seeded_tree(module, generator):
     if isinstance(module, FusionRCA):
         ffn = module.fusion.layer1.pos_ffn
         return init_fusion(generator, ffn.input_size, ffn.d_ffn)
-    if isinstance(module, Linear):
-        return init_linear(generator, *module.w.shape)
-    if isinstance(module, torch.nn.Module) and any(module.parameters()):
+    for cls, init in _LEAF_INITS:
+        if isinstance(module, cls):
+            return init(generator, module) or None
+    if next(module.parameters(recurse=False), None) is not None:
         raise NotImplementedError(
             f"no seeded initialisation for {type(module).__name__}")
-    return None
+    tree = {}
+    for name, child in module.named_children():
+        sub = seeded_tree(child, generator)
+        if sub is not None:
+            tree[name] = sub
+    return tree or None
+
+
+def is_unseeded(module):
+    """Whether ``module`` still holds what the port's constructors put in
+    it: every parameter one value throughout (zeros where the JAX ``init``
+    draws, ones or a fixed slope elsewhere) and at least one of them all
+    zeros. Loaded or seeded weights draw at least one parameter of several
+    values, and such a module is left as it is."""
+    found_zero = False
+    for p in module.parameters():
+        flat = p.detach().reshape(-1)
+        if flat.numel() == 0:
+            continue
+        if bool((flat != flat[0]).any()):
+            return False
+        found_zero = found_zero or bool(flat[0] == 0)
+    return found_zero
 
 
 def init_modules(modules, seed):
     """Fill every module of ``modules`` (a dict, in its order) with seeded
     random parameters from one ``torch.Generator``: what the JAX ``Brain``
-    does with its PRNG when it is built (its numbers differ)."""
+    does with its PRNG when it is built (its numbers differ). Buffers keep
+    their values."""
     generator = torch.Generator().manual_seed(seed)
     for module in modules.values():
         tree = seeded_tree(module, generator)
         if tree is not None:
-            load_module_tree(module, tree)
+            converted = module_state(module, tree)
+            params = dict(module.named_parameters())
+            for name, value in module.state_dict().items():
+                if name not in params:
+                    converted.setdefault(name, value)
+            module.load_state_dict(converted, strict=True)
 
 
 def _unconvert(name, tensor):
@@ -614,13 +765,21 @@ def module_tree(module, running_stats=False):
     BatchNorm running statistics instead (the JAX state tree)."""
     tree = {}
     for name, tensor in module.state_dict().items():
-        if _running_stat(module, name) != running_stats:
+        if (name.endswith("_extra_state")
+                or _running_stat(module, name) != running_stats):
             continue
         owner, leaf = _owner(module, name)
-        if isinstance(owner, _ConvNd):
-            tensor = (torch_to_jax_conv_weight(tensor) if leaf == "weight"
-                      else tensor)
+        if isinstance(owner, (_ConvNd, ConvTranspose1d)):
+            if leaf == "weight":
+                tensor = (tensor.permute(2, 1, 0)
+                          if isinstance(owner, ConvTranspose1d)
+                          else torch_to_jax_conv_weight(tensor))
             name = name[:-len(leaf)] + {"weight": "w", "bias": "b"}[leaf]
+        parent, _, child = name[:-len(leaf) - 1].rpartition(".")
+        if running_stats and child and getattr(
+                module.get_submodule(parent), "jax_state_child", None) \
+                == child:
+            name = f"{parent}.{leaf}" if parent else leaf
         path, value = _unconvert(name, tensor)
         node = tree
         *parents, leaf = path.split("/")

@@ -68,6 +68,7 @@ from torch import nn
 
 from svt_speechbrain_tpu_torch import resolve_device
 from svt_speechbrain_tpu_torch.config import convert_to_yaml
+from svt_speechbrain_tpu_torch.convert_jax import init_modules, is_unseeded
 from svt_speechbrain_tpu_torch.dataio.batch import PaddedBatch, PaddedData
 from svt_speechbrain_tpu_torch.dataio.dataloader import (LoopedLoader,
                                                          SaveableDataLoader,
@@ -332,6 +333,10 @@ class Brain:
         self.modules = nn.ModuleDict(modules or {}).to(self.device)
         self._forward = _Forward(self.modules, self.compute_forward)
         self.seed = int(hparams.get("seed", 1986))
+        # the JAX Brain draws every module from its init; here the modules
+        # that no one loaded or seeded are drawn, in order, from the seed
+        init_modules({name: m for name, m in self.modules.items()
+                      if is_unseeded(m)}, self.seed)
         self.generator = torch.Generator(self.device).manual_seed(self.seed)
         self.host_generator = torch.Generator().manual_seed(self.seed)
         self.optimizers = {}

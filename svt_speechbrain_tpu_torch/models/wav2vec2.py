@@ -231,7 +231,8 @@ class ConvFeatureExtractor(nn.Module):
         layers, in_ch = [], 1
         for i, (dim, k, s) in enumerate(zip(c.conv_dim, c.conv_kernel,
                                             c.conv_stride)):
-            conv = Conv1d(dim, k, in_ch, stride=s, bias=c.conv_bias)
+            conv = Conv1d(dim, k, in_ch, stride=s, padding="valid",
+                          bias=c.conv_bias)
             if c.feat_extract_norm == "layer":
                 layers.append(_ExtractorLayer(
                     conv, layer_norm=LayerNorm(dim, eps=c.layer_norm_eps)))

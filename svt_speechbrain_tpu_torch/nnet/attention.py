@@ -1,5 +1,7 @@
-"""Multi-head attention and the position-wise FFN (port of
-``svt_speechbrain_tpu/nnet/attention.py:24-219``)."""
+"""Attention (port of ``svt_speechbrain_tpu/nnet/attention.py``): multi-head
+attention and the position-wise FFN, Transformer-XL relative-position
+attention, and the additive, location-aware and key-value attentions of
+the RNN decoders."""
 from __future__ import annotations
 
 import math
@@ -216,3 +218,240 @@ class PositionalwiseFeedForward(nn.Module):
         if rng is not None:
             h = dropout(h, self.dropout, rng.device, train)
         return self.ffn2(h)
+
+
+class RelPosEncXL(nn.Module):
+    """Transformer-XL relative positional encodings (``attention.py:222``):
+    for x (B, T, ...), a (1, 2T-1, emb_dim) table for positions T-1 down to
+    -(T-1), sin(|pos|·f) on the even columns and cos(pos·f) on the odd, in
+    x's dtype.
+
+    Example
+    -------
+    >>> import torch
+    >>> RelPosEncXL(8)(torch.ones(2, 5, 3)).shape
+    torch.Size([1, 9, 8])
+    """
+
+    def __init__(self, emb_dim):
+        super().__init__()
+        self.emb_dim = emb_dim
+
+    def forward(self, x):
+        t = x.shape[1]
+        dev = x.device
+        pos = torch.arange(t - 1, -t, -1, dtype=torch.float32,
+                           device=dev)[:, None]
+        inv_freq = torch.exp(torch.arange(0, self.emb_dim, 2,
+                                          dtype=torch.float32, device=dev)
+                             * -(math.log(10000.0) / self.emb_dim))
+        sinusoid = pos * inv_freq[None, :]
+        pe = torch.zeros(2 * t - 1, self.emb_dim, device=dev)
+        pe[:, 0::2] = torch.sin(sinusoid.abs())
+        pe[:, 1::2] = torch.cos(sinusoid)
+        return pe[None].to(x.dtype)
+
+
+class RelPosMHAXL(nn.Module):
+    """Relative-position multi-head attention (Transformer-XL / Conformer,
+    ``attention.py:246``): ``wq``, ``wk``, ``wv``, ``wo``, ``wpos`` (d, d)
+    (in, out), ``bo``, and the content and position biases ``u``, ``v``
+    (heads, head_dim). The scores are (q+u)·k plus the relative shift of
+    (q+v)·p, divided by sqrt(embed_dim), not sqrt(head_dim), as in the JAX
+    module (``attention.py:300``). ``forward(query, key, value, pos_embs,
+    attn_mask=None, key_padding_mask=None, rng=None, train=False)`` returns
+    (out, weights averaged over heads); ``rng`` is a ``StepRNG``.
+
+    Example
+    -------
+    >>> import torch
+    >>> x = torch.ones(2, 5, 8)
+    >>> out, w = RelPosMHAXL(8, 2)(x, x, x, RelPosEncXL(8)(x))
+    >>> out.shape, w.shape
+    (torch.Size([2, 5, 8]), torch.Size([2, 5, 5]))
+    """
+
+    def __init__(self, embed_dim, num_heads, dropout=0.0,
+                 mask_pos_future=False):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.dropout = dropout
+        self.mask_pos_future = mask_pos_future
+        self.head_dim = embed_dim // num_heads
+        d = embed_dim
+        for name in ("wq", "wk", "wv", "wo", "wpos"):
+            setattr(self, name, nn.Parameter(torch.zeros(d, d)))
+        self.bo = nn.Parameter(torch.zeros(d))
+        self.u = nn.Parameter(torch.zeros(num_heads, self.head_dim))
+        self.v = nn.Parameter(torch.zeros(num_heads, self.head_dim))
+
+    @staticmethod
+    def _rel_shift(x):
+        """(B, H, Tq, 2Tk-1) → (B, H, Tq, Tk), Transformer-XL's relative
+        shift (``attention.py:273``)."""
+        b, h, tq, w = x.shape
+        tk = (w + 1) // 2
+        x = F.pad(x, (1, 0)).reshape(b, h, w + 1, tq)
+        return x[:, :, 1:].reshape(b, h, tq, w)[:, :, :, :tk]
+
+    def forward(self, query, key, value, pos_embs, attn_mask=None,
+                key_padding_mask=None, rng=None, train=False):
+        b, tq, d = query.shape
+        tk = key.shape[1]
+        h, dh = self.num_heads, self.head_dim
+        q = (query @ self.wq.to(query.dtype)).reshape(b, tq, h, dh)
+        k = (key @ self.wk.to(key.dtype)).reshape(b, tk, h, dh).transpose(1, 2)
+        v = (value @ self.wv.to(value.dtype)).reshape(b, tk, h,
+                                                      dh).transpose(1, 2)
+        p = (pos_embs @ self.wpos.to(pos_embs.dtype)).reshape(
+            1, -1, h, dh).transpose(1, 2)
+        q_u = (q + self.u.to(q.dtype)).transpose(1, 2)
+        q_v = (q + self.v.to(q.dtype)).transpose(1, 2)
+        ac = torch.einsum("bhqd,bhkd->bhqk", q_u.float(), k.float())
+        bd = torch.einsum("bhqd,bhkd->bhqk", q_v.float(),
+                          p.float().expand(b, -1, -1, -1))
+        scores = (ac + self._rel_shift(bd)) / math.sqrt(d)
+        mask = None
+        if attn_mask is not None:
+            mask = (attn_mask[None, None] if attn_mask.dim() == 2
+                    else attn_mask[:, None])
+        if key_padding_mask is not None:
+            kpm = key_padding_mask[:, None, None, :]
+            mask = kpm if mask is None else (mask | kpm)
+        if mask is not None:
+            scores = scores.masked_fill(mask, NEG_INF)
+        weights = torch.softmax(scores, dim=-1)
+        if train and rng is not None and self.dropout > 0:
+            weights = dropout(weights, self.dropout, rng.device, train=True)
+        out = torch.einsum("bhqk,bhkd->bhqd", weights.to(v.dtype).float(),
+                           v.float()).to(v.dtype)
+        out = out.transpose(1, 2).reshape(b, tq, d)
+        out = out @ self.wo.to(out.dtype) + self.bo.to(out.dtype)
+        return out, weights.mean(dim=1)
+
+
+def _frame_mask(enc_states, enc_len):
+    """(B, T) True on each row's first ``enc_len`` (absolute) frames."""
+    t = enc_states.shape[1]
+    enc_len = torch.as_tensor(enc_len, device=enc_states.device)
+    return torch.arange(t, device=enc_states.device)[None, :] < enc_len[:, None]
+
+
+class ContentBasedAttention(nn.Module):
+    """Bahdanau additive attention (``attention.py:322``): ``mlp_enc``,
+    ``mlp_dec``, a bias-free ``mlp_attn`` to one score and ``mlp_out``.
+    ``forward(enc_states, enc_len, dec_states, enc_h=None)`` → (context
+    (B, output_dim), weights (B, T)), ``enc_len`` in absolute frames; the
+    frames past it get -inf before the softmax. ``enc_h`` is
+    ``mlp_enc(enc_states)`` when the caller has it already: the projection
+    depends on the encoder states only, so a decoder computes it once a
+    sequence (the same function as the JAX module's every step).
+
+    Example
+    -------
+    >>> import torch
+    >>> att = ContentBasedAttention(enc_dim=6, dec_dim=4, attn_dim=5,
+    ...                             output_dim=3)
+    >>> c, w = att(torch.ones(2, 7, 6), torch.tensor([7, 4]), torch.ones(2, 4))
+    >>> c.shape, w[1, 4:].tolist()
+    (torch.Size([2, 3]), [0.0, 0.0, 0.0])
+    """
+
+    def __init__(self, enc_dim, dec_dim, attn_dim, output_dim, scaling=1.0):
+        super().__init__()
+        self.mlp_enc = Linear(attn_dim, enc_dim)
+        self.mlp_dec = Linear(attn_dim, dec_dim)
+        self.mlp_attn = Linear(1, attn_dim, bias=False)
+        self.mlp_out = Linear(output_dim, enc_dim)
+        self.scaling = scaling
+
+    def _attend(self, enc_states, mask, scores_in):
+        attn = self.mlp_attn(torch.tanh(scores_in))[..., 0]
+        attn = attn.masked_fill(~mask, -math.inf)
+        attn = torch.softmax(attn * self.scaling, dim=-1)
+        context = torch.einsum("bt,btf->bf", attn, enc_states)
+        return self.mlp_out(context), attn
+
+    def forward(self, enc_states, enc_len, dec_states, enc_h=None):
+        if enc_h is None:
+            enc_h = self.mlp_enc(enc_states)
+        dec_h = self.mlp_dec(dec_states)[:, None]
+        return self._attend(enc_states, _frame_mask(enc_states, enc_len),
+                            enc_h + dec_h)
+
+
+class LocationAwareAttention(ContentBasedAttention):
+    """Chorowski location-aware attention (``attention.py:356``): the
+    additive attention plus ``mlp_loc`` of a bias-free "same" ``conv_loc``
+    (``channels`` wide, kernel 2·kernel_size+1) over the previous step's
+    weights. ``forward(enc_states, enc_len, dec_states, prev_attn=None,
+    enc_h=None)``; ``prev_attn=None`` starts uniform over the real frames
+    (1/enc_len on them, 0 after).
+
+    Example
+    -------
+    >>> import torch
+    >>> att = LocationAwareAttention(6, 4, 5, 3, conv_channels=2,
+    ...                              kernel_size=3)
+    >>> c, w = att(torch.ones(2, 7, 6), torch.tensor([7, 4]), torch.ones(2, 4))
+    >>> c.shape, w.shape
+    (torch.Size([2, 3]), torch.Size([2, 7]))
+    """
+
+    def __init__(self, enc_dim, dec_dim, attn_dim, output_dim, conv_channels,
+                 kernel_size, scaling=1.0):
+        super().__init__(enc_dim, dec_dim, attn_dim, output_dim, scaling)
+        from svt_speechbrain_tpu_torch.nnet.cnn import Conv1d
+
+        self.conv_loc = Conv1d(conv_channels, 2 * kernel_size + 1, 1,
+                               padding="same", bias=False)
+        self.mlp_loc = Linear(attn_dim, conv_channels)
+
+    def forward(self, enc_states, enc_len, dec_states, prev_attn=None,
+                enc_h=None):
+        mask = _frame_mask(enc_states, enc_len)
+        if prev_attn is None:
+            enc_len = torch.as_tensor(enc_len, device=enc_states.device)
+            prev_attn = mask / enc_len.float()[:, None]
+        attn_conv = self.mlp_loc(self.conv_loc(
+            prev_attn.to(enc_states.dtype)[..., None]))
+        if enc_h is None:
+            enc_h = self.mlp_enc(enc_states)
+        dec_h = self.mlp_dec(dec_states)[:, None]
+        return self._attend(enc_states, mask, enc_h + dec_h + attn_conv)
+
+
+class KeyValueAttention(nn.Module):
+    """Single-head scaled dot-product key/value attention
+    (``attention.py:394``): ``key_linear``, ``query_linear``,
+    ``value_linear``, scores over sqrt(attn_dim), the frames past
+    ``enc_len`` at -inf. Returns (context (B, output_dim), weights (B, 1,
+    T)).
+
+    Example
+    -------
+    >>> import torch
+    >>> att = KeyValueAttention(enc_dim=6, dec_dim=4, attn_dim=5,
+    ...                         output_dim=3)
+    >>> c, w = att(torch.ones(2, 7, 6), torch.tensor([7, 4]), torch.ones(2, 4))
+    >>> c.shape, w.shape
+    (torch.Size([2, 3]), torch.Size([2, 1, 7]))
+    """
+
+    def __init__(self, enc_dim, dec_dim, attn_dim, output_dim):
+        super().__init__()
+        self.key_linear = Linear(attn_dim, enc_dim)
+        self.query_linear = Linear(attn_dim, dec_dim)
+        self.value_linear = Linear(output_dim, enc_dim)
+        self.scaling = attn_dim ** 0.5
+
+    def forward(self, enc_states, enc_len, dec_states):
+        keys = self.key_linear(enc_states)
+        values = self.value_linear(enc_states)
+        query = self.query_linear(dec_states)
+        scores = torch.einsum("btf,bf->bt", keys, query) / self.scaling
+        scores = scores.masked_fill(~_frame_mask(enc_states, enc_len),
+                                    -math.inf)
+        w = torch.softmax(scores, dim=1)
+        return torch.einsum("bt,btf->bf", w, values), w[:, None]

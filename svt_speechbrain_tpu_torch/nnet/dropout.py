@@ -45,3 +45,31 @@ def dropout(x, rate, generator=None, train=False):
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
+class Dropout2d(torch.nn.Module):
+    """Channel dropout over channel-last input (``dropout.py:32``): each
+    (batch row, channel) kept with probability 1 − ``drop_rate`` across all
+    other axes, and scaled by 1/(1 − rate); the identity unless ``train``
+    and a ``generator`` are given.
+
+    Example
+    -------
+    >>> import torch
+    >>> y = Dropout2d(0.5)(torch.ones(2, 6, 4),
+    ...                    torch.Generator().manual_seed(0), train=True)
+    >>> bool((y == y[:, :1]).all()), sorted(set(y.flatten().tolist()))
+    (True, [0.0, 2.0])
+    """
+
+    def __init__(self, drop_rate):
+        super().__init__()
+        self.drop_rate = drop_rate
+
+    def forward(self, x, generator=None, train=False):
+        if not train or generator is None or self.drop_rate <= 0.0:
+            return x
+        keep = 1.0 - self.drop_rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)

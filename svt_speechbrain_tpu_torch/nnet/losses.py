@@ -25,6 +25,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from svt_speechbrain_tpu_torch.nnet.normalization import wide
+
 
 def length_to_mask(length, max_len, dtype=torch.float32):
     """Binary mask from absolute lengths: ``mask[i, t] = t < length[i]``,
@@ -156,7 +158,7 @@ def nll_loss(log_probabilities, targets, length=None, label_smoothing=0.0,
                                               allowed_len_diff)
 
     def loss_fn(logp, tgt):
-        return -torch.gather(logp.float(), -1,
+        return -torch.gather(wide(logp), -1,
                              tgt.long()[..., None]).squeeze(-1)
 
     return compute_masked_loss(loss_fn, log_probabilities, targets, length,
@@ -231,7 +233,7 @@ def _ctc_forward(log_probs, logit_paddings, labels, label_paddings,
     ``log_epsilon``, so an impossible alignment gives a large finite loss
     where ``F.ctc_loss`` gives inf. Inputs are renormalized by a
     log-softmax, as optax does."""
-    logprobs = torch.log_softmax(log_probs.float(), dim=-1)
+    logprobs = torch.log_softmax(wide(log_probs), dim=-1)
     b, t, k = logprobs.shape
     n = labels.shape[1]
     labellens = n - label_paddings.sum(dim=1).long()
@@ -250,15 +252,16 @@ def _ctc_forward(log_probs, logit_paddings, labels, label_paddings,
         return torch.cat([phi[:, :1], torch.logaddexp(phi[:, 1:], added)], -1)
 
     pads = logit_paddings.float().t()
-    for step in range(t):
+    # one unbind each (one backward op) rather than an index a step, whose
+    # backward would fill and add a whole (T, ...) gradient every step
+    for e_t, phi_t, pad in zip(emit.unbind(0), logprobs_phi.unbind(0),
+                               pads[:, :, None].unbind(0)):
         prev_phi_orig = phi
         prev_phi = update_phi(phi, prev_emit + log_epsilon * repeat)
-        next_emit = torch.logaddexp(prev_phi[:, :-1] + emit[step],
-                                    prev_emit + emit[step])
-        next_phi = prev_phi + logprobs_phi[step]
-        next_phi = update_phi(next_phi, prev_emit + logprobs_phi[step]
+        next_emit = torch.logaddexp(prev_phi[:, :-1] + e_t, prev_emit + e_t)
+        next_phi = prev_phi + phi_t
+        next_phi = update_phi(next_phi, prev_emit + phi_t
                               + log_epsilon * (1.0 - repeat))
-        pad = pads[step].reshape(b, 1)
         prev_emit = pad * prev_emit + (1.0 - pad) * next_emit
         phi = pad * prev_phi_orig + (1.0 - pad) * next_phi
     phi_last = update_phi(phi, prev_emit)

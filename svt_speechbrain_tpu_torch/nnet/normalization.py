@@ -1,15 +1,31 @@
 """Layer, group and batch normalization (port of
 ``svt_speechbrain_tpu/nnet/normalization.py``). Channel-last; statistics are
-taken in f32 for low-precision inputs and the result is cast back."""
+taken in f32 for low-precision inputs (in f64 for f64 inputs, so that an
+f64 run can referee an f32 one) and the result is cast back."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 
+def wide(x):
+    """``x`` in the dtype its statistics are taken in: f32, or f64 for an
+    f64 tensor.
+
+    Example
+    -------
+    >>> import torch
+    >>> wide(torch.ones(1, dtype=torch.bfloat16)).dtype, wide(
+    ...     torch.ones(1, dtype=torch.float64)).dtype
+    (torch.float32, torch.float64)
+    """
+    return x if x.dtype == torch.float64 else x.float()
+
+
 class LayerNorm(nn.Module):
-    """Layer norm over the trailing axis with ``scale``/``bias``
-    (``normalization.py:22``).
+    """Layer norm over the trailing axis (``normalization.py:22``), with
+    ``scale``/``bias`` of ``input_size`` when ``elementwise_affine`` (then
+    ``input_size`` is needed), none otherwise.
 
     Example
     -------
@@ -20,11 +36,17 @@ class LayerNorm(nn.Module):
     (0.0, 1.0)
     """
 
-    def __init__(self, input_size, eps=1e-5):
+    def __init__(self, input_size=None, eps=1e-5, elementwise_affine=True):
         super().__init__()
+        self.input_size = input_size
         self.eps = eps
-        self.scale = nn.Parameter(torch.ones(input_size))
-        self.bias = nn.Parameter(torch.zeros(input_size))
+        self.elementwise_affine = elementwise_affine
+        self.scale = self.bias = None
+        if elementwise_affine:
+            if input_size is None:
+                raise ValueError("an affine LayerNorm needs input_size")
+            self.scale = nn.Parameter(torch.ones(input_size))
+            self.bias = nn.Parameter(torch.zeros(input_size))
 
     def forward(self, x):
         return layer_norm(x, self.scale, self.bias, eps=self.eps)
@@ -32,7 +54,7 @@ class LayerNorm(nn.Module):
 
 def layer_norm(x, scale=None, bias=None, eps=1e-5, dim=-1):
     """Functional layer norm over ``dim`` (``normalization.py:59``)."""
-    x32 = x.float()
+    x32 = wide(x)
     mean = x32.mean(dim=dim, keepdim=True)
     var = (x32 - mean).square().mean(dim=dim, keepdim=True)
     y = (x32 - mean) * torch.rsqrt(var + eps)
@@ -46,12 +68,12 @@ def layer_norm(x, scale=None, bias=None, eps=1e-5, dim=-1):
 def global_layer_norm(x, eps=1e-5, row_mask=None):
     """Normalize over all elements of ``x`` (``normalization.py:73``);
     ``row_mask`` (B,) excludes batch-padding rows from the statistics."""
-    x32 = x.float()
+    x32 = wide(x)
     if row_mask is None:
         mean = x32.mean()
         var = (x32 - mean).square().mean()
     else:
-        m = row_mask.float().reshape((-1,) + (1,) * (x.dim() - 1))
+        m = row_mask.to(x32.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
         count = m.sum() * (x32.numel() / x32.shape[0])
         mean = (x32 * m).sum() / count
         var = ((x32 - mean).square() * m).sum() / count
@@ -68,8 +90,8 @@ def _masked_stats(x32, m, dims):
 def masked_global_layer_norm(x, elem_mask, eps=1e-5):
     """Whole-tensor layer norm with statistics over ``elem_mask`` positions
     only (``normalization.py:94``)."""
-    x32 = x.float()
-    m = elem_mask.float()
+    x32 = wide(x)
+    m = elem_mask.to(x32.dtype)
     while m.dim() < x32.dim():
         m = m[..., None]
     m = m.expand(x32.shape)
@@ -80,7 +102,7 @@ def masked_global_layer_norm(x, elem_mask, eps=1e-5):
 def per_item_layer_norm(x, eps=1e-5):
     """Normalize each batch row over all of its elements
     (``normalization.py:110``)."""
-    x32 = x.float()
+    x32 = wide(x)
     dims = tuple(range(1, x.dim()))
     mean = x32.mean(dim=dims, keepdim=True)
     var = (x32 - mean).square().mean(dim=dims, keepdim=True)
@@ -91,8 +113,8 @@ def per_item_masked_layer_norm(x, valid, eps=1e-5):
     """Per-row layer norm over the row's valid positions only
     (``models/wav2vec2.py:604 _per_item_masked_norm``): equal to
     ``per_item_layer_norm`` of the unpadded row."""
-    x32 = x.float()
-    m = valid.float()
+    x32 = wide(x)
+    m = valid.to(x32.dtype)
     while m.dim() < x32.dim():
         m = m[..., None]
     m = m.expand(x32.shape)
@@ -101,10 +123,10 @@ def per_item_masked_layer_norm(x, valid, eps=1e-5):
 
 
 class GroupNorm(nn.Module):
-    """Group norm over channel-last input (``normalization.py:122``, the
-    affine form): (batch, ..., channels), the channels split into
-    ``num_groups`` groups, statistics in f32 over every axis but (batch,
-    group), the result cast back.
+    """Group norm over channel-last input (``normalization.py:122``):
+    (batch, ..., channels), the channels split into ``num_groups`` groups,
+    statistics in f32 over every axis but (batch, group), then ``scale``
+    and ``bias`` per channel when ``affine``, the result cast back.
 
     Example
     -------
@@ -116,23 +138,28 @@ class GroupNorm(nn.Module):
     (torch.Size([2, 3, 4]), 0.0)
     """
 
-    def __init__(self, input_size, num_groups, eps=1e-05):
+    def __init__(self, input_size, num_groups, eps=1e-05, affine=True):
         super().__init__()
         if input_size % num_groups:
             raise ValueError("input_size must be divisible by num_groups")
         self.input_size = input_size
         self.num_groups = num_groups
         self.eps = eps
-        self.scale = nn.Parameter(torch.ones(input_size))
-        self.bias = nn.Parameter(torch.zeros(input_size))
+        self.affine = affine
+        self.scale = self.bias = None
+        if affine:
+            self.scale = nn.Parameter(torch.ones(input_size))
+            self.bias = nn.Parameter(torch.zeros(input_size))
 
     def forward(self, x):
         b, g = x.shape[0], self.num_groups
-        x32 = x.float().reshape(b, -1, g, self.input_size // g)
+        x32 = wide(x).reshape(b, -1, g, self.input_size // g)
         mean = x32.mean(dim=(1, 3), keepdim=True)
         var = (x32 - mean).square().mean(dim=(1, 3), keepdim=True)
         y = ((x32 - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
-        return (y * self.scale + self.bias).to(x.dtype)
+        if self.affine:
+            y = y * self.scale + self.bias
+        return y.to(x.dtype)
 
 
 class _BatchNorm(nn.Module):
@@ -176,7 +203,7 @@ class _BatchNorm(nn.Module):
             raise NotImplementedError(
                 "cross-replica batch statistics (SyncBN) are not ported yet "
                 "(ROADMAP.md queue 1 item 16)")
-        x32 = x.float()
+        x32 = wide(x)
         if train:
             dims = tuple(range(x.dim() - 1))
             mean = x32.mean(dim=dims)
@@ -206,3 +233,50 @@ class BatchNorm2d(_BatchNorm):
 class BatchNorm3d(_BatchNorm):
     """Batch norm over (batch, T, H, W, channels): the Conv3d visual
     frontend's (``normalization.py:235``)."""
+
+
+class _InstanceNorm(nn.Module):
+    """Instance norm over channel-last input: each (batch, channel)
+    normalized over the spatial axes, statistics in f32, then ``scale`` and
+    ``bias`` per channel when ``affine``."""
+
+    def __init__(self, input_size, eps=1e-05, affine=False):
+        super().__init__()
+        self.input_size = input_size
+        self.eps = eps
+        self.affine = affine
+        self.scale = self.bias = None
+        if affine:
+            self.scale = nn.Parameter(torch.ones(input_size))
+            self.bias = nn.Parameter(torch.zeros(input_size))
+
+    def forward(self, x):
+        x32 = wide(x)
+        dims = tuple(range(1, x.dim() - 1))
+        mean = x32.mean(dim=dims, keepdim=True)
+        var = (x32 - mean).square().mean(dim=dims, keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        if self.affine:
+            y = y * self.scale + self.bias
+        return y.to(x.dtype)
+
+
+class InstanceNorm1d(_InstanceNorm):
+    """Instance norm of (batch, time, channels) over time
+    (``normalization.py:240``). The JAX module applies its affine
+    ``scale``/``bias`` along the time axis of its swapped view, which
+    broadcasts only when T equals the channels (``ROADMAP.md`` queue 3);
+    here they act per channel, as the reference's ``InstanceNorm1d``.
+
+    Example
+    -------
+    >>> import torch
+    >>> y = InstanceNorm1d(2)(torch.tensor([[[1.0, 5.0], [3.0, 9.0]]]))
+    >>> [[round(v, 3) for v in row] for row in y[0].tolist()]
+    [[-1.0, -1.0], [1.0, 1.0]]
+    """
+
+
+class InstanceNorm2d(_InstanceNorm):
+    """Instance norm of (batch, T, F, channels) over (T, F)
+    (``normalization.py:267``)."""

@@ -29,12 +29,15 @@ MODULES = [
     "svt_speechbrain_tpu_torch.inference",
     "svt_speechbrain_tpu_torch.models.avhubert_asr",
     "svt_speechbrain_tpu_torch.models.convert_hf",
+    "svt_speechbrain_tpu_torch.models.crdnn",
+    "svt_speechbrain_tpu_torch.models.features",
     "svt_speechbrain_tpu_torch.models.quantize",
     "svt_speechbrain_tpu_torch.models.seq2seq_decoder",
     "svt_speechbrain_tpu_torch.models.wav2vec2",
     "svt_speechbrain_tpu_torch.nnet.activations",
     "svt_speechbrain_tpu_torch.nnet.attention",
     "svt_speechbrain_tpu_torch.nnet.cnn",
+    "svt_speechbrain_tpu_torch.nnet.containers",
     "svt_speechbrain_tpu_torch.nnet.dropout",
     "svt_speechbrain_tpu_torch.nnet.embedding",
     "svt_speechbrain_tpu_torch.nnet.linear",
@@ -43,6 +46,7 @@ MODULES = [
     "svt_speechbrain_tpu_torch.nnet.loss.transducer_loss",
     "svt_speechbrain_tpu_torch.nnet.losses",
     "svt_speechbrain_tpu_torch.nnet.normalization",
+    "svt_speechbrain_tpu_torch.nnet.pooling",
     "svt_speechbrain_tpu_torch.nnet.rnn",
     "svt_speechbrain_tpu_torch.nnet.schedulers",
     "svt_speechbrain_tpu_torch.nnet.transducer_joint",
@@ -53,6 +57,7 @@ MODULES = [
     "svt_speechbrain_tpu_torch.parallel.distributed",
     "svt_speechbrain_tpu_torch.pretrained.fetching",
     "svt_speechbrain_tpu_torch.pretrained.interfaces",
+    "svt_speechbrain_tpu_torch.processing.features",
     "svt_speechbrain_tpu_torch.tasks.amt",
     "svt_speechbrain_tpu_torch.utils.amt",
     "svt_speechbrain_tpu_torch.utils.callchains",

@@ -139,6 +139,46 @@ def test_seq2seq_slice_runs_without_loading_jax():
     assert "LOADED []" in res.stdout, res.stdout
 
 
+_CRDNN_PROBE = """
+import sys
+import numpy as np
+import torch
+import chip_smoke as cs
+from svt_speechbrain_tpu_torch.core import Stage
+from svt_speechbrain_tpu_torch.models import crdnn, features
+from svt_speechbrain_tpu_torch.nnet import (activations, attention, cnn,
+                                            containers, dropout, linear,
+                                            normalization, pooling, rnn)
+from svt_speechbrain_tpu_torch.processing import features as proc
+arch = dict(cs.CRDNN_ARCH, input_size=16, cnn_channels=(4, 6), rnn_layers=1,
+            rnn_neurons=8, dnn_neurons=10)
+dec = dict(cs.CRDNN_DEC, hidden_size=9, attn_dim=7, kernel_size=4)
+brain = cs.crdnn_brain(cs.crdnn_modules(arch, dec, 11, 6), "cpu", 0)
+batch = cs.crdnn_batch(np.random.default_rng(0), (0.3, 0.2), 11)
+assert np.isfinite(brain.fit_batch(batch))
+with torch.no_grad():
+    p_ctc, p_seq = brain.compute_forward(brain._batch_to_device(batch),
+                                         Stage.VALID)
+assert p_ctc.shape == (2, 15, 11) and torch.isfinite(p_seq).all()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "svt_speechbrain_tpu" or m.startswith("svt_speechbrain_tpu."))
+print("LOADED", bad)
+"""
+
+
+def test_crdnn_slice_runs_without_loading_jax():
+    """The CRDNN slice (the rest of ``nnet/``, the features, the CRDNN and
+    phase 22's assembly and ``Brain``) imports and takes a TINY training
+    step without loading JAX or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    res = subprocess.run([sys.executable, "-c", _CRDNN_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "LOADED []" in res.stdout, res.stdout
+
+
 _IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|svt_speechbrain_tpu)"
     r"(?![\w])", re.MULTILINE)

@@ -105,7 +105,7 @@ def test_conv1d_matches_jax(k, s, groups, cin, cout):
     jc = JConv1d(cout, k, cin, stride=s, padding="valid", groups=groups)
     params = jc.init(jax.random.PRNGKey(k + s))
     x = np.random.default_rng(2).normal(size=(2, 57, cin)).astype(np.float32)
-    tc = Conv1d(cout, k, cin, stride=s, groups=groups)
+    tc = Conv1d(cout, k, cin, stride=s, padding="valid", groups=groups)
     with torch.no_grad():
         tc.weight.copy_(jax_to_torch_conv_weight(
             torch.from_numpy(np.array(params["w"]))))
