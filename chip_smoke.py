@@ -212,10 +212,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    LiGRU layers, dropouts 0, the card against the CPU: log-probabilities,
    loss and the running statistics after one training forward in f32,
    every gradient of the same step in f64, and the f32 gradients against
-   f64. No kernel of ``csrc/`` lies on this path.
+   f64. Then the eval batch's encoder states are decoded four ways over the
+   whole batch (ms, host reads and, for the beam search, launches a step):
+   ``S2SRNNGreedySearcher``; ``S2SRNNBeamSearcher`` at beam 8, CTC weight
+   0.3; that search fused (weight 0.5) with a seeded ``RNNLM`` at the JAX
+   defaults (embedding 128, 2 LSTM layers of 1024, a DNN block of 512) and
+   with a 2-layer ``TransformerLM``; each also on the longest and shortest
+   rows for 20 steps against the same search on the CPU. No kernel of
+   ``csrc/`` lies on this path.
+23. the conformer ASR path at the widths of SpeechBrain's LibriSpeech
+   conformer recipe (``conformer-small-librispeech``): ``Fbank(n_mels=80,
+   n_fft=512)`` → global ``InputNormalization`` → ``ConvolutionFrontEnd``
+   (2 blocks of 64 and 32 channels, strides 2: 640 features) → a conformer
+   ``TransformerASR`` (d_model 144, 4 heads, 12 encoder and 4 decoder
+   layers, d_ffn 1024, kernel 31, dropout 0.1) → 5000-way CTC and sequence
+   heads, f32, 13.3 M parameters drawn by the ``Brain``; a batch of 8
+   utterances of 14.0-7.0 s, about 4 tokens a second. The augmenters'
+   applies card against CPU on the same draws; ``EnvCorrupt`` once on the
+   batch over a synthetic noise and RIR corpus the phase writes; the eval
+   forward; a warm-up and 3 timed Adam steps of 0.3 CTC + 0.7 label-smoothed
+   NLL with ``SpeedPerturb`` and ``SpecAugment`` on (every BatchNorm
+   statistic moved); ``S2STransformerBeamSearch`` at beam 10, CTC weight
+   0.4, over the eval batch (57 steps: random weights end no hypothesis);
+   ms, launches, busy share and peak memory of each, host reads a decode
+   step, and no launch of a ``csrc/`` kernel over the path. At 2 encoder
+   and 1 decoder layers, dropout 0, the card against the CPU as in phase
+   22, and the beam search (beam 3, 6 steps).
 
 Phases run in the order 1-5, 8, 9, 6, 7, 10-15, 19, 17, 18, 16, 20, 21,
-22.
+22, 23.
 
 Phases 2 and 5 also hold and time the two RNN-T kernels (the lattice on
 alpha and on beta panels, the gradient) against their plain versions at the
@@ -314,6 +339,18 @@ from svt_speechbrain_tpu_torch.recipes.N20EMv2.video_only import (  # noqa: E402
     extract_ssl_feats as video_extract, prepare_n20emv2 as video_prep,
     train_video_ssl as video_recipe)
 from svt_speechbrain_tpu_torch.utils.amt import onset_peaks  # noqa: E402
+from svt_speechbrain_tpu_torch.decoders.seq2seq import (  # noqa: E402
+    S2SRNNBeamSearcher, S2SRNNBeamSearchLM, S2SRNNBeamSearchTransformerLM,
+    S2SRNNGreedySearcher, S2STransformerBeamSearch)
+from svt_speechbrain_tpu_torch.models.augment import (  # noqa: E402
+    EnvCorrupt, SpecAugment)
+from svt_speechbrain_tpu_torch.models.convolution import (  # noqa: E402
+    ConvolutionFrontEnd)
+from svt_speechbrain_tpu_torch.models.rnnlm import RNNLM  # noqa: E402
+from svt_speechbrain_tpu_torch.models.transformer_asr import (  # noqa: E402
+    TransformerASR, TransformerLM)
+from svt_speechbrain_tpu_torch.processing import (  # noqa: E402
+    speech_augmentation as augmentation)
 
 SEED = 0
 SR = 16000
@@ -4544,6 +4581,22 @@ TOL_CRDNN = {"logp_abs": 5e-6, "loss_rel": 1e-5, "stats_rel": 1e-5,
              "grad_f32_normed": 1e-2}
 # the modules whose parameters' gradients reach the loss through no norm
 CRDNN_HEADS = ("ctc_lin.", "seq_lin.", "emb.", "dec.")
+# decoding: greedy, beam 8 with CTC weight 0.3, and that beam search fused
+# (weight 0.5) with an RNNLM at the JAX defaults and a 2-layer
+# TransformerLM; the longest transcript is 54 tokens (12 a second of 4.5 s)
+CRDNN_DECODE_BOS, CRDNN_DECODE_EOS = CRDNN_VOCAB - 2, CRDNN_VOCAB - 1
+CRDNN_DECODE_STEPS = 56
+CRDNN_DECODE_CPU_STEPS = 20
+CRDNN_BEAM = 8
+CRDNN_DECODE_CTC = 0.3
+CRDNN_LM_WEIGHT = 0.5
+RNNLM_ARCH = dict(embedding_dim=128, rnn_layers=2, rnn_neurons=1024,
+                  dnn_blocks=1, dnn_neurons=512)
+TRANSFORMER_LM_ARCH = dict(num_encoder_layers=2)
+# a search on the card against the same search on the CPU, f32, TF32 off:
+# the hypotheses equal and each score (a length-normalized sum of
+# log-probabilities of order 1-10) within 1e-4
+TOL_DECODE_SCORE = 1e-4
 
 
 def crdnn_modules(arch=CRDNN_ARCH, dec=CRDNN_DEC, vocab=CRDNN_VOCAB,
@@ -4784,10 +4837,117 @@ def crdnn_full_width(rng):
                    eval_peak_gb=eval_peak, step_ms=step_ms,
                    step_launches=step_launches, train_peak_gb=train_peak,
                    losses=losses_seen, build_s=build_s)
+    summary["decode"] = crdnn_decoding(brain, arrays)
     del brain, modules, arrays
     gc.collect()
     torch.cuda.empty_cache()
     return summary
+
+
+def count_steps(searcher):
+    """Wrap ``searcher.forward_step`` to count its calls; returns the
+    one-element counter."""
+    n, inner = [0], searcher.forward_step
+
+    def step(*args):
+        n[0] += 1
+        return inner(*args)
+
+    searcher.forward_step = step
+    return n
+
+
+def crdnn_lms(device, seed):
+    """The two seeded LMs of phase 22's fused searches: an ``RNNLM`` at the
+    JAX defaults and a 2-layer ``TransformerLM`` (d_model 512, 8 heads,
+    d_ffn 2048, the JAX defaults), both over the 42 classes, in eval."""
+    lms = {"rnnlm": RNNLM(CRDNN_VOCAB, **RNNLM_ARCH),
+           "transformer_lm": TransformerLM(CRDNN_VOCAB, **TRANSFORMER_LM_ARCH)}
+    init_modules(lms, seed)
+    return {k: m.to(device).eval() for k, m in lms.items()}
+
+
+def crdnn_searchers(m, lms, steps, frames):
+    """Phase 22's four searches over the assembly's modules ``m``: greedy,
+    beam 8 with CTC weight 0.3, and that beam search fused with the RNNLM
+    and with the TransformerLM; ``steps`` steps at most over ``frames``
+    encoder frames. The joint CTC search needs blank, bos and eos apart,
+    and the TIMIT recipe gives all three index 0, so the searches take the
+    last two classes as bos and eos (the weights are random: no index
+    carries a meaning)."""
+    common = dict(bos_index=CRDNN_DECODE_BOS, eos_index=CRDNN_DECODE_EOS,
+                  min_decode_ratio=0.0,
+                  max_decode_ratio=(steps + 0.5) / frames)
+    beam = dict(common, blank_index=CRDNN_BLANK, beam_size=CRDNN_BEAM,
+                ctc_weight=CRDNN_DECODE_CTC, ctc_linear=m["ctc_lin"])
+    heads = (m["emb"], m["dec"], m["seq_lin"])
+    return {"greedy": S2SRNNGreedySearcher(*heads, **common),
+            "beam": S2SRNNBeamSearcher(*heads, **beam),
+            "beam_rnnlm": S2SRNNBeamSearchLM(
+                *heads, lms["rnnlm"], lm_weight=CRDNN_LM_WEIGHT, **beam),
+            "beam_transformer_lm": S2SRNNBeamSearchTransformerLM(
+                *heads, lms["transformer_lm"], lm_weight=CRDNN_LM_WEIGHT,
+                **beam)}
+
+
+def same_searches(got, want, what):
+    """Hypotheses equal and scores within TOL_DECODE_SCORE, or raise;
+    returns the largest score difference."""
+    (g_hyps, g_scores), (w_hyps, w_scores) = got, want
+    err = max(abs(a - b) for a, b in zip(g_scores, w_scores))
+    if g_hyps != w_hyps or err > TOL_DECODE_SCORE:
+        raise AssertionError(f"{what}: card {g_hyps} {g_scores} against "
+                             f"CPU {w_hyps} {w_scores}")
+    return err
+
+
+def crdnn_decoding(brain, arrays):
+    """Phase 22's decoding: the eval batch's encoder states on the card,
+    the four searches over the whole batch (ms and host reads a step,
+    launches a step of the beam search), then each on the longest and the
+    shortest row for CRDNN_DECODE_CPU_STEPS steps against the same search
+    on the CPU from the same encoder states."""
+    m = brain.modules
+    wavs, wav_lens = arrays["sig"]
+    with torch.inference_mode():
+        feats = m.normalize(m.compute_features(wavs), wav_lens, train=False)
+        x = m.enc(feats)
+    frames = x.shape[1]
+    lms = crdnn_lms("cuda", SEED + 72)
+    out = {}
+    for name, searcher in crdnn_searchers(m, lms, CRDNN_DECODE_STEPS,
+                                          frames).items():
+        searcher(x, wav_lens)                                # warm-up
+        steps = count_steps(searcher)
+        (hyps, scores), wall = _timed(lambda: searcher(x, wav_lens))
+        reads = searcher.host_reads
+        entry = dict(steps=steps[0], ms_a_step=wall * 1e3 / steps[0],
+                     host_reads_a_step=reads / steps[0],
+                     hyp_lengths=[len(h) for h in hyps])
+        if name == "beam":
+            entry["launches_a_step"] = kernel_launches(
+                lambda: searcher(x, wav_lens)) / steps[0]
+        if not all(np.isfinite(scores)):
+            raise AssertionError(f"{name}: nonfinite scores {scores}")
+        out[name] = entry
+        log(f"  decode {name}: {entry}")
+    rows = [0, x.shape[0] - 1]
+    cpu = {k: copy.deepcopy(m[k]).cpu() for k in ("emb", "dec", "seq_lin",
+                                                  "ctc_lin")}
+    cpu_lms = {k: copy.deepcopy(lm).cpu() for k, lm in lms.items()}
+    x_rows, lens_rows = x[rows], wav_lens[rows]
+    card = crdnn_searchers(m, lms, CRDNN_DECODE_CPU_STEPS, frames)
+    host = crdnn_searchers(cpu, cpu_lms, CRDNN_DECODE_CPU_STEPS, frames)
+    for name in card:
+        err = same_searches(card[name](x_rows, lens_rows),
+                            host[name](x_rows.cpu(), lens_rows.cpu()),
+                            f"phase 22 {name}")
+        out[name]["card_vs_cpu_score_err"] = err
+        log(f"  decode {name}, rows {rows}, {CRDNN_DECODE_CPU_STEPS} steps: "
+            f"card and CPU hypotheses equal, scores within {err:.3e} (tol "
+            f"{TOL_DECODE_SCORE})")
+    del lms, cpu_lms
+    return out
 
 
 def crdnn_step(modules, batch, device, dtype=torch.float32):
@@ -4883,6 +5043,545 @@ def crdnn_phase(rng):
     t0 = time.perf_counter()
     summary = crdnn_full_width(rng)
     summary["card_vs_cpu"] = crdnn_card_vs_cpu(rng)
+    summary["phase_s"] = time.perf_counter() - t0
+    return summary
+
+
+# --------------------------------------------------------------- phase 23
+# conformer-small-librispeech: the widths of SpeechBrain's LibriSpeech
+# conformer recipe (recipes/LibriSpeech/ASR/transformer/hparams/
+# conformer_small.yaml), on the JAX modules' own arguments: Fbank of 80
+# mels (n_fft 512), global input normalization, the convolutional frontend
+# (2 blocks of 64 and 32 channels, kernel 3, strides 2: 640 features), a
+# conformer TransformerASR (d_model 144, 4 heads, 12 encoder and 4 decoder
+# layers, d_ffn 1024, kernel 31, dropout 0.1; the decoder pre-LN with
+# GELU), CTC and sequence heads over a vocabulary of 5000; blank 0, bos 1,
+# eos 2, as the recipe
+CONFORMER_N_MELS = 80
+CONFORMER_N_FFT = 512
+CONFORMER_FRONT = dict(num_blocks=2, num_layers_per_block=1,
+                       out_channels=(64, 32), kernel_sizes=(3, 3),
+                       strides=(2, 2))
+CONFORMER_ARCH = dict(d_model=144, nhead=4, num_encoder_layers=12,
+                      num_decoder_layers=4, d_ffn=1024, dropout=0.1,
+                      activation="gelu", normalize_before=True,
+                      encoder_module="conformer", kernel_size=31)
+CONFORMER_VOCAB = 5000
+CONFORMER_BLANK, CONFORMER_BOS, CONFORMER_EOS = 0, 1, 2
+CONFORMER_SECONDS = (14.0, 13.0, 12.0, 11.0, 10.0, 9.0, 8.0, 7.0)
+CONFORMER_TOKENS_PER_S = 4
+CONFORMER_CTC_WEIGHT = 0.3
+CONFORMER_SMOOTHING = 0.1
+CONFORMER_LR = 1e-3
+CONFORMER_SPEEDS = [95, 100, 105]
+CONFORMER_SPEC = dict(time_warp=True, time_warp_window=5, freq_mask=True,
+                      n_freq_mask=2, freq_mask_width=(0, 30), time_mask=True,
+                      n_time_mask=2, time_mask_width=(0, 40))
+# the search: beam 10, CTC weight 0.4; random weights end no hypothesis,
+# so the steps stop one past the longest transcript (56 tokens)
+CONFORMER_BEAM = 10
+CONFORMER_DECODE_CTC = 0.4
+CONFORMER_DECODE_STEPS = 57
+CONFORMER_DECODE_CPU_STEPS = 6
+# card vs CPU at 2 encoder and 1 decoder layers, full width, dropout 0, no
+# augmentation, f32 with TF32 off and f64, on the batch's longest and
+# shortest rows. Prediction (PERF.md, before the first run): the f32 eval
+# log-probabilities within 1e-5, the loss within 1e-5 of itself, the
+# BatchNorm statistics within 1e-5 of their norms; every gradient in f64
+# within 1e-9 of its norm; the f32 gradients against f64 within 1e-4 for
+# the heads and the decoder and 1e-2 for the leaves behind the conformer's
+# BatchNorm and LayerNorms (the frontend, the input projection, the
+# encoder), as phase 22 found behind its norms.
+TOL_CONFORMER = {"logp_abs": 1e-5, "loss_rel": 1e-5, "stats_rel": 1e-5,
+                 "grad_f64_rel": 1e-9, "grad_f32_heads": 1e-4,
+                 "grad_f32_normed": 1e-2}
+CONFORMER_HEADS = ("ctc_lin.", "seq_lin.", "asr.tgt.", "asr.decoder.")
+# the augmenters' applies on the card against the CPU on the same draws,
+# f32: values of order 1 through sums of a few dozen terms
+TOL_AUGMENT = 1e-5
+
+
+def conformer_modules(arch=CONFORMER_ARCH, front=CONFORMER_FRONT,
+                      n_mels=CONFORMER_N_MELS, vocab=CONFORMER_VOCAB,
+                      augment=True, n_fft=CONFORMER_N_FFT):
+    """The assembly's modules, unseeded: Fbank, the global input
+    normalization, the frontend, the TransformerASR, the CTC and sequence
+    heads, and with ``augment`` the speed perturbation and SpecAugment."""
+    fe = ConvolutionFrontEnd(input_size=n_mels, **front)
+    modules = {"compute_features": Fbank(n_mels=n_mels, n_fft=n_fft),
+               "normalize": InputNormalization(norm_type="global"),
+               "front": fe,
+               "asr": TransformerASR(vocab, fe.output_dim(), **arch),
+               "ctc_lin": Linear(vocab, arch["d_model"]),
+               "seq_lin": Linear(vocab, arch["d_model"])}
+    if augment:
+        modules["speed_perturb"] = augmentation.SpeedPerturb(
+            SR, speeds=CONFORMER_SPEEDS)
+        modules["spec_augment"] = SpecAugment(**CONFORMER_SPEC)
+    return modules
+
+
+def conformer_batch(rng, seconds=CONFORMER_SECONDS, vocab=CONFORMER_VOCAB,
+                    tokens_per_s=CONFORMER_TOKENS_PER_S, sr=SR):
+    """Seeded noise rows of ``seconds``, zero-padded, with relative lengths;
+    round(tokens_per_s · s) tokens in 3..vocab-1 a row, ``tokens_bos`` (bos
+    first) and ``tokens_eos`` (eos after each row's tokens)."""
+    n = [int(s * sr) for s in seconds]
+    wav = np.zeros((len(n), max(n)), np.float32)
+    for i, k in enumerate(n):
+        wav[i, :k] = 0.1 * rng.standard_normal(k)
+    u = [int(round(tokens_per_s * s)) for s in seconds]
+    umax = max(u)
+    tokens = np.zeros((len(u), umax), np.int64)
+    eos = np.zeros((len(u), umax + 1), np.int64)
+    for i, k in enumerate(u):
+        tokens[i, :k] = rng.integers(3, vocab, k)
+        eos[i, :k] = tokens[i, :k]
+        eos[i, k] = CONFORMER_EOS
+    bos = np.concatenate([np.full((len(u), 1), CONFORMER_BOS), tokens],
+                         axis=1)
+    rel = np.asarray(u, np.float32)
+    return {"sig": PaddedData(torch.from_numpy(wav),
+                              np.asarray(n, np.float32) / max(n)),
+            "tokens": PaddedData(torch.from_numpy(tokens), rel / umax),
+            "tokens_bos": PaddedData(torch.from_numpy(bos),
+                                     (rel + 1) / (umax + 1)),
+            "tokens_eos": PaddedData(torch.from_numpy(eos),
+                                     (rel + 1) / (umax + 1))}
+
+
+class ConformerBrain(Brain):
+    """SpeechBrain's LibriSpeech conformer assembly: in training the
+    waveforms are speed-perturbed, then features → global normalization
+    (updated in training, ``self.epoch`` its epoch) → SpecAugment (in
+    training) → the frontend → the TransformerASR over bos-prefixed
+    tokens → CTC and sequence log-probabilities. The loss is
+    ``CONFORMER_CTC_WEIGHT`` · CTC + the rest · label-smoothed NLL, Adam
+    over every module."""
+
+    epoch = 0
+
+    def features(self, batch, stage, rng=None):
+        m = self.modules
+        train = stage == Stage.TRAIN
+        wavs, wav_lens = batch["sig"]
+        if train and "speed_perturb" in m:
+            wavs = m.speed_perturb(wavs, rng=rng)
+        feats = m.normalize(m.compute_features(wavs), wav_lens,
+                            epoch=self.epoch, train=train)
+        if train and "spec_augment" in m:
+            feats = m.spec_augment(feats, rng=rng)
+        return m.front(feats)
+
+    def compute_forward(self, batch, stage, rng=None):
+        m = self.modules
+        enc, dec = m.asr(self.features(batch, stage, rng),
+                         batch["tokens_bos"].data, batch["sig"].lengths,
+                         rng=rng, train=stage == Stage.TRAIN)
+        return (torch.log_softmax(m.ctc_lin(enc), dim=-1),
+                torch.log_softmax(m.seq_lin(dec), dim=-1))
+
+    def compute_objectives(self, predictions, batch, stage):
+        p_ctc, p_seq = predictions
+        tokens, token_lens = batch["tokens"]
+        tokens_eos, eos_lens = batch["tokens_eos"]
+        ctc = losses.ctc_loss(p_ctc, tokens, batch["sig"].lengths,
+                              token_lens, CONFORMER_BLANK)
+        nll = losses.nll_loss(p_seq, tokens_eos, length=eos_lens,
+                              label_smoothing=CONFORMER_SMOOTHING)
+        return CONFORMER_CTC_WEIGHT * ctc + (1 - CONFORMER_CTC_WEIGHT) * nll
+
+    def init_optimizers(self):
+        self.add_optimizer("opt", torch.optim.Adam, list(self.modules.keys()),
+                           lr=self.hparams.lr)
+
+
+def conformer_brain(modules, device, seed):
+    brain = ConformerBrain(modules, hparams={"seed": seed,
+                                             "lr": CONFORMER_LR},
+                           run_opts={"device": device})
+    brain.init_optimizers()
+    return brain
+
+
+def conformer_searcher(m, steps, frames, beam=CONFORMER_BEAM):
+    """``S2STransformerBeamSearch`` over the assembly's TransformerASR and
+    heads: ``beam``, CTC weight 0.4, ``steps`` steps at most over
+    ``frames`` encoder frames."""
+    return S2STransformerBeamSearch(
+        [m["asr"], m["seq_lin"], m["ctc_lin"]], bos_index=CONFORMER_BOS,
+        eos_index=CONFORMER_EOS, blank_index=CONFORMER_BLANK,
+        min_decode_ratio=0.0, max_decode_ratio=(steps + 0.5) / frames,
+        beam_size=beam, ctc_weight=CONFORMER_DECODE_CTC)
+
+
+def conformer_state(brain):
+    """The assembly's running statistics (the conformer's batch norms, the
+    input normalization's state), by name."""
+    return {name: buf.detach().clone() for name, buf in
+            brain.modules.named_buffers()
+            if name.rsplit(".", 1)[-1] in ("mean", "var", "glob_mean",
+                                           "glob_std", "count")}
+
+
+def write_noise_corpus(root, rng, sr=SR):
+    """A small extended-CSV noise corpus (4 rows of 3-5 s of seeded noise)
+    and an RIR corpus (2 decaying impulse responses of 0.25 s) under
+    ``root``; returns the two CSV paths."""
+    rows = {"noise": [(f"n{i}", 0.1 * rng.standard_normal(int(s * sr)))
+                      for i, s in enumerate((3.0, 4.0, 5.0, 3.5))],
+            "rir": []}
+    t = np.arange(int(0.25 * sr)) / sr
+    for i, decay in enumerate((0.05, 0.1)):
+        rir = rng.standard_normal(len(t)) * np.exp(-t / decay)
+        rir[0] = 1.0
+        rows["rir"].append((f"r{i}", 0.5 * rir / np.abs(rir).max()))
+    paths = {}
+    for kind, items in rows.items():
+        lines = ["ID, duration, wav, wav_format, wav_opts"]
+        for name, sig in items:
+            path = os.path.join(root, f"{name}.wav")
+            write_audio(path, torch.from_numpy(sig.astype(np.float32)), sr)
+            lines.append(f"{name}, {len(sig) / sr}, {path}, wav, ")
+        paths[kind] = os.path.join(root, f"{kind}.csv")
+        with open(paths[kind], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return paths["noise"], paths["rir"]
+
+
+def augmenters_card_vs_cpu(gen, wav, lens):
+    """Each augmenter's apply on the card against the CPU on the same
+    draws (drawn once on the card): Resample 16000 → 15200 and 44100 →
+    16000, SpeedPerturb, DropFreq, DropChunk (with noise), DoClip,
+    AddBabble, AddNoise (white), AddReverb (a drawn RIR), SpecAugment's
+    warp and masks. Returns the worst max abs error by augmenter."""
+    A = augmentation
+    cpu_wav, cpu_lens = wav.cpu(), lens.cpu()
+    rir = torch.randn(1, 800, generator=gen, device="cuda") * torch.exp(
+        -torch.arange(800, device="cuda") / 100.0)
+    cases = {
+        "resample_15200": (A.Resample(SR, 15200), lambda m, w, l, d: m(w)),
+        "resample_44100": (A.Resample(44100, SR), lambda m, w, l, d: m(w)),
+        "speed_perturb": (A.SpeedPerturb(SR, speeds=CONFORMER_SPEEDS),
+                          lambda m, w, l, d: m.apply(w, d)),
+        "drop_freq": (A.DropFreq(drop_count_low=1, drop_count_high=3),
+                      lambda m, w, l, d: m.apply(w, d)),
+        "drop_chunk": (A.DropChunk(drop_length_low=1000,
+                                   drop_length_high=2000, drop_count_low=1,
+                                   drop_count_high=5, noise_factor=0.5),
+                       lambda m, w, l, d: m.apply(w, l, d)),
+        "do_clip": (A.DoClip(clip_low=0.05, clip_high=0.2),
+                    lambda m, w, l, d: m.apply(w, d)),
+        "add_babble": (A.AddBabble(speaker_count=3, snr_low=0, snr_high=10),
+                       lambda m, w, l, d: m.apply(w, l, d)),
+        "add_noise": (A.AddNoise(snr_low=0, snr_high=15),
+                      lambda m, w, l, d: m.apply(w, l, d)),
+        "add_reverb": (A.AddReverb(rir_funct=lambda g: rir.to(g.device)),
+                       lambda m, w, l, d: m.apply(w, d)),
+    }
+    errs = {}
+    for name, (module, apply) in cases.items():
+        draws = (module.draw(wav, gen) if name in ("drop_chunk", "add_babble",
+                                                   "add_noise")
+                 else module.draw(gen) if hasattr(module, "draw") else None)
+        host_draws = None if draws is None else {
+            k: (v.cpu() if torch.is_tensor(v) else v)
+            for k, v in draws.items()}
+        if host_draws and "generator" in host_draws:
+            host_draws["generator"] = torch.Generator()
+        got = apply(module.cuda(), wav, lens, draws)
+        want = apply(module.cpu(), cpu_wav, cpu_lens, host_draws)
+        errs[name] = (got.cpu() - want).abs().max().item()
+    spec = SpecAugment(**CONFORMER_SPEC)
+    feats = torch.randn(wav.shape[0], 300, CONFORMER_N_MELS, generator=gen,
+                        device="cuda")
+    c, w = spec.draw_warp(300, gen)
+    pos, length = spec.draw_mask(wav.shape[0], CONFORMER_N_MELS, 2, (0, 30),
+                                 gen)
+    got = spec._mask(spec._time_warp_cw(feats, c, w), pos, length, 2)
+    want = spec._mask(spec._time_warp_cw(feats.cpu(), c.cpu(), w.cpu()),
+                      pos.cpu(), length.cpu(), 2)
+    errs["spec_augment"] = (got.cpu() - want).abs().max().item()
+    bad = {k: e for k, e in errs.items() if not e <= TOL_AUGMENT}
+    log(f"  augmenters' applies, card vs CPU on the same draws, max abs "
+        f"err: { {k: float(f'{e:.3e}') for k, e in errs.items()} } (tol "
+        f"{TOL_AUGMENT}) -> {'FAIL ' + str(bad) if bad else 'ok'}")
+    if bad:
+        raise AssertionError(f"augmenters disagree card vs CPU: {bad}")
+    return errs
+
+
+def conformer_full_width(rng):
+    """Phase 23's full-width half: the Brain seeds the modules on the card;
+    the augmenters' applies against the CPU; EnvCorrupt once on the batch
+    over a synthetic noise and RIR corpus; the eval forward (ms, launches,
+    busy share, peak), a warm-up and 3 timed Adam steps (launches of one,
+    peak, every statistic moved), the beam search over the eval batch (ms,
+    launches and host reads a step), with the launches of every kernel of
+    ``csrc/`` over the whole path (none expected)."""
+    t0 = time.perf_counter()
+    modules = conformer_modules()
+    brain = conformer_brain(modules, "cuda", SEED + 80)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in brain.modules.parameters())
+    left_zero = [n for n, p in brain.modules.named_parameters()
+                 if not bool(p.detach().any())]
+    if any(is_unseeded(m) for m in brain.modules.values()
+           if next(m.parameters(), None) is not None) or [
+            n for n in left_zero if not n.endswith((".b", ".bias", ".bo",
+                                                    ".bq", ".bk", ".bv"))]:
+        raise AssertionError(f"the Brain left modules unseeded: {left_zero}")
+    if modules["front"].output_dim() != 640:
+        raise AssertionError("the frontend does not give 640 features")
+    log(f"  conformer-small-librispeech: {n_params / 1e6:.2f} M parameters "
+        f"seeded by the Brain from seed {SEED + 80} in {build_s:.1f} s")
+    batch = conformer_batch(rng)
+    arrays = brain._batch_to_device(batch)
+    wavs, wav_lens = arrays["sig"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    augment_errs = augmenters_card_vs_cpu(gen, wavs[:2, :SR * 2].contiguous(),
+                                          wav_lens[:2])
+
+    ops.reset_launch_counts()
+    root = tempfile.mkdtemp(prefix="chip_smoke_conformer_")
+    try:
+        noise_csv, rir_csv = write_noise_corpus(root, rng)
+        env = EnvCorrupt(reverb_prob=1.0, babble_prob=1.0, noise_prob=1.0,
+                         noise_snr_low=0, noise_snr_high=15,
+                         babble_speaker_count=3, babble_snr_low=0,
+                         babble_snr_high=15, reverb_csv=rir_csv,
+                         noise_csv=noise_csv)
+        with torch.no_grad():
+            corrupted, env_s = _timed(lambda: env(wavs, wav_lens, rng=gen))
+        env_reads = sum(getattr(m, "host_reads", 0) for m in env.modules())
+    finally:
+        shutil.rmtree(root)
+    if (corrupted.shape != wavs.shape or not torch.isfinite(corrupted).all()
+            or torch.equal(corrupted, wavs)):
+        raise AssertionError("EnvCorrupt gave no finite corrupted batch")
+    log(f"  EnvCorrupt once on the batch (reverb, babble of 3, noise from "
+        f"the CSV corpus): {env_s * 1e3:.1f} ms, {env_reads} host reads")
+    batch["sig"] = PaddedData(corrupted.cpu(), batch["sig"].lengths)
+    arrays = brain._batch_to_device(batch)
+
+    def forward():
+        with torch.inference_mode():
+            return brain.compute_forward(arrays, Stage.VALID)
+
+    p_ctc, p_seq = forward()                                # warm-up
+    t_frames = int(CONFORMER_SECONDS[0] * 100) + 1
+    frames = math.ceil(math.ceil(t_frames / 2) / 2)    # the frontend's
+    want_ctc = (8, frames, CONFORMER_VOCAB)
+    want_seq = (8, batch["tokens_bos"].data.shape[1], CONFORMER_VOCAB)
+    if tuple(p_ctc.shape) != want_ctc or tuple(p_seq.shape) != want_seq or \
+            not (torch.isfinite(p_ctc).all() and torch.isfinite(p_seq).all()):
+        raise AssertionError(f"eval outputs {tuple(p_ctc.shape)}, "
+                             f"{tuple(p_seq.shape)}: want {want_ctc}, "
+                             f"{want_seq}, finite")
+    torch.cuda.reset_peak_memory_stats()
+    walls = [_timed(forward)[1] for _ in range(3)]
+    eval_ms = float(np.median(walls)) * 1e3
+    eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    eval_launches = kernel_launches(forward)
+    audio_s = sum(CONFORMER_SECONDS)
+    log(f"  eval forward, batch 8 ({audio_s:.1f} s of audio, {frames} "
+        f"encoder frames, {want_seq[1]} decoder positions): {eval_ms:.2f} ms "
+        f"a batch (median of 3: {[round(w * 1e3, 2) for w in walls]}), RTFx "
+        f"{audio_s / (eval_ms / 1e3):.1f}, {eval_launches} kernel launches "
+        f"a batch, peak memory {eval_peak:.3f} GiB")
+    eval_idle = profile_run(forward)
+
+    before = conformer_state(brain)
+    brain.epoch = 1
+    brain.on_stage_start(Stage.TRAIN, 1)
+    torch.cuda.reset_peak_memory_stats()
+    warm = brain.fit_batch(batch)                           # warm-up
+    steps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = brain.fit_batch(batch)
+        torch.cuda.synchronize()
+        steps.append((loss, time.perf_counter() - t1))
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_launches = kernel_launches(lambda: brain.fit_batch(batch))
+    step_idle = profile_run(lambda: brain.fit_batch(batch))
+    after = conformer_state(brain)
+    losses_seen = [warm] + [s[0] for s in steps]
+    still = [n for n in before if torch.equal(before[n], after[n])]
+    step_ms = float(np.median([s[1] for s in steps])) * 1e3
+    log(f"  training (speed perturbation and SpecAugment on): losses "
+        f"{[round(v, 4) for v in losses_seen]} (warm-up first), {step_ms:.1f} "
+        f"ms a step (median of 3: {[round(s[1] * 1e3, 1) for s in steps]}), "
+        f"{step_launches} kernel launches a step, peak memory "
+        f"{train_peak:.3f} GiB; {len(before) - len(still)} of {len(before)} "
+        f"running statistics moved")
+    if not all(np.isfinite(v) for v in losses_seen) or still:
+        raise AssertionError(f"losses {losses_seen}, unmoved statistics "
+                             f"{still}")
+
+    m = brain.modules
+    with torch.inference_mode():
+        enc, _ = m.asr.encode(brain.features(arrays, Stage.VALID), wav_lens)
+    searcher = conformer_searcher(m, CONFORMER_DECODE_STEPS, enc.shape[1])
+    n_steps = count_steps(searcher)
+    (hyps, scores), decode_s = _timed(lambda: searcher(enc, wav_lens))
+    reads = searcher.host_reads
+    decode_steps = n_steps[0]
+    decode_launches = kernel_launches(lambda: searcher(enc, wav_lens))
+    if decode_steps != CONFORMER_DECODE_STEPS or len(hyps) != 8 or \
+            not all(np.isfinite(scores)):
+        raise AssertionError(f"decode: {decode_steps} steps, scores "
+                             f"{scores}")
+    log("  where a decode's device time goes (torch.profiler, "
+        f"{CONFORMER_DECODE_CPU_STEPS} steps):")
+    decode_idle = profile_run(lambda: conformer_searcher(
+        m, CONFORMER_DECODE_CPU_STEPS, enc.shape[1])(enc, wav_lens))
+    kernel_counts = ops.launch_counts()
+    log(f"  S2STransformerBeamSearch, beam {CONFORMER_BEAM}, CTC weight "
+        f"{CONFORMER_DECODE_CTC}: {decode_steps} steps in "
+        f"{decode_s * 1e3:.1f} ms, {decode_s * 1e3 / decode_steps:.2f} ms a "
+        f"step, {decode_launches / decode_steps:.1f} kernel launches and "
+        f"{reads / decode_steps:.1f} host reads a step; hypothesis lengths "
+        f"{[len(h) for h in hyps]}")
+    log(f"  launches of the csrc/ kernels over the phase's path: "
+        f"{kernel_counts}")
+    if any(kernel_counts.values()):
+        raise AssertionError("the conformer path reached a csrc/ kernel")
+    summary = dict(params_m=n_params / 1e6, build_s=build_s,
+                   augment_max_abs_err=augment_errs, envcorrupt_ms=env_s * 1e3,
+                   envcorrupt_host_reads=env_reads, eval_ms=eval_ms,
+                   eval_launches=eval_launches, eval_idle=eval_idle,
+                   eval_peak_gb=eval_peak, step_ms=step_ms,
+                   step_launches=step_launches, step_idle=step_idle,
+                   train_peak_gb=train_peak, losses=losses_seen,
+                   decode_steps=decode_steps,
+                   decode_ms_a_step=decode_s * 1e3 / decode_steps,
+                   decode_launches_a_step=decode_launches / decode_steps,
+                   decode_host_reads_a_step=reads / decode_steps,
+                   decode_idle=decode_idle, csrc_launches=kernel_counts)
+    del brain, modules, arrays, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def conformer_step(modules, batch, device, dtype=torch.float32):
+    """One training forward and backward of the assembly (no augmentation,
+    dropout 0) on ``device`` in ``dtype``, no optimizer step: the eval
+    log-probabilities, the loss, the gradients by name and the running
+    statistics after it, on the CPU in f64."""
+    brain = conformer_brain({k: m.to(dtype) for k, m in modules.items()},
+                            device, SEED)
+    brain.epoch = 1
+    arrays = {k: PaddedData(v.data.to(dtype) if v.data.is_floating_point()
+                            else v.data, v.lengths)
+              if isinstance(v, PaddedData) else v
+              for k, v in brain._batch_to_device(batch).items()}
+    with torch.inference_mode():
+        eval_out = brain.compute_forward(arrays, Stage.VALID)
+    eval_out = [t.double().cpu() for t in eval_out]
+    loss = brain.compute_objectives(
+        brain.compute_forward(arrays, Stage.TRAIN), arrays, Stage.TRAIN)
+    loss.backward()
+    return dict(logp=eval_out, loss=loss.item(),
+                grads={n: p.grad.double().cpu() for n, p in
+                       brain.modules.named_parameters()},
+                stats={n: t.double().cpu() for n, t in
+                       conformer_state(brain).items()})
+
+
+def conformer_card_vs_cpu(rng):
+    """The assembly at 2 encoder and 1 decoder layers, every width as in
+    phase 23, dropout 0, no augmentation, seeded once, on the batch's
+    longest and shortest rows: one step in f32 and one in f64 on the card
+    and on the CPU; then the beam search (beam 3) of the seeded f32 model
+    for CONFORMER_DECODE_CPU_STEPS steps, card against CPU."""
+    arch = dict(CONFORMER_ARCH, num_encoder_layers=2, num_decoder_layers=1,
+                dropout=0.0)
+    modules = conformer_modules(arch, augment=False)
+    init_modules(modules, SEED + 82)
+    batch = conformer_batch(rng, (CONFORMER_SECONDS[0],
+                                  CONFORMER_SECONDS[-1]))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        for dtype in (torch.float32, torch.float64):
+            tag = f"{dev}_{str(dtype)[-2:]}"
+            t0 = time.perf_counter()
+            out[tag] = conformer_step(copy.deepcopy(modules), batch, dev,
+                                      dtype)
+            log(f"  {tag}: loss {out[tag]['loss']:.9f} in "
+                f"{time.perf_counter() - t0:.1f} s")
+    t = TOL_CONFORMER
+    got, want = out["cuda_32"], out["cpu_32"]
+    logp_err = max((g - w).abs().max().item()
+                   for g, w in zip(got["logp"], want["logp"]))
+    loss_rel = abs(got["loss"] / want["loss"] - 1)
+    stats_rel = {n: (torch.linalg.vector_norm(got["stats"][n] - w)
+                     / torch.linalg.vector_norm(w)).item()
+                 for n, w in want["stats"].items()}
+    worst_stat = max(stats_rel, key=stats_rel.get)
+    f64, exempt = leaf_errors(out["cuda_64"], out["cpu_64"],
+                              {"grad_rel": "grads"})
+    worst64 = max(f64["grad_rel"], key=f64["grad_rel"].get)
+    worst32 = {}
+    for dev in ("cuda", "cpu"):
+        errs = leaf_errors(out[f"{dev}_32"], out[f"{dev}_64"],
+                           {"grad_rel": "grads"})[0]["grad_rel"]
+        for part, heads in (("heads", True), ("normed", False)):
+            names = [n for n in errs if n.startswith(CONFORMER_HEADS) == heads]
+            worst = max(names, key=errs.get)
+            worst32[dev, part] = (worst, errs[worst])
+    ok = (logp_err <= t["logp_abs"] and loss_rel <= t["loss_rel"]
+          and stats_rel[worst_stat] <= t["stats_rel"]
+          and f64["grad_rel"][worst64] <= t["grad_f64_rel"]
+          and worst32["cuda", "heads"][1] <= t["grad_f32_heads"]
+          and worst32["cuda", "normed"][1] <= t["grad_f32_normed"])
+    log(f"  2 + 1 layers at full width: f32 log-probabilities max abs err "
+        f"{logp_err:.3e}; loss rel err {loss_rel:.3e}; worst running-"
+        f"statistic rel err {stats_rel[worst_stat]:.3e} ({worst_stat}); f64 "
+        f"gradients card vs CPU, worst of {len(f64['grad_rel'])} leaves "
+        f"{f64['grad_rel'][worst64]:.3e} ({worst64}), exempt (zero "
+        f"gradient) {exempt}; f32 gradients against f64, worst leaf "
+        + "; ".join(f"{dev} {part} {e:.3e} ({n})"
+                    for (dev, part), (n, e) in worst32.items())
+        + f"; tols {t} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the conformer assembly on the card disagrees "
+                             "with the CPU")
+
+    brains = {dev: conformer_brain(copy.deepcopy(modules), dev, SEED)
+              for dev in ("cuda", "cpu")}
+    searches = {}
+    for dev, brain in brains.items():
+        arrays = brain._batch_to_device(batch)
+        with torch.inference_mode():
+            enc, _ = brain.modules.asr.encode(
+                brain.features(arrays, Stage.VALID), arrays["sig"].lengths)
+        searches[dev] = conformer_searcher(
+            brain.modules, CONFORMER_DECODE_CPU_STEPS, enc.shape[1],
+            beam=3)(enc, arrays["sig"].lengths)
+    decode_err = same_searches(searches["cuda"], searches["cpu"],
+                               "phase 23 S2STransformerBeamSearch")
+    log(f"  beam 3, {CONFORMER_DECODE_CPU_STEPS} steps: card and CPU "
+        f"hypotheses equal, scores within {decode_err:.3e} (tol "
+        f"{TOL_DECODE_SCORE})")
+    return dict(logp_max_abs=logp_err, loss_rel=loss_rel,
+                stats_rel=stats_rel[worst_stat],
+                grad_rel_f64_card_vs_cpu=f64["grad_rel"][worst64],
+                grad_f32_vs_f64={f"{d}_{p}": e for (d, p), (_, e) in
+                                 worst32.items()},
+                decode_score_err=decode_err)
+
+
+def conformer_phase(rng):
+    """Phase 23; returns its summary. TF32 stays off, as in ``main``, so
+    that the phase holds alone too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    summary = conformer_full_width(rng)
+    summary["card_vs_cpu"] = conformer_card_vs_cpu(rng)
     summary["phase_s"] = time.perf_counter() - t0
     return summary
 
@@ -5077,6 +5776,15 @@ def main():
         "eval forward, Adam steps, 2 LiGRU layers card vs CPU")
     crdnn_summary = crdnn_phase(rng)
     log(f"  phase 22 summary: {json.dumps(crdnn_summary)}")
+
+    log("phase 23: the conformer ASR path (conformer-small-librispeech): "
+        "Fbank 80, global input normalization, the convolutional frontend, "
+        "a conformer TransformerASR (12 + 4 layers, d_model 144), CTC and "
+        "sequence heads over 5000 tokens, f32, batch 8 of 14.0-7.0 s, speed "
+        "perturbation and SpecAugment in training, EnvCorrupt once: eval, "
+        "Adam steps, beam search; 2 + 1 layers card vs CPU")
+    conformer_summary = conformer_phase(rng)
+    log(f"  phase 23 summary: {json.dumps(conformer_summary)}")
 
     kernels = []
     for key, r in rows.items():

@@ -60,6 +60,16 @@ var}``) fills the ``norm`` children's buffers of the ``DNNBlock``s and
 LiGRU layers (``jax_state_child``); an ``InputNormalization``'s
 ``glob_mean``, ``glob_std`` and ``count`` are state too.
 
+The transformer and conformer models (``models/{transformer,conformer,
+transformer_asr,rnnlm,convolution}.py``) have the JAX trees' names
+(``src``, ``tgt``, ``encoder``/``decoder`` with ``layers/{i}`` or, for a
+conformer stack, ``{i}``, ``mha``, ``conv``, ``ffn1_a``..., a frontend's
+``b{i}l{j}``/``norm{i}``, an RNNLM's ``dnn{i}/{linear,norm}``) and load
+through ``load_module_tree``; a conformer's JAX state tree (``{i}/conv/
+{mean,var}``) fills its convolution modules' ``BatchNorm1d`` buffers
+(``jax_state_child``). They are compositions of the leaves below, which
+seed them; ``NormalizedEmbedding`` is an ``Embedding``.
+
 ``init_params`` draws a tree of the same shapes and distributions as the
 JAX ``init``s from a ``torch.Generator`` (JAX's PRNG gives other numbers;
 the machine with the card has no JAX); ``seeded_tree`` draws the tree of

@@ -87,6 +87,11 @@ class PaddedBatch:
             return getattr(self, key)
         raise KeyError(f"Batch doesn't have key: {key}")
 
+    def at_position(self, pos):
+        """The item at position ``pos`` of the batch's keys
+        (``batch.py:94``)."""
+        return getattr(self, self.__keys[pos])
+
     @property
     def keys(self):
         return list(self.__keys)

@@ -1,5 +1,4 @@
-"""Seq2seq decoding (port of ``svt_speechbrain_tpu/decoders/seq2seq.py``,
-the searchers that need no model of their own).
+"""Seq2seq decoding (port of ``svt_speechbrain_tpu/decoders/seq2seq.py``).
 
 A searcher wraps a step function ``forward_step(inp_tokens, memory,
 enc_states, enc_lens) → (log_probs, memory, attn)`` that a subclass
@@ -7,8 +6,14 @@ supplies, and runs greedy or beam search. The network runs on the device of
 ``enc_states``; the beam bookkeeping is host code on numpy copies, one read
 of a step's log-probabilities (and of its attention, when an option needs
 it) a step. Ties rank by ascending flat index (stable sorts), as in the
-JAX package. The searchers over an ``AttentionalRNNDecoder`` or a
-``TransformerASR`` come with those models.
+JAX package. A searcher's ``host_reads`` counts those reads.
+
+The searchers over models: ``S2SRNNGreedySearcher`` and
+``S2SRNNBeamSearcher`` over an embedding, an ``AttentionalRNNDecoder`` and
+a linear head; ``S2SRNNBeamSearchLM`` and ``S2SRNNBeamSearchTransformerLM``
+with an LM's shallow fusion; ``S2STransformerBeamSearch`` over a
+``TransformerASR``. The modules hold their parameters (the JAX searchers
+take them beside the modules).
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ def _host(x):
 
 
 class S2SBaseSearcher:
-    """The searchers' common arguments (``seq2seq.py:17``)."""
+    """The searchers' common arguments (``seq2seq.py:17``). ``host_reads``
+    counts the tensors the last search read to the host."""
 
     def __init__(self, bos_index, eos_index, min_decode_ratio,
                  max_decode_ratio):
@@ -32,6 +38,12 @@ class S2SBaseSearcher:
         self.eos_index = eos_index
         self.min_decode_ratio = min_decode_ratio
         self.max_decode_ratio = max_decode_ratio
+        self.host_reads = 0
+
+    def _host(self, x):
+        if torch.is_tensor(x):
+            self.host_reads += 1
+        return _host(x)
 
     def forward_step(self, inp_tokens, memory, enc_states, enc_lens):
         raise NotImplementedError
@@ -48,6 +60,7 @@ class S2SGreedySearcher(S2SBaseSearcher):
 
     @torch.inference_mode()
     def __call__(self, enc_states, enc_lens):
+        self.host_reads = 0
         batch_size = enc_states.shape[0]
         memory = self.reset_mem(batch_size)
         inp_tokens = torch.full((batch_size,), self.bos_index,
@@ -60,8 +73,8 @@ class S2SGreedySearcher(S2SBaseSearcher):
             inp_tokens = log_probs.argmax(dim=-1)
             log_probs_lst.append(log_probs)
             tokens.append(inp_tokens)
-        tokens = _host(torch.stack(tokens, dim=1))
-        all_log_probs = _host(torch.stack(log_probs_lst, dim=1))
+        tokens = self._host(torch.stack(tokens, dim=1))
+        all_log_probs = self._host(torch.stack(log_probs_lst, dim=1))
         hyps, scores = [], []
         for b in range(batch_size):
             seq = tokens[b].tolist()
@@ -159,6 +172,7 @@ class S2SBeamSearcher(S2SBaseSearcher):
 
     @torch.inference_mode()
     def __call__(self, enc_states, enc_lens):
+        self.host_reads = 0
         batch_size = enc_states.shape[0]
         beam = self.beam_size
         device = enc_states.device
@@ -166,7 +180,7 @@ class S2SBeamSearcher(S2SBaseSearcher):
         ctc_scorer, ctc_memory = None, None
         if self.ctc_weight > 0.0:
             enc_lens_abs = np.round(
-                enc_states.shape[1] * _host(enc_lens)).astype(np.int64)
+                enc_states.shape[1] * self._host(enc_lens)).astype(np.int64)
             ctc_scorer = CTCPrefixScorer(
                 self.ctc_forward_step(enc_states), enc_lens_abs, batch_size,
                 beam, self.blank_index, self.eos_index, self.ctc_window_size)
@@ -196,8 +210,8 @@ class S2SBeamSearcher(S2SBaseSearcher):
             log_probs, memory, attn = self.forward_step(
                 inp_tokens, memory, enc_states_b, enc_lens_b)
             vocab = log_probs.shape[-1]
-            log_probs = self.att_weight * _host(log_probs)
-            attn_np = _host(attn) if needs_attn else None
+            log_probs = self.att_weight * self._host(log_probs)
+            attn_np = self._host(attn) if needs_attn else None
             if self.using_max_attn_shift:
                 # block candidates whose attention peak jumped too far
                 attn_peak = attn_np.argmax(axis=1)
@@ -217,7 +231,8 @@ class S2SBeamSearcher(S2SBaseSearcher):
             if self.lm_weight > 0:
                 lm_log_probs, lm_memory = self.lm_forward_step(inp_tokens,
                                                                lm_memory)
-                log_probs = log_probs + self.lm_weight * _host(lm_log_probs)
+                log_probs = log_probs + self.lm_weight * self._host(
+                    lm_log_probs)
 
             if ctc_scorer is not None:
                 # joint scoring: block blank, optionally prune the scorer's
@@ -237,7 +252,7 @@ class S2SBeamSearcher(S2SBaseSearcher):
                 # float32: in saturated (-1e20-dominated) regimes the tie
                 # structure is precision-dependent
                 log_probs = (log_probs + self.ctc_weight
-                             * _host(ctc_log_probs)).astype(np.float32)
+                             * self._host(ctc_log_probs)).astype(np.float32)
 
             cand = scores[:, None] + log_probs                # (B*beam, V)
             cand = cand.reshape(batch_size, beam * vocab)
@@ -363,3 +378,228 @@ def inflate_tensor(tensor, times, dim):
 def mask_by_condition(tensor, cond, fill_value):
     """``tensor`` where ``cond``, else ``fill_value``."""
     return torch.where(cond, tensor, fill_value)
+
+
+def _device_of(module):
+    return next(module.parameters()).device
+
+
+class _RNNStep:
+    """The step of the searchers over embedding → ``AttentionalRNNDecoder``
+    → linear (``seq2seq.py:74``): the relative ``enc_lens`` become frames
+    as round(T · enc_lens), half to even."""
+
+    def _step(self, inp_tokens, memory, enc_states, enc_lens, temperature):
+        e = self.emb(inp_tokens)
+        c = memory["c"]
+        if c is None:
+            c = enc_states.new_zeros(inp_tokens.shape[0], self.dec.attn_dim)
+        enc_lens = torch.as_tensor(enc_lens, device=enc_states.device)
+        enc_len = torch.round(enc_states.shape[1] * enc_lens.float())
+        dec_out, hs, c, w, attn_state = self.dec.forward_step(
+            e, memory["hs"], c, enc_states, enc_len, memory["attn_state"])
+        log_probs = torch.log_softmax(self.fc(dec_out) / temperature, dim=-1)
+        return log_probs, dict(memory, hs=hs, c=c, attn_state=attn_state), w
+
+
+class S2SRNNGreedySearcher(_RNNStep, S2SGreedySearcher):
+    """Greedy search over ``embedding`` → ``decoder`` (an
+    ``AttentionalRNNDecoder``) → ``linear`` (``seq2seq.py:62``).
+
+    Example
+    -------
+    >>> import torch
+    >>> from svt_speechbrain_tpu_torch.nnet.embedding import Embedding
+    >>> from svt_speechbrain_tpu_torch.nnet.linear import Linear
+    >>> from svt_speechbrain_tpu_torch.nnet.rnn import AttentionalRNNDecoder
+    >>> dec = AttentionalRNNDecoder("gru", "content", hidden_size=6,
+    ...                             attn_dim=5, num_layers=1, enc_dim=4,
+    ...                             input_size=3)
+    >>> search = S2SRNNGreedySearcher(Embedding(7, 3), dec, Linear(7, 6),
+    ...                               bos_index=0, eos_index=1,
+    ...                               min_decode_ratio=0.0,
+    ...                               max_decode_ratio=1.0)
+    >>> hyps, scores = search(torch.ones(2, 4, 4), torch.ones(2))
+    >>> len(hyps), len(scores)
+    (2, 2)
+    """
+
+    def __init__(self, embedding, decoder, linear, **kwargs):
+        super().__init__(**kwargs)
+        self.emb = embedding
+        self.dec = decoder
+        self.fc = linear
+
+    def reset_mem(self, batch_size):
+        return {"hs": None, "attn_state": None,
+                "c": torch.zeros(batch_size, self.dec.attn_dim,
+                                 device=_device_of(self.dec))}
+
+    def forward_step(self, inp_tokens, memory, enc_states, enc_lens):
+        return self._step(inp_tokens, memory, enc_states, enc_lens, 1.0)
+
+
+class S2SRNNBeamSearcher(_RNNStep, S2SBeamSearcher):
+    """Beam search over ``embedding`` → ``decoder`` → ``linear``
+    (``seq2seq.py:342``), with ``temperature`` on the logits and, for joint
+    CTC decoding, the CTC head ``ctc_linear`` over the encoder states.
+    ``permute_mem`` reorders the cell states (an LSTM's (h, c) pairs), the
+    context and the location-aware attention's previous weights.
+
+    Example
+    -------
+    >>> import torch
+    >>> from svt_speechbrain_tpu_torch.nnet.embedding import Embedding
+    >>> from svt_speechbrain_tpu_torch.nnet.linear import Linear
+    >>> from svt_speechbrain_tpu_torch.nnet.rnn import AttentionalRNNDecoder
+    >>> dec = AttentionalRNNDecoder("gru", "location", hidden_size=6,
+    ...                             attn_dim=5, num_layers=1, enc_dim=4,
+    ...                             input_size=3, channels=2, kernel_size=2)
+    >>> search = S2SRNNBeamSearcher(Embedding(7, 3), dec, Linear(7, 6),
+    ...                             bos_index=0, eos_index=1,
+    ...                             min_decode_ratio=0.0,
+    ...                             max_decode_ratio=1.0, beam_size=2)
+    >>> hyps, scores = search(torch.ones(2, 4, 4), torch.ones(2))
+    >>> len(hyps), len(scores)
+    (2, 2)
+    """
+
+    def __init__(self, embedding, decoder, linear, temperature=1.0,
+                 ctc_linear=None, **kwargs):
+        super().__init__(**kwargs)
+        self.emb = embedding
+        self.dec = decoder
+        self.fc = linear
+        self.temperature = temperature
+        self.ctc_fc = ctc_linear
+        if self.ctc_weight > 0.0 and self.ctc_fc is None:
+            raise ValueError(
+                "To perform joint ATT/CTC decoding, ctc_fc is required.")
+
+    def ctc_forward_step(self, x):
+        return torch.log_softmax(self.ctc_fc(x), dim=-1)
+
+    def reset_mem(self, batch_size):
+        return {"hs": None, "c": None, "attn_state": None,
+                "batch_size": batch_size}
+
+    def forward_step(self, inp_tokens, memory, enc_states, enc_lens):
+        return self._step(inp_tokens, memory, enc_states, enc_lens,
+                          self.temperature)
+
+    def permute_mem(self, memory, index):
+        hs = memory["hs"]
+        if hs is not None:
+            hs = [tuple(x[index] for x in s) if isinstance(s, tuple)
+                  else s[index] for s in hs]
+        c = memory["c"][index] if memory["c"] is not None else None
+        attn_state = (memory["attn_state"][index]
+                      if memory["attn_state"] is not None else None)
+        return dict(memory, hs=hs, c=c, attn_state=attn_state)
+
+
+class S2SRNNBeamSearchLM(S2SRNNBeamSearcher):
+    """RNN beam search with an LM's shallow fusion (``seq2seq.py:435``):
+    a token's score becomes log p_asr + ``lm_weight`` · log p_lm. The LM
+    memory is the token prefix, on the device, rescored whole each step
+    (``language_model(prefix)``, its last position's logits over
+    ``temperature_lm``), as in the JAX searcher.
+
+    Example
+    -------
+    >>> import torch
+    >>> from svt_speechbrain_tpu_torch.models.rnnlm import RNNLM
+    >>> from svt_speechbrain_tpu_torch.nnet.embedding import Embedding
+    >>> from svt_speechbrain_tpu_torch.nnet.linear import Linear
+    >>> from svt_speechbrain_tpu_torch.nnet.rnn import AttentionalRNNDecoder
+    >>> dec = AttentionalRNNDecoder("gru", "content", hidden_size=6,
+    ...                             attn_dim=5, num_layers=1, enc_dim=4,
+    ...                             input_size=3)
+    >>> lm = RNNLM(7, embedding_dim=3, rnn_layers=1, rnn_neurons=4,
+    ...            dnn_neurons=5)
+    >>> search = S2SRNNBeamSearchLM(Embedding(7, 3), dec, Linear(7, 6), lm,
+    ...                             lm_weight=0.5, bos_index=0, eos_index=1,
+    ...                             min_decode_ratio=0.0,
+    ...                             max_decode_ratio=1.0, beam_size=2)
+    >>> len(search(torch.ones(1, 3, 4), torch.ones(1))[0])
+    1
+    """
+
+    def __init__(self, embedding, decoder, linear, language_model,
+                 lm_weight=0.0, temperature_lm=1.0, **kwargs):
+        super().__init__(embedding, decoder, linear, lm_weight=lm_weight,
+                         **kwargs)
+        self.lm = language_model
+        self.temperature_lm = temperature_lm
+
+    def reset_lm_mem(self, batch_size):
+        return torch.full((batch_size, 0), self.bos_index, dtype=torch.long,
+                          device=_device_of(self.lm))
+
+    def lm_forward_step(self, inp_tokens, memory):
+        prefix = torch.cat([memory, inp_tokens.to(memory.device)[:, None]],
+                           dim=1)
+        out = self.lm(prefix)
+        logits = out[0] if isinstance(out, tuple) else out
+        return torch.log_softmax(logits[:, -1] / self.temperature_lm,
+                                 dim=-1), prefix
+
+    def permute_lm_mem(self, memory, index):
+        return memory[torch.as_tensor(index, device=memory.device)]
+
+
+class S2SRNNBeamSearchTransformerLM(S2SRNNBeamSearchLM):
+    """RNN beam search with a ``TransformerLM``'s shallow fusion
+    (``seq2seq.py:465``): the same prefix rescoring."""
+
+
+class S2STransformerBeamSearch(S2SBeamSearcher):
+    """Beam search over a ``TransformerASR`` (``seq2seq.py:471``):
+    ``modules`` = [model, seq_lin] (and ctc_lin for joint decoding). Each
+    step decodes the whole token prefix and reads the last position's
+    logits over ``temperature``. As in the JAX searcher the decoder gets no
+    encoder padding mask: a shorter row's padded frames are attended.
+
+    Example
+    -------
+    >>> import torch
+    >>> from svt_speechbrain_tpu_torch.models.transformer_asr import (
+    ...     TransformerASR)
+    >>> from svt_speechbrain_tpu_torch.nnet.linear import Linear
+    >>> asr = TransformerASR(7, 4, d_model=8, nhead=2, num_encoder_layers=1,
+    ...                      num_decoder_layers=1, d_ffn=16)
+    >>> search = S2STransformerBeamSearch([asr, Linear(7, 8)], bos_index=0,
+    ...                                   eos_index=1, min_decode_ratio=0.0,
+    ...                                   max_decode_ratio=1.0, beam_size=2)
+    >>> enc, _ = asr.encode(torch.ones(2, 3, 4))
+    >>> len(search(enc, torch.ones(2))[0])
+    2
+    """
+
+    def __init__(self, modules, temperature=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self.model = modules[0]
+        self.seq_lin = modules[1]
+        self.ctc_fc = modules[2] if len(modules) > 2 else None
+        self.temperature = temperature
+        if self.ctc_weight > 0.0 and self.ctc_fc is None:
+            raise ValueError(
+                "To perform joint ATT/CTC decoding, pass ctc_lin as "
+                "modules[2].")
+
+    def ctc_forward_step(self, x):
+        return torch.log_softmax(self.ctc_fc(x), dim=-1)
+
+    def reset_mem(self, batch_size):
+        return {"prefix": torch.zeros(batch_size, 0, dtype=torch.long,
+                                      device=_device_of(self.model))}
+
+    def forward_step(self, inp_tokens, memory, enc_states, enc_lens):
+        prefix = torch.cat([memory["prefix"], inp_tokens[:, None]], dim=1)
+        dec_out = self.model.decode(prefix, enc_states)
+        logits = self.seq_lin(dec_out[:, -1])
+        log_probs = torch.log_softmax(logits / self.temperature, dim=-1)
+        return log_probs, {"prefix": prefix}, None
+
+    def permute_mem(self, memory, index):
+        return {"prefix": memory["prefix"][index]}

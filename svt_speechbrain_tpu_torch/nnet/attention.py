@@ -12,6 +12,7 @@ from torch.nn import functional as F
 
 from svt_speechbrain_tpu_torch.nnet.dropout import dropout
 from svt_speechbrain_tpu_torch.nnet.linear import Linear
+from svt_speechbrain_tpu_torch.nnet.normalization import wide
 from svt_speechbrain_tpu_torch.ops import flash_attention as fa
 from svt_speechbrain_tpu_torch.ops.quant import PackedWeight, int8_matmul
 
@@ -35,7 +36,7 @@ def scaled_dot_product_attention(q, k, v, bias=None, mask=None,
     Tk between 513 and 1023, and short rows under dropout, runs the eager
     path below, with dropout on the materialised weights, as in the JAX
     package. The eager path zeroes rows whose key length is 0, like the
-    kernels.
+    kernels, and computes in f32 (in f64 for f64 inputs).
     """
     dropout_active = train and rng is not None and dropout_rate > 0.0
     flashable = bias is None and mask is None and not return_weights
@@ -49,10 +50,10 @@ def scaled_dot_product_attention(q, k, v, bias=None, mask=None,
             return fa.flash_attention(q, k, v, key_lengths)
         if impl == "auto" and tk <= fa.SHORT_T_MAX and not dropout_active:
             return fa.flash_attention_short(q, k, v, key_lengths)
-    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    scores = torch.einsum("bhqd,bhkd->bhqk", wide(q), wide(k))
     scores = scores / math.sqrt(q.shape[-1])
     if bias is not None:
-        scores = scores + bias.float()
+        scores = scores + bias.to(scores.dtype)
     if key_lengths is not None:
         kmask = (torch.arange(k.shape[2], device=q.device)[None, None, None, :]
                  >= key_lengths.to(q.device)[:, None, None, None])
@@ -65,8 +66,8 @@ def scaled_dot_product_attention(q, k, v, bias=None, mask=None,
         weights = torch.where(alive, weights, torch.zeros_like(weights))
     if dropout_active:
         weights = dropout(weights, dropout_rate, rng.device, train=True)
-    out = torch.einsum("bhqk,bhkd->bhqd", weights.to(v.dtype).float(),
-                       v.float()).to(v.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", wide(weights.to(v.dtype)),
+                       wide(v)).to(v.dtype)
     if return_weights:
         return out, weights
     return out
@@ -224,7 +225,10 @@ class RelPosEncXL(nn.Module):
     """Transformer-XL relative positional encodings (``attention.py:222``):
     for x (B, T, ...), a (1, 2T-1, emb_dim) table for positions T-1 down to
     -(T-1), sin(|pos|·f) on the even columns and cos(pos·f) on the odd, in
-    x's dtype.
+    x's dtype. The table is computed in f32 on the CPU, as the JAX
+    package's, and moved to x's device: the card's f32 sine differs from
+    the CPU's in the last bit, which a card computing its own table would
+    carry into every later product, f64 runs included.
 
     Example
     -------
@@ -239,17 +243,15 @@ class RelPosEncXL(nn.Module):
 
     def forward(self, x):
         t = x.shape[1]
-        dev = x.device
-        pos = torch.arange(t - 1, -t, -1, dtype=torch.float32,
-                           device=dev)[:, None]
+        pos = torch.arange(t - 1, -t, -1, dtype=torch.float32)[:, None]
         inv_freq = torch.exp(torch.arange(0, self.emb_dim, 2,
-                                          dtype=torch.float32, device=dev)
+                                          dtype=torch.float32)
                              * -(math.log(10000.0) / self.emb_dim))
         sinusoid = pos * inv_freq[None, :]
-        pe = torch.zeros(2 * t - 1, self.emb_dim, device=dev)
+        pe = torch.zeros(2 * t - 1, self.emb_dim)
         pe[:, 0::2] = torch.sin(sinusoid.abs())
         pe[:, 1::2] = torch.cos(sinusoid)
-        return pe[None].to(x.dtype)
+        return pe[None].to(x.device, x.dtype)
 
 
 class RelPosMHAXL(nn.Module):
@@ -308,9 +310,9 @@ class RelPosMHAXL(nn.Module):
             1, -1, h, dh).transpose(1, 2)
         q_u = (q + self.u.to(q.dtype)).transpose(1, 2)
         q_v = (q + self.v.to(q.dtype)).transpose(1, 2)
-        ac = torch.einsum("bhqd,bhkd->bhqk", q_u.float(), k.float())
-        bd = torch.einsum("bhqd,bhkd->bhqk", q_v.float(),
-                          p.float().expand(b, -1, -1, -1))
+        ac = torch.einsum("bhqd,bhkd->bhqk", wide(q_u), wide(k))
+        bd = torch.einsum("bhqd,bhkd->bhqk", wide(q_v),
+                          wide(p).expand(b, -1, -1, -1))
         scores = (ac + self._rel_shift(bd)) / math.sqrt(d)
         mask = None
         if attn_mask is not None:
@@ -324,8 +326,8 @@ class RelPosMHAXL(nn.Module):
         weights = torch.softmax(scores, dim=-1)
         if train and rng is not None and self.dropout > 0:
             weights = dropout(weights, self.dropout, rng.device, train=True)
-        out = torch.einsum("bhqk,bhkd->bhqd", weights.to(v.dtype).float(),
-                           v.float()).to(v.dtype)
+        out = torch.einsum("bhqk,bhkd->bhqd", wide(weights.to(v.dtype)),
+                           wide(v)).to(v.dtype)
         out = out.transpose(1, 2).reshape(b, tq, d)
         out = out @ self.wo.to(out.dtype) + self.bo.to(out.dtype)
         return out, weights.mean(dim=1)

@@ -179,6 +179,53 @@ def test_crdnn_slice_runs_without_loading_jax():
     assert "LOADED []" in res.stdout, res.stdout
 
 
+_CONFORMER_PROBE = """
+import sys
+import numpy as np
+import torch
+import chip_smoke as cs
+from svt_speechbrain_tpu_torch.core import Stage
+from svt_speechbrain_tpu_torch.decoders import seq2seq
+from svt_speechbrain_tpu_torch.models import (augment, conformer, convert_sb,
+                                              convolution, rnnlm,
+                                              transformer, transformer_asr)
+from svt_speechbrain_tpu_torch.nnet.loss import stoi_loss
+from svt_speechbrain_tpu_torch.processing import speech_augmentation
+arch = dict(cs.CONFORMER_ARCH, d_model=8, nhead=2, num_encoder_layers=1,
+            num_decoder_layers=1, d_ffn=16, kernel_size=3)
+front = dict(cs.CONFORMER_FRONT, out_channels=(2, 3))
+brain = cs.conformer_brain(cs.conformer_modules(arch, front, 12, 11), "cpu",
+                           0)
+batch = cs.conformer_batch(np.random.default_rng(0), (0.3, 0.2), 11)
+assert np.isfinite(brain.fit_batch(batch))
+arrays = brain._batch_to_device(batch)
+with torch.no_grad():
+    enc, _ = brain.modules.asr.encode(brain.features(arrays, Stage.VALID),
+                                      arrays["sig"].lengths)
+hyps, scores = cs.conformer_searcher(brain.modules, 3, enc.shape[1],
+                                     beam=2)(enc, arrays["sig"].lengths)
+assert len(hyps) == 2 and all(np.isfinite(scores))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "svt_speechbrain_tpu" or m.startswith("svt_speechbrain_tpu."))
+print("LOADED", bad)
+"""
+
+
+def test_conformer_slice_runs_without_loading_jax():
+    """The conformer slice (augmentation, the transformer and conformer
+    stacks, ``TransformerASR``, the searchers, the STOI loss, the SpeechBrain
+    converters and phase 23's assembly and ``Brain``) imports, takes a TINY
+    augmented training step and beam-decodes without loading JAX or the JAX
+    package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    res = subprocess.run([sys.executable, "-c", _CONFORMER_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "LOADED []" in res.stdout, res.stdout
+
+
 _IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|svt_speechbrain_tpu)"
     r"(?![\w])", re.MULTILINE)
