@@ -239,8 +239,43 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and 1 decoder layers, dropout 0, the card against the CPU as in phase
    22, and the beam search (beam 3, 6 steps).
 
+24. source separation at the widths of SpeechBrain's WSJ0-2mix SepFormer
+   recipe (``sepformer-wsj0-2mix``): ``TasNetEncoder(16, 256)`` →
+   ``Dual_Path_Model`` (2 dual blocks, each an intra and an inter
+   ``SBTransformerBlock`` of 8 pre-LN layers at width 256, 8 heads, d_ffn
+   1024, positions; chunks of 250, gLN, no intra/inter linears) →
+   ``TasNetDecoder(16, 256)``, 2 speakers at 8 kHz, f32, 25.7 M parameters
+   seeded from one seed: ``SepformerSeparation.separate_batch`` on 4 x 4 s
+   (3,999 frames, 34 chunks; ms a batch, launches, busy share, peak
+   memory), a warm-up and 3 timed Adam steps of SI-SNR under PIT at the
+   recipe's 1 x 4 s (lr 1.5e-4, the gradient norm clipped to 5); no launch
+   of a ``csrc/`` kernel; then 1 dual block of 2 + 2 layers card vs CPU
+   (the sources and loss of the training step's separation in f32, every
+   gradient in f64, and ``separate_batch`` in f32; both run
+   ``models.separation.separate``).
+25. speaker verification and enhancement: ``ecapa-tdnn-voxceleb`` (Fbank
+   80 → ``ECAPA_TDNN`` at 1024 channels → ``Classifier(192, 192, 7205)``
+   under ``LogSoftmaxWrapper(AdditiveAngularMargin(0.2, 30))``, 22.2 M
+   parameters): a warm-up and 3 timed Adam steps on 32 x 3 s (every
+   BatchNorm statistic moved), ``SpeakerRecognition.verify_batch`` on 8
+   pairs of 3-6 s with relative lengths and one
+   ``EncoderClassifier.classify_batch``, and at 128 channels card vs CPU
+   (f32 logits, loss and statistics, f64 gradients);
+   ``metricgan-plus-voicebank`` (``SpectralMaskEnhancement.enhance_batch``
+   with ``EnhancementGenerator(257, 200, 2)``, STFT at n_fft 512, hop 256,
+   resynthesized through the ISTFT) on 4 x 4 s and one row card vs CPU;
+   then ConvTasNet, Xvector, the discriminators, SEGAN, ContextNet,
+   ESPnetVGG, CNNTransformerSE, TransformerST, the IMU CRNNs and every
+   complex and quaternion layer at small widths card vs CPU (f32 outputs
+   and statistics; the complex and quaternion layers' gradients in f64,
+   of a fixed seeded projection of the output); no launch of a ``csrc/``
+   kernel.
+
+A card-vs-CPU reading that is not finite (a NaN or an inf on either side)
+fails its check.
+
 Phases run in the order 1-5, 8, 9, 6, 7, 10-15, 19, 17, 18, 16, 20, 21,
-22, 23.
+22, 23, 24, 25.
 
 Phases 2 and 5 also hold and time the two RNN-T kernels (the lattice on
 alpha and on beta panels, the gradient) against their plain versions at the
@@ -351,6 +386,31 @@ from svt_speechbrain_tpu_torch.models.transformer_asr import (  # noqa: E402
     TransformerASR, TransformerLM)
 from svt_speechbrain_tpu_torch.processing import (  # noqa: E402
     speech_augmentation as augmentation)
+from svt_speechbrain_tpu_torch.models.separation import (  # noqa: E402
+    ConvTasNet, Dual_Path_Model, SBTransformerBlock, TasNetDecoder,
+    TasNetEncoder, separate)
+from svt_speechbrain_tpu_torch.models.ecapa_tdnn import (  # noqa: E402
+    ECAPA_TDNN, Classifier)
+from svt_speechbrain_tpu_torch.models.xvector import (  # noqa: E402
+    Discriminator, Xvector)
+from svt_speechbrain_tpu_torch.models.enhancement import (  # noqa: E402
+    EnhancementGenerator, MetricDiscriminator, SeganDiscriminator,
+    SeganGenerator)
+from svt_speechbrain_tpu_torch.models.contextnet import (  # noqa: E402
+    ContextNet, ESPnetVGG)
+from svt_speechbrain_tpu_torch.models.transformer_se_st import (  # noqa: E402
+    IMU_CRNN, IMU_CRNN_GRU, CNNTransformerSE, TransformerST)
+from svt_speechbrain_tpu_torch.nnet.complex_networks import (  # noqa: E402
+    CBatchNorm, CConv1d, CConv2d, CLayerNorm, CLinear, CLiGRU, CLSTM, CRNN)
+from svt_speechbrain_tpu_torch.nnet.quaternion_networks import (  # noqa: E402
+    QBatchNorm, QConv1d, QConv2d, QLinear, QLiGRU, QLSTM, QRNN)
+from svt_speechbrain_tpu_torch.pretrained.interfaces import (  # noqa: E402
+    EncoderClassifier, SepformerSeparation, SpeakerRecognition,
+    SpectralMaskEnhancement)
+from svt_speechbrain_tpu_torch.processing.features import (  # noqa: E402
+    ISTFT, STFT, spectral_magnitude)
+from svt_speechbrain_tpu_torch.processing.signal_processing import (  # noqa: E402
+    resynthesize)
 
 SEED = 0
 SR = 16000
@@ -1520,23 +1580,40 @@ def training_phase(rng):
                               accum2_peak_gb=accum_peak_gb)
 
 
+def reading(err):
+    """One card-vs-CPU error as a float; a non-finite one (a NaN or an inf
+    on either side) as inf, so that no worst-of maximum and no ``<=``
+    against a tolerance can pass it over."""
+    err = float(err)
+    return err if math.isfinite(err) else math.inf
+
+
+def within(errs, tol):
+    """Whether every reading of ``errs`` is finite and within its entry of
+    ``tol``."""
+    return all(math.isfinite(v) and v <= tol[k] for k, v in errs.items())
+
+
 def leaf_errors(got, want, parts):
     """|card - CPU| / |CPU| per parameter, for each ``parts`` entry (error
-    name → key of the per-parameter dicts in ``got``/``want``); a leaf whose
-    CPU gradient is under ZERO_GRAD_SHARE of the gradient norm is exempt.
+    name → key of the per-parameter dicts in ``got``/``want``), each a
+    ``reading``; a leaf whose CPU gradient is under ZERO_GRAD_SHARE of the
+    gradient norm, and whose card gradient is finite, is exempt.
     Returns ({error name: {parameter: error}}, [exempt parameters])."""
     norm = torch.linalg.vector_norm(torch.stack(
         [torch.linalg.vector_norm(g) for g in want["grads"].values()]))
     errs = {key: {} for key in parts}
     exempt = []
     for name, g in want["grads"].items():
-        if torch.linalg.vector_norm(g) <= ZERO_GRAD_SHARE * norm:
+        if torch.linalg.vector_norm(g) <= ZERO_GRAD_SHARE * norm and \
+                torch.isfinite(got["grads"][name]).all():
             exempt.append(name)
             continue
         for key, part in parts.items():
             ref = want[part][name]
-            errs[key][name] = (torch.linalg.vector_norm(got[part][name] - ref)
-                               / torch.linalg.vector_norm(ref)).item()
+            errs[key][name] = reading(
+                torch.linalg.vector_norm(got[part][name] - ref)
+                / torch.linalg.vector_norm(ref))
     return errs, exempt
 
 
@@ -4950,28 +5027,61 @@ def crdnn_decoding(brain, arrays):
     return out
 
 
-def crdnn_step(modules, batch, device, dtype=torch.float32):
-    """One training forward and backward of the assembly at dropouts 0 on
-    ``device`` in ``dtype`` (no optimizer step): the eval
-    log-probabilities, the loss, the gradients by name and the running
-    statistics after it, on the CPU in f64."""
-    brain = crdnn_brain({k: m.to(dtype) for k, m in modules.items()},
-                        device, SEED)
+def brain_step(make_brain, modules, batch, device, dtype=torch.float32,
+               state=None, epoch=None):
+    """The eval outputs, then one training forward and backward (no
+    optimizer step) of the Brain ``make_brain(modules, device, SEED)`` on
+    ``device`` in ``dtype``, its epoch set to ``epoch`` when given: the
+    outputs (a list), the loss, the gradients by name and, with ``state``
+    (Brain → running statistics by name), the statistics after the step,
+    on the CPU in f64."""
+    brain = make_brain({k: m.to(dtype) for k, m in modules.items()},
+                       device, SEED)
+    if epoch is not None:
+        brain.epoch = epoch
     arrays = {k: PaddedData(v.data.to(dtype) if v.data.is_floating_point()
                             else v.data, v.lengths)
               if isinstance(v, PaddedData) else v
               for k, v in brain._batch_to_device(batch).items()}
     with torch.inference_mode():
-        eval_out = brain.compute_forward(arrays, Stage.VALID)
-    eval_out = [t.double().cpu() for t in eval_out]
+        out = brain.compute_forward(arrays, Stage.VALID)
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    outs = [t.double().cpu() for t in outs]
     loss = brain.compute_objectives(
         brain.compute_forward(arrays, Stage.TRAIN), arrays, Stage.TRAIN)
     loss.backward()
-    return dict(logp=eval_out, loss=loss.item(),
+    return dict(out=outs, loss=loss.item(),
                 grads={n: p.grad.double().cpu() for n, p in
                        brain.modules.named_parameters()},
                 stats={n: t.double().cpu() for n, t in
-                       crdnn_state(brain).items()})
+                       (state(brain) if state else {}).items()})
+
+
+def _card_vs_cpu(modules, batch, step):
+    """``step(modules, batch, device, dtype)`` on a copy of ``modules`` in
+    f32 and in f64, on the card and on the CPU, by tag ("cuda_32", ...)."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        for dtype in (torch.float32, torch.float64):
+            tag = f"{dev}_{str(dtype)[-2:]}"
+            t0 = time.perf_counter()
+            out[tag] = step(copy.deepcopy(modules), batch, dev, dtype)
+            log(f"  {tag}: loss {out[tag]['loss']:.9f} in "
+                f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _stats_rel(got, want):
+    """|card - CPU| / |CPU| of each running statistic, each a ``reading``
+    (a statistic that is 0 on the CPU is held to its absolute error)."""
+    return {n: reading(torch.linalg.vector_norm(got[n] - w)
+                       / torch.linalg.vector_norm(w).clamp(min=1e-30))
+            for n, w in want.items()}
+
+
+def _worst(errs):
+    """The name of the worst reading of ``errs`` (None when empty)."""
+    return max(errs, key=errs.get, default=None)
 
 
 def crdnn_card_vs_cpu(rng):
@@ -4982,26 +5092,18 @@ def crdnn_card_vs_cpu(rng):
     modules = crdnn_modules(arch, dict(CRDNN_DEC, dropout=0.0))
     init_modules(modules, SEED + 71)
     batch = crdnn_batch(rng, (CRDNN_SECONDS[0], CRDNN_SECONDS[-1]))
-    out = {}
-    for dev in ("cuda", "cpu"):
-        for dtype in (torch.float32, torch.float64):
-            tag = f"{dev}_{str(dtype)[-2:]}"
-            t0 = time.perf_counter()
-            out[tag] = crdnn_step(copy.deepcopy(modules), batch, dev, dtype)
-            log(f"  {tag}: loss {out[tag]['loss']:.9f} in "
-                f"{time.perf_counter() - t0:.1f} s")
+    out = _card_vs_cpu(modules, batch, functools.partial(
+        brain_step, crdnn_brain, state=crdnn_state))
     t = TOL_CRDNN
     got, want = out["cuda_32"], out["cpu_32"]
-    logp_err = max((g - w).abs().max().item()
-                   for g, w in zip(got["logp"], want["logp"]))
-    loss_rel = abs(got["loss"] / want["loss"] - 1)
-    stats_rel = {n: (torch.linalg.vector_norm(got["stats"][n] - w)
-                     / torch.linalg.vector_norm(w)).item()
-                 for n, w in want["stats"].items()}
-    worst_stat = max(stats_rel, key=stats_rel.get)
+    logp_err = max(reading((g - w).abs().max())
+                   for g, w in zip(got["out"], want["out"]))
+    loss_rel = reading(abs(got["loss"] / want["loss"] - 1))
+    stats_rel = _stats_rel(got["stats"], want["stats"])
+    worst_stat = _worst(stats_rel)
     f64, exempt = leaf_errors(out["cuda_64"], out["cpu_64"],
                               {"grad_rel": "grads"})
-    worst64 = max(f64["grad_rel"], key=f64["grad_rel"].get)
+    worst64 = _worst(f64["grad_rel"])
     f32 = {dev: leaf_errors(out[f"{dev}_32"], out[f"{dev}_64"],
                             {"grad_rel": "grads"})[0]["grad_rel"]
            for dev in ("cuda", "cpu")}
@@ -5466,29 +5568,10 @@ def conformer_full_width(rng):
     return summary
 
 
-def conformer_step(modules, batch, device, dtype=torch.float32):
-    """One training forward and backward of the assembly (no augmentation,
-    dropout 0) on ``device`` in ``dtype``, no optimizer step: the eval
-    log-probabilities, the loss, the gradients by name and the running
-    statistics after it, on the CPU in f64."""
-    brain = conformer_brain({k: m.to(dtype) for k, m in modules.items()},
-                            device, SEED)
-    brain.epoch = 1
-    arrays = {k: PaddedData(v.data.to(dtype) if v.data.is_floating_point()
-                            else v.data, v.lengths)
-              if isinstance(v, PaddedData) else v
-              for k, v in brain._batch_to_device(batch).items()}
-    with torch.inference_mode():
-        eval_out = brain.compute_forward(arrays, Stage.VALID)
-    eval_out = [t.double().cpu() for t in eval_out]
-    loss = brain.compute_objectives(
-        brain.compute_forward(arrays, Stage.TRAIN), arrays, Stage.TRAIN)
-    loss.backward()
-    return dict(logp=eval_out, loss=loss.item(),
-                grads={n: p.grad.double().cpu() for n, p in
-                       brain.modules.named_parameters()},
-                stats={n: t.double().cpu() for n, t in
-                       conformer_state(brain).items()})
+# one training forward and backward of the conformer assembly (no
+# augmentation, dropout 0) at epoch 1, no optimizer step
+conformer_step = functools.partial(brain_step, conformer_brain,
+                                   state=conformer_state, epoch=1)
 
 
 def conformer_card_vs_cpu(rng):
@@ -5503,27 +5586,17 @@ def conformer_card_vs_cpu(rng):
     init_modules(modules, SEED + 82)
     batch = conformer_batch(rng, (CONFORMER_SECONDS[0],
                                   CONFORMER_SECONDS[-1]))
-    out = {}
-    for dev in ("cuda", "cpu"):
-        for dtype in (torch.float32, torch.float64):
-            tag = f"{dev}_{str(dtype)[-2:]}"
-            t0 = time.perf_counter()
-            out[tag] = conformer_step(copy.deepcopy(modules), batch, dev,
-                                      dtype)
-            log(f"  {tag}: loss {out[tag]['loss']:.9f} in "
-                f"{time.perf_counter() - t0:.1f} s")
+    out = _card_vs_cpu(modules, batch, conformer_step)
     t = TOL_CONFORMER
     got, want = out["cuda_32"], out["cpu_32"]
-    logp_err = max((g - w).abs().max().item()
-                   for g, w in zip(got["logp"], want["logp"]))
-    loss_rel = abs(got["loss"] / want["loss"] - 1)
-    stats_rel = {n: (torch.linalg.vector_norm(got["stats"][n] - w)
-                     / torch.linalg.vector_norm(w)).item()
-                 for n, w in want["stats"].items()}
-    worst_stat = max(stats_rel, key=stats_rel.get)
+    logp_err = max(reading((g - w).abs().max())
+                   for g, w in zip(got["out"], want["out"]))
+    loss_rel = reading(abs(got["loss"] / want["loss"] - 1))
+    stats_rel = _stats_rel(got["stats"], want["stats"])
+    worst_stat = _worst(stats_rel)
     f64, exempt = leaf_errors(out["cuda_64"], out["cpu_64"],
                               {"grad_rel": "grads"})
-    worst64 = max(f64["grad_rel"], key=f64["grad_rel"].get)
+    worst64 = _worst(f64["grad_rel"])
     worst32 = {}
     for dev in ("cuda", "cpu"):
         errs = leaf_errors(out[f"{dev}_32"], out[f"{dev}_64"],
@@ -5582,6 +5655,646 @@ def conformer_phase(rng):
     t0 = time.perf_counter()
     summary = conformer_full_width(rng)
     summary["card_vs_cpu"] = conformer_card_vs_cpu(rng)
+    summary["phase_s"] = time.perf_counter() - t0
+    return summary
+
+
+# --------------------------------------------------------------- phase 24
+# sepformer-wsj0-2mix: SpeechBrain's recipes/WSJ0Mix/separation/hparams/
+# sepformer.yaml on the JAX modules' own arguments, at 8 kHz: the encoder
+# and decoder of kernel 16 and 256 channels, and a Dual_Path_Model(256,
+# 256, intra, inter, num_layers=2, norm="ln", K=250, num_spks=2,
+# skip_around_intra=True, linear_layer_after_inter_intra=False) with intra
+# and inter each an SBTransformerBlock(8, 256, 8, 1024,
+# use_positional_encoding=True, norm_before=True) (the JAX SepFormer and
+# DualPathModel wrappers keep the linears and a global positional encoding,
+# so the masknet is built directly); trained on SI-SNR under PIT with Adam
+# at 1.5e-4 and the gradient norm clipped to 5
+SEP_SR = 8000
+SEP_KERNEL, SEP_CHANNELS = 16, 256
+SEP_ARCH = dict(num_layers=2, tlayers=8, nhead=8, d_ffn=1024, K=250,
+                num_spks=2)
+SEP_LR = 1.5e-4
+SEP_SECONDS = 4.0
+SEP_SERVE_BATCH = 4
+# card vs CPU, 1 dual block of 2 + 2 layers at width 256, 1 s, TF32 off:
+# the separated sources in f32 within 1e-4 of their peak (sums of 256-wide
+# f32 products in other orders through 4 layers), the loss within 1e-5;
+# every gradient leaf of the same step in f64 within 1e-9 of its norm (the
+# card computes the CPU's function: f32 gradients behind norms need an f64
+# referee, as phase 22 found)
+TOL_SEP = {"out_rel": 1e-4, "loss_rel": 1e-5, "grad_f64_rel": 1e-9}
+
+
+def sepformer_modules(arch=SEP_ARCH, channels=SEP_CHANNELS,
+                      kernel=SEP_KERNEL):
+    """The separator's modules, unseeded: encoder, dual-path masknet of
+    pre-LN transformer blocks with positions (no intra/inter linears),
+    decoder."""
+    def block():
+        return SBTransformerBlock(arch["tlayers"], channels, arch["nhead"],
+                                  arch["d_ffn"], use_positional_encoding=True,
+                                  norm_before=True)
+
+    return {"encoder": TasNetEncoder(kernel, channels),
+            "masknet": Dual_Path_Model(
+                channels, channels, block(), block(),
+                num_layers=arch["num_layers"], norm="ln", K=arch["K"],
+                num_spks=arch["num_spks"], skip_around_intra=True,
+                linear_layer_after_inter_intra=False),
+            "decoder": TasNetDecoder(kernel, channels)}
+
+
+class SepformerBrain(Brain):
+    """The separation recipe's step: the mixture separated, negative SI-SNR
+    under PIT against the sources, Adam over every module."""
+
+    def compute_forward(self, batch, stage, rng=None):
+        m = self.modules
+        return separate(m.encoder, m.masknet, m.decoder, batch["mix"].data)
+
+    def compute_objectives(self, predictions, batch, stage):
+        return losses.get_si_snr_with_pitwrapper(batch["sources"].data,
+                                                 predictions)
+
+    def init_optimizers(self):
+        self.add_optimizer("opt", torch.optim.Adam, list(self.modules.keys()),
+                           lr=self.hparams.lr)
+
+
+def sepformer_brain(modules, device, seed):
+    brain = SepformerBrain(modules, hparams={"seed": seed, "lr": SEP_LR},
+                           run_opts={"device": device})
+    brain.init_optimizers()
+    return brain
+
+
+def sepformer_batch(rng, batch, samples):
+    """Two seeded sources a row (noise under two random spectral tilts) and
+    their sum: {"mix": (B, T), "sources": (B, T, 2)}, full lengths."""
+    src = rng.standard_normal((batch, samples, 2)).astype(np.float32)
+    src[..., 1] = np.cumsum(src[..., 1], axis=1) * 0.05
+    src[..., 1] -= src[..., 1].mean(axis=1, keepdims=True)
+    src *= 0.1 / np.abs(src).max(axis=1, keepdims=True)
+    ones = np.ones(batch, np.float32)
+    return {"mix": PaddedData(torch.from_numpy(src.sum(-1)), ones),
+            "sources": PaddedData(torch.from_numpy(src), ones)}
+
+
+def _csrc_untouched(what):
+    counts = ops.launch_counts()
+    log(f"  launches of the csrc/ kernels over {what}: {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"{what} reached a csrc/ kernel")
+    return counts
+
+
+def _seeded(modules, seed):
+    """Modules seeded on the CPU from one seed; returns them and their
+    parameter count."""
+    init_modules(modules, seed)
+    return modules, sum(p.numel() for m in modules.values()
+                        for p in m.parameters())
+
+
+def sepformer_full_width(rng):
+    """Phase 24's full-width half: ``SepformerSeparation.separate_batch``
+    on 4 x 4 s (median of 3 after a warm-up; launches, busy share, peak),
+    then a warm-up and 3 timed training steps at the recipe's 1 x 4 s."""
+    modules, n_params = _seeded(sepformer_modules(), SEED + 90)
+    samples = int(SEP_SECONDS * SEP_SR)
+    frames = (samples - SEP_KERNEL) // (SEP_KERNEL // 2) + 1
+    chunks = 2 * math.ceil((frames + SEP_ARCH["K"] // 2) / SEP_ARCH["K"])
+    log(f"  sepformer-wsj0-2mix: {n_params / 1e6:.2f} M parameters seeded "
+        f"from seed {SEED + 90}; {samples} samples -> {frames} "
+        f"encoder frames, {chunks} chunks of {SEP_ARCH['K']}")
+    ops.reset_launch_counts()
+    face = SepformerSeparation(modules=modules, hparams={}, device="cuda")
+    serve = sepformer_batch(rng, SEP_SERVE_BATCH, samples)
+    mix = serve["mix"].data
+    est = face.separate_batch(mix)                           # warm-up
+    if tuple(est.shape) != (SEP_SERVE_BATCH, samples, 2) or \
+            not torch.isfinite(est).all():
+        raise AssertionError(f"separated sources {tuple(est.shape)}")
+    torch.cuda.reset_peak_memory_stats()
+    walls = [_timed(lambda: face.separate_batch(mix))[1] for _ in range(3)]
+    serve_ms = float(np.median(walls)) * 1e3
+    serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    serve_launches = kernel_launches(lambda: face.separate_batch(mix))
+    audio_s = SEP_SERVE_BATCH * SEP_SECONDS
+    log(f"  separate_batch, {SEP_SERVE_BATCH} x {SEP_SECONDS} s: "
+        f"{serve_ms:.2f} ms a batch (median of 3: "
+        f"{[round(w * 1e3, 2) for w in walls]}), RTFx "
+        f"{audio_s / (serve_ms / 1e3):.1f}, {serve_launches} kernel launches "
+        f"a batch, peak memory {serve_peak:.3f} GiB")
+    serve_idle = profile_run(lambda: face.separate_batch(mix))
+
+    brain = sepformer_brain(vars(face.mods), "cuda", SEED)
+    batch = sepformer_batch(rng, 1, samples)
+    brain.on_stage_start(Stage.TRAIN, 1)
+    torch.cuda.reset_peak_memory_stats()
+    warm = brain.fit_batch(batch)                            # warm-up
+    steps = []
+    for _ in range(3):
+        loss, wall = _timed(lambda: brain.fit_batch(batch))
+        steps.append((loss, wall))
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_launches = kernel_launches(lambda: brain.fit_batch(batch))
+    step_idle = profile_run(lambda: brain.fit_batch(batch))
+    losses_seen = [warm] + [s[0] for s in steps]
+    step_ms = float(np.median([s[1] for s in steps])) * 1e3
+    log(f"  training, 1 x {SEP_SECONDS} s, f32: losses "
+        f"{[round(v, 4) for v in losses_seen]} (warm-up first), "
+        f"{step_ms:.1f} ms a step (median of 3: "
+        f"{[round(s[1] * 1e3, 1) for s in steps]}), {step_launches} kernel "
+        f"launches a step, peak memory {train_peak:.3f} GiB, last gradient "
+        f"norm {brain.last_grad_norm:.4f}")
+    if not all(np.isfinite(v) for v in losses_seen):
+        raise AssertionError(f"nonfinite SepFormer losses {losses_seen}")
+    counts = _csrc_untouched("phase 24's full-width path")
+    del brain, face, modules
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(params_m=n_params / 1e6, frames=frames, chunks=chunks,
+                serve_ms=serve_ms, serve_launches=serve_launches,
+                serve_idle=serve_idle, serve_peak_gb=serve_peak,
+                step_ms=step_ms, step_launches=step_launches,
+                step_idle=step_idle, train_peak_gb=train_peak,
+                losses=losses_seen, csrc_launches=counts)
+
+
+def _peak_rel(got, want):
+    """The largest |card - CPU| over the outputs, over the CPU's peak, a
+    ``reading``."""
+    return max(reading((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+               for g, w in zip(got, want))
+
+
+def _f64_grads(out):
+    """The worst f64 gradient leaf card vs CPU of a ``_card_vs_cpu``
+    result: (its error, its name, the exempt leaves)."""
+    f64, exempt = leaf_errors(out["cuda_64"], out["cpu_64"],
+                              {"grad_rel": "grads"})
+    worst = _worst(f64["grad_rel"])
+    return f64["grad_rel"].get(worst, 0.0), worst, exempt
+
+
+def sepformer_card_vs_cpu(rng):
+    """1 dual block of 2 + 2 layers at width 256, 1 x 1 s: the separated
+    sources and the loss in f32, every gradient in f64, card vs CPU; then
+    ``SepformerSeparation.separate_batch`` on the same mixture in f32."""
+    arch = dict(SEP_ARCH, num_layers=1, tlayers=2)
+    modules, _ = _seeded(sepformer_modules(arch), SEED + 91)
+    batch = sepformer_batch(rng, 1, SEP_SR)
+    out = _card_vs_cpu(modules, batch,
+                       functools.partial(brain_step, sepformer_brain))
+    got, want = out["cuda_32"], out["cpu_32"]
+    errs = {"out_rel": _peak_rel(got["out"], want["out"]),
+            "loss_rel": reading(abs(got["loss"] / want["loss"] - 1))}
+    errs["grad_f64_rel"], worst, exempt = _f64_grads(out)
+    served = {dev: SepformerSeparation(
+        modules=copy.deepcopy(modules), hparams={},
+        device=dev).separate_batch(batch["mix"].data).double().cpu()
+        for dev in ("cuda", "cpu")}
+    errs["serve_rel"] = _peak_rel([served["cuda"]], [served["cpu"]])
+    tol = dict(TOL_SEP, serve_rel=TOL_SEP["out_rel"])
+    ok = within(errs, tol)
+    log(f"  1 dual block of 2 + 2 layers, card vs CPU: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (f32 sources and separate_batch: max abs err of their peak; "
+        f"worst gradient {worst}, exempt {exempt}); tols {tol} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the SepFormer on the card disagrees with the "
+                             "CPU")
+    return errs
+
+
+def sepformer_phase(rng):
+    """Phase 24; returns its summary. TF32 stays off, as in ``main``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    summary = sepformer_full_width(rng)
+    summary["card_vs_cpu"] = sepformer_card_vs_cpu(rng)
+    summary["phase_s"] = time.perf_counter() - t0
+    return summary
+
+
+# --------------------------------------------------------------- phase 25
+# ecapa-tdnn-voxceleb: recipes/VoxCeleb/SpeakerRec/hparams/
+# train_ecapa_tdnn.yaml on the JAX modules' arguments: Fbank of 80 mels at
+# 16 kHz, ECAPA_TDNN(80, lin_neurons=192, channels=(1024, 1024, 1024, 1024,
+# 3072), kernel_sizes=(5, 3, 3, 3, 1), dilations=(1, 2, 3, 4, 1),
+# attention_channels=128, res2net_scale=8, se_channels=128), Classifier(192,
+# 192, 7205), LogSoftmaxWrapper(AdditiveAngularMargin(0.2, 30)), Adam at
+# 1e-3 (the recipe's cyclic schedule is not run); batch 32 of 3 s. The
+# recipe's sentence-level mean normalization of the features is left out:
+# the JAX EncoderClassifier has no module for it.
+ECAPA_ARCH = dict(input_size=80, lin_neurons=192,
+                  channels=(1024, 1024, 1024, 1024, 3072),
+                  kernel_sizes=(5, 3, 3, 3, 1), dilations=(1, 2, 3, 4, 1),
+                  attention_channels=128, res2net_scale=8, se_channels=128)
+ECAPA_SPEAKERS = 7205
+ECAPA_MARGIN, ECAPA_SCALE = 0.2, 30.0
+ECAPA_LR = 1e-3
+ECAPA_BATCH, ECAPA_SECONDS = 32, 3.0
+VERIFY_SECONDS = (3.0, 3.5, 4.0, 4.5, 5.0, 5.5, 6.0, 3.2)
+# metricgan-plus-voicebank: recipes/Voicebank/enhance/MetricGAN/hparams/
+# train.yaml: EnhancementGenerator(257, 200, 2) over log1p magnitudes of an
+# STFT at n_fft 512, 32 ms windows, 16 ms hops at 16 kHz, resynthesized
+# with the noisy phase; batch 4 of 4 s
+METRICGAN_ARCH = dict(input_size=257, hidden_size=200, num_layers=2)
+ENHANCE_BATCH, ENHANCE_SECONDS = 4, 4.0
+# the rest of the slice, small widths, card vs CPU: outputs in f32 within
+# 1e-4 of their peak (convs and products in other orders; the enhanced
+# waveform is peak-normalized to 1); the complex and quaternion layers and
+# ECAPA-TDNN at small width also in f64, every gradient within 1e-9 of its
+# norm; running statistics after a training forward in f32 within 1e-5 of
+# their norm
+TOL_REST = {"out_rel": 1e-4, "grad_f64_rel": 1e-9, "stats_rel": 1e-5}
+
+
+def ecapa_modules(arch=ECAPA_ARCH, speakers=ECAPA_SPEAKERS):
+    return {"compute_features": Fbank(n_mels=arch["input_size"]),
+            "embedding_model": ECAPA_TDNN(**arch),
+            "classifier": Classifier(arch["lin_neurons"],
+                                     lin_neurons=arch["lin_neurons"],
+                                     out_neurons=speakers)}
+
+
+class EcapaBrain(Brain):
+    """The speaker-identification step: features → ECAPA-TDNN (its batch
+    norms in training) → cosine classifier → additive angular margin
+    softmax, Adam over every module."""
+
+    criterion = losses.LogSoftmaxWrapper(
+        losses.AdditiveAngularMargin(ECAPA_MARGIN, ECAPA_SCALE))
+
+    def compute_forward(self, batch, stage, rng=None):
+        m = self.modules
+        wavs, wav_lens = batch["sig"]
+        emb = m.embedding_model(m.compute_features(wavs), lengths=wav_lens,
+                                train=stage == Stage.TRAIN)
+        return m.classifier(emb)
+
+    def compute_objectives(self, predictions, batch, stage):
+        return self.criterion(predictions, batch["spk_id"])
+
+    def init_optimizers(self):
+        self.add_optimizer("opt", torch.optim.Adam, list(self.modules.keys()),
+                           lr=self.hparams.lr)
+
+
+def ecapa_brain(modules, device, seed):
+    brain = EcapaBrain(modules, hparams={"seed": seed, "lr": ECAPA_LR},
+                       run_opts={"device": device})
+    brain.init_optimizers()
+    return brain
+
+
+def speech_rows(rng, seconds, sr=SR):
+    """Seeded noise rows of ``seconds``, zero-padded to the longest, and
+    their relative lengths."""
+    n = [int(s * sr) for s in seconds]
+    wav = np.zeros((len(n), max(n)), np.float32)
+    for i, k in enumerate(n):
+        wav[i, :k] = 0.1 * rng.standard_normal(k)
+    return wav, np.asarray(n, np.float32) / max(n)
+
+
+def ecapa_batch(rng, batch, seconds, speakers=ECAPA_SPEAKERS):
+    wav, lens = speech_rows(rng, [seconds] * batch)
+    return {"sig": PaddedData(torch.from_numpy(wav), lens),
+            "spk_id": torch.from_numpy(rng.integers(0, speakers, batch))}
+
+
+def _buffers(module):
+    return {n: b.detach().double().cpu().clone()
+            for n, b in module.named_buffers()
+            if n.rsplit(".", 1)[-1] in ("mean", "var", "moving_Vrr",
+                                        "moving_Vii", "moving_Vri",
+                                        "moving_mean", "running_mean",
+                                        "running_var")}
+
+
+def ecapa_full_width():
+    """Phase 25's speaker half: Adam steps at batch 32 x 3 s (every
+    statistic moved), ``SpeakerRecognition.verify_batch`` on 8 pairs of
+    3-6 s with relative lengths and one ``EncoderClassifier.
+    classify_batch``."""
+    rng = np.random.default_rng(SEED + 100)
+    modules, n_params = _seeded(ecapa_modules(), SEED + 100)
+    log(f"  ecapa-tdnn-voxceleb: {n_params / 1e6:.2f} M parameters with the "
+        f"{ECAPA_SPEAKERS}-way head, seeded from seed {SEED + 100}")
+    brain = ecapa_brain(modules, "cuda", SEED)
+    batch = ecapa_batch(rng, ECAPA_BATCH, ECAPA_SECONDS)
+    before = _buffers(brain.modules)
+    brain.on_stage_start(Stage.TRAIN, 1)
+    torch.cuda.reset_peak_memory_stats()
+    warm = brain.fit_batch(batch)                           # warm-up
+    steps = [_timed(lambda: brain.fit_batch(batch)) for _ in range(3)]
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_launches = kernel_launches(lambda: brain.fit_batch(batch))
+    step_idle = profile_run(lambda: brain.fit_batch(batch))
+    after = _buffers(brain.modules)
+    still = [n for n in before if torch.equal(before[n], after[n])]
+    losses_seen = [warm] + [s[0] for s in steps]
+    step_ms = float(np.median([s[1] for s in steps])) * 1e3
+    log(f"  training, {ECAPA_BATCH} x {ECAPA_SECONDS} s, f32: losses "
+        f"{[round(v, 4) for v in losses_seen]} (warm-up first), "
+        f"{step_ms:.1f} ms a step (median of 3: "
+        f"{[round(s[1] * 1e3, 1) for s in steps]}), {step_launches} kernel "
+        f"launches a step, peak memory {train_peak:.3f} GiB; "
+        f"{len(before) - len(still)} of {len(before)} running statistics "
+        f"moved")
+    if not all(np.isfinite(v) for v in losses_seen) or still:
+        raise AssertionError(f"losses {losses_seen}, unmoved statistics "
+                             f"{still}")
+
+    mods = dict(brain.modules.items())
+    verifier = SpeakerRecognition(modules=mods, hparams={}, device="cuda")
+    wav1, lens1 = speech_rows(rng, VERIFY_SECONDS)
+    wav2, lens2 = speech_rows(rng, VERIFY_SECONDS[::-1])
+    verifier.verify_batch(wav1, wav2, lens1, lens2)           # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    walls, res = [], None
+    for _ in range(3):
+        res, wall = _timed(lambda: verifier.verify_batch(wav1, wav2, lens1,
+                                                         lens2))
+        walls.append(wall)
+    verify_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    verify_ms = float(np.median(walls)) * 1e3
+    verify_launches = kernel_launches(
+        lambda: verifier.verify_batch(wav1, wav2, lens1, lens2))
+    verify_idle = profile_run(
+        lambda: verifier.verify_batch(wav1, wav2, lens1, lens2))
+    scores, decisions = res
+    if scores.shape != (8,) or not (np.abs(scores) <= 1 + 1e-6).all():
+        raise AssertionError(f"verification scores {scores}")
+    clf = EncoderClassifier(modules=mods, hparams={}, device="cuda")
+    (logits, score, index), classify_s = _timed(
+        lambda: clf.classify_batch(wav1, lens1))
+    if tuple(logits.shape) != (8, 1, ECAPA_SPEAKERS) or \
+            not (np.abs(score) <= 1 + 1e-6).all():
+        raise AssertionError(f"classify_batch {tuple(logits.shape)}")
+    log(f"  verify_batch, 8 pairs of {min(VERIFY_SECONDS)}-"
+        f"{max(VERIFY_SECONDS)} s: {verify_ms:.2f} ms (median of 3: "
+        f"{[round(w * 1e3, 2) for w in walls]}), {verify_launches} kernel "
+        f"launches, peak memory {verify_peak:.3f} GiB, scores "
+        f"{np.round(scores, 4).tolist()}; classify_batch of 8 in "
+        f"{classify_s * 1e3:.2f} ms, top index {index[:, 0].tolist()}")
+    del brain, verifier, clf, mods, modules
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(params_m=n_params / 1e6, step_ms=step_ms,
+                step_launches=step_launches, step_idle=step_idle,
+                train_peak_gb=train_peak, losses=losses_seen,
+                verify_ms=verify_ms, verify_launches=verify_launches,
+                verify_idle=verify_idle, verify_peak_gb=verify_peak,
+                classify_ms=classify_s * 1e3)
+
+
+def ecapa_card_vs_cpu(rng):
+    """ECAPA-TDNN at 128 channels (every other width as in phase 25) with
+    the 7205-way AAM head, 4 rows of 1.0-0.5 s with relative lengths: the
+    eval logits, the loss and the running statistics after the training
+    forward in f32, every gradient in f64, card vs CPU."""
+    arch = dict(ECAPA_ARCH, channels=(128, 128, 128, 128, 384))
+    modules, _ = _seeded(ecapa_modules(arch), SEED + 102)
+    wav, lens = speech_rows(rng, (1.0, 0.8, 0.65, 0.5))
+    batch = {"sig": PaddedData(torch.from_numpy(wav), lens),
+             "spk_id": torch.from_numpy(rng.integers(0, ECAPA_SPEAKERS, 4))}
+    out = _card_vs_cpu(modules, batch, functools.partial(
+        brain_step, ecapa_brain, state=lambda b: _buffers(b.modules)))
+    got, want = out["cuda_32"], out["cpu_32"]
+    errs = {"out_rel": _peak_rel(got["out"], want["out"]),
+            "loss_rel": reading(abs(got["loss"] / want["loss"] - 1)),
+            "stats_rel": max(_stats_rel(got["stats"],
+                                        want["stats"]).values())}
+    errs["grad_f64_rel"], worst, exempt = _f64_grads(out)
+    tol = {**TOL_REST, "loss_rel": TOL_SEP["loss_rel"]}
+    ok = within(errs, tol)
+    log(f"  ECAPA-TDNN (128 channels) + AAM head, card vs CPU: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (worst gradient {worst}, exempt {exempt}); tols {tol} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("ECAPA-TDNN + AAM on the card disagrees with "
+                             "the CPU")
+    return errs
+
+
+def metricgan_hparams():
+    """The enhancement interface's feature hparams: STFT at n_fft 512, 32
+    ms windows, 16 ms hops (16 kHz), square-root magnitudes, resynthesis
+    with the noisy phase through the ISTFT."""
+    stft = STFT(SR, win_length=32, hop_length=16, n_fft=512)
+    istft = ISTFT(SR, win_length=32, hop_length=16, n_fft=512)
+    return {"compute_stft": stft,
+            "spectral_magnitude": functools.partial(spectral_magnitude,
+                                                    power=0.5),
+            "resynth": functools.partial(resynthesize, stft=stft,
+                                         istft=istft),
+            "sample_rate": SR}
+
+
+def metricgan_full_width():
+    """Phase 25's enhancement half: ``SpectralMaskEnhancement.
+    enhance_batch`` on 4 x 4 s (median of 3 after a warm-up)."""
+    rng = np.random.default_rng(SEED + 101)
+    modules, n_params = _seeded(
+        {"enhance_model": EnhancementGenerator(**METRICGAN_ARCH)}, SEED + 101)
+    face = SpectralMaskEnhancement(modules=modules,
+                                   hparams=metricgan_hparams(),
+                                   device="cuda")
+    noisy, _ = speech_rows(rng, [ENHANCE_SECONDS] * ENHANCE_BATCH)
+    out = face.enhance_batch(noisy)                          # warm-up
+    if tuple(out.shape) != noisy.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"enhanced {tuple(out.shape)}")
+    torch.cuda.reset_peak_memory_stats()
+    walls = [_timed(lambda: face.enhance_batch(noisy))[1] for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = float(np.median(walls)) * 1e3
+    launches = kernel_launches(lambda: face.enhance_batch(noisy))
+    idle = profile_run(lambda: face.enhance_batch(noisy))
+    audio_s = ENHANCE_BATCH * ENHANCE_SECONDS
+    log(f"  metricgan-plus-voicebank: {n_params / 1e6:.2f} M parameters; "
+        f"enhance_batch, {ENHANCE_BATCH} x {ENHANCE_SECONDS} s: {ms:.2f} ms "
+        f"a batch (median of 3: {[round(w * 1e3, 2) for w in walls]}), RTFx "
+        f"{audio_s / (ms / 1e3):.1f}, {launches} kernel launches, peak "
+        f"memory {peak:.3f} GiB")
+    cpu = SpectralMaskEnhancement(
+        modules={"enhance_model": copy.deepcopy(
+            face.mods.enhance_model).cpu()},
+        hparams=metricgan_hparams(), device="cpu")
+    err = reading((face.enhance_batch(noisy[:1]).cpu() - cpu.enhance_batch(
+        noisy[:1])).abs().max())
+    log(f"  one row card vs CPU (f32): max abs err {err:.3e} of outputs "
+        f"peak-normalized to 1 (tol {TOL_REST['out_rel']})")
+    if not within({"out_rel": err}, TOL_REST):
+        raise AssertionError("the enhancement interface on the card "
+                             "disagrees with the CPU")
+    del face, cpu, modules
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(params_m=n_params / 1e6, ms=ms, launches=launches, idle=idle,
+                peak_gb=peak, card_vs_cpu=err)
+
+
+def _rest_cases():
+    """(name, modules factory, input factory (numpy rng → args), call,
+    gradients in f64) of the small card-vs-CPU set."""
+    def wav(n, t):
+        return lambda r: (r.standard_normal((n, t)).astype(np.float32),)
+
+    def seq(*shape):
+        return lambda r: (r.standard_normal(shape).astype(np.float32),)
+
+    return [
+        ("ConvTasNet", lambda: ConvTasNet(2, 16, 32, 16, 32, 3, 2), wav(2, 800),
+         None, False),
+        ("Xvector", lambda: Xvector(24, tdnn_channels=(32, 32, 32, 32, 64),
+                                    lin_neurons=16), seq(2, 50, 24),
+         lambda m, x: m(x, train=True), False),
+        ("Discriminator", lambda: Discriminator(16, 2, 24), seq(4, 16), None,
+         False),
+        ("SeganGenerator", lambda: SeganGenerator(8, (4, 8, 16)),
+         wav(2, 512), None, False),
+        ("SeganDiscriminator", lambda: SeganDiscriminator(8, (4, 8, 16)),
+         seq(2, 512, 2), None, False),
+        ("MetricDiscriminator", lambda: MetricDiscriminator(2, 6, 5),
+         seq(2, 20, 24, 2), None, False),
+        ("ContextNet", lambda: ContextNet(24, 32, [16, 16, 32], 3, [1, 2, 1],
+                                          3, 2), seq(2, 20, 24),
+         lambda m, x: m(x, train=True), False),
+        ("ESPnetVGG", lambda: ESPnetVGG(24, (4, 8), 12, 2, True, 0.0),
+         seq(2, 12, 24), None, False),
+        ("CNNTransformerSE", lambda: CNNTransformerSE(
+            16, 20, nhead=4, num_layers=2, d_ffn=32, dropout=0.0,
+            input_size=20), seq(2, 9, 20), None, False),
+        ("TransformerST", lambda: TransformerST(
+            11, 20, 16, 4, 2, 1, 32, dropout=0.0, ctc_vocab=7),
+         lambda r: (r.standard_normal((2, 9, 20)).astype(np.float32),
+                    r.integers(1, 11, (2, 5))),
+         lambda m, x, t: (m(x, t)[1], m.forward_asr_ctc(m.encode(x)[0])),
+         False),
+        ("IMU_CRNN", lambda: IMU_CRNN(6, (8, 16), 5, 12, 4), seq(2, 32, 6),
+         lambda m, x: m(x, train=True), False),
+        ("IMU_CRNN_GRU", lambda: IMU_CRNN_GRU(6, (8, 16), 12, 3),
+         seq(2, 32, 6), None, False),
+        ("CLinear", lambda: CLinear(6, input_size=8), seq(2, 5, 8), None,
+         True),
+        ("CConv1d", lambda: CConv1d(4, 3, input_size=8), seq(2, 9, 8), None,
+         True),
+        ("CConv2d", lambda: CConv2d(4, (3, 5), input_size=6),
+         seq(2, 7, 9, 6), None, True),
+        ("CBatchNorm", lambda: CBatchNorm(input_size=8), seq(4, 5, 8),
+         lambda m, x: m(x, train=True), True),
+        ("CLayerNorm", lambda: CLayerNorm(8), seq(2, 5, 8), None, True),
+        ("CRNN", lambda: CRNN(4, input_size=8, num_layers=2,
+                              bidirectional=True), seq(2, 6, 8), None, True),
+        ("CLSTM", lambda: CLSTM(4, input_size=8), seq(2, 6, 8), None, True),
+        ("CLiGRU", lambda: CLiGRU(4, input_size=8), seq(2, 6, 8),
+         lambda m, x: m(x, train=True), True),
+        ("QLinear", lambda: QLinear(3, input_size=8), seq(2, 5, 8), None,
+         True),
+        ("QLinear spinor", lambda: QLinear(3, input_size=8, spinor=True,
+                                           vector_scale=True),
+         seq(2, 5, 8), None, True),
+        ("QConv1d", lambda: QConv1d(3, 3, input_size=8), seq(2, 9, 8), None,
+         True),
+        ("QConv2d spinor", lambda: QConv2d(3, 3, input_size=8, spinor=True,
+                                           vector_scale=True),
+         seq(2, 7, 9, 8), None, True),
+        ("QBatchNorm", lambda: QBatchNorm(input_size=8), seq(6, 8),
+         lambda m, x: m(x, train=True), True),
+        ("QRNN", lambda: QRNN(2, input_size=8), seq(2, 6, 8),
+         lambda m, x: m(x)[0], True),
+        ("QLSTM", lambda: QLSTM(2, input_size=8, bidirectional=True),
+         seq(2, 6, 8), lambda m, x: m(x)[0], True),
+        ("QLiGRU", lambda: QLiGRU(2, input_size=8), seq(2, 6, 8),
+         lambda m, x: m(x, train=True)[0], True),
+    ]
+
+
+def _first(out):
+    return out[0] if isinstance(out, (tuple, list)) else out
+
+
+def _rest_run(make, args, call, device, dtype, seed, grads):
+    module = make()
+    init_modules({"m": module}, seed)
+    module = module.to(device, dtype)
+    xs = [torch.as_tensor(a).to(device) for a in args]
+    xs = [x.to(dtype) if x.is_floating_point() else x for x in xs]
+    call = call or (lambda m, *a: m(*a))
+    if not grads:
+        with torch.no_grad():
+            out = call(module, *xs)
+        outs = out if isinstance(out, tuple) else (out,)
+        return dict(outs=[_first(o).double().cpu() for o in outs],
+                    stats=_buffers(module))
+    out = _first(call(module, *xs))
+    # a fixed seeded projection of the output: every leaf, a norm's shift
+    # too, gets a gradient that depends on the data
+    w = torch.randn(out.shape, generator=torch.Generator().manual_seed(seed),
+                    dtype=torch.float64)
+    (out * w.to(out.device, out.dtype)).sum().backward()
+    return dict(outs=[out.detach().double().cpu()], stats=_buffers(module),
+                grads={n: p.grad.double().cpu()
+                       for n, p in module.named_parameters()
+                       if p.grad is not None})
+
+
+def rest_card_vs_cpu(rng):
+    """Every other module of the slice at small width, card vs CPU: f32
+    outputs (and running statistics after training forwards), and for the
+    layers that train a backward in f64."""
+    worst = {"out_rel": 0.0, "grad_f64_rel": 0.0, "stats_rel": 0.0}
+    where = {}
+    for i, (name, make, inputs, call, grads) in enumerate(_rest_cases()):
+        args = inputs(rng)
+        res = {(dev, dt): _rest_run(make, args, call, dev, dt, SEED + 110 + i,
+                                    grads and dt == torch.float64)
+               for dev in ("cuda", "cpu")
+               for dt in ((torch.float32, torch.float64) if grads
+                          else (torch.float32,))}
+        got, want = res["cuda", torch.float32], res["cpu", torch.float32]
+        errs = {"out_rel": _peak_rel(got["outs"], want["outs"]),
+                "stats_rel": max(_stats_rel(got["stats"],
+                                            want["stats"]).values(),
+                                 default=0.0)}
+        exempt = []
+        if grads:      # a leaf with no gradient in exact arithmetic exempt
+            errs["grad_f64_rel"], _, exempt = _f64_grads(
+                {"cuda_64": res["cuda", torch.float64],
+                 "cpu_64": res["cpu", torch.float64]})
+        for k, v in errs.items():
+            if v >= worst[k]:
+                worst[k], where[k] = v, name
+        log(f"  {name}: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + (f" (exempt {exempt})" if exempt else ""))
+    ok = within(worst, TOL_REST)
+    log(f"  worst of {len(_rest_cases())} modules: "
+        + ", ".join(f"{k} {v:.3e} ({where.get(k)})" for k, v in worst.items())
+        + f"; tols {TOL_REST} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a module of the slice disagrees card vs CPU")
+    return worst
+
+
+def speaker_enhancement_phase(rng):
+    """Phase 25; returns its summary."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    summary = {"ecapa": ecapa_full_width(),
+               "ecapa_card_vs_cpu": ecapa_card_vs_cpu(rng),
+               "metricgan": metricgan_full_width(),
+               "rest_card_vs_cpu": rest_card_vs_cpu(rng)}
+    summary["csrc_launches"] = _csrc_untouched("phase 25's paths")
     summary["phase_s"] = time.perf_counter() - t0
     return summary
 
@@ -5785,6 +6498,22 @@ def main():
         "Adam steps, beam search; 2 + 1 layers card vs CPU")
     conformer_summary = conformer_phase(rng)
     log(f"  phase 23 summary: {json.dumps(conformer_summary)}")
+
+    log("phase 24: source separation (sepformer-wsj0-2mix): TasNet encoder "
+        "and decoder of 256 channels, a dual-path masknet of 2 blocks of "
+        "8 + 8 pre-LN transformer layers at width 256, K 250, 2 speakers, "
+        "8 kHz, f32: SepformerSeparation on 4 x 4 s, Adam steps on 1 x 4 s; "
+        "1 block of 2 + 2 layers card vs CPU")
+    sep_summary = sepformer_phase(rng)
+    log(f"  phase 24 summary: {json.dumps(sep_summary)}")
+
+    log("phase 25: speaker verification (ecapa-tdnn-voxceleb: Fbank 80, "
+        "ECAPA-TDNN at 1024 channels, a 7205-way AAM head; Adam steps on 32 "
+        "x 3 s, verify_batch, classify_batch), enhancement "
+        "(metricgan-plus-voicebank: enhance_batch on 4 x 4 s) and the rest "
+        "of the slice card vs CPU")
+    spk_summary = speaker_enhancement_phase(rng)
+    log(f"  phase 25 summary: {json.dumps(spk_summary)}")
 
     kernels = []
     for key, r in rows.items():

@@ -70,6 +70,15 @@ through ``load_module_tree``; a conformer's JAX state tree (``{i}/conv/
 (``jax_state_child``). They are compositions of the leaves below, which
 seed them; ``NormalizedEmbedding`` is an ``Embedding``.
 
+The separation, speaker and enhancement models (``models/{separation,
+ecapa_tdnn,xvector,enhancement,contextnet,transformer_se_st}.py``,
+``nnet/{complex,quaternion}_networks.py``) have the JAX trees' names and
+load through ``load_module_tree``; their JAX state trees keep a block's
+BatchNorm statistics at the block's path, or at an ancestor's through a
+chain of ``jax_state_child`` (ECAPA's ``asp/{mean,var}`` → the pooling's
+TDNN → its norm), and ``CBatchNorm``'s and ``QBatchNorm``'s
+``num_batches_tracked``/moving statistics are state leaves too.
+
 ``init_params`` draws a tree of the same shapes and distributions as the
 JAX ``init``s from a ``torch.Generator`` (JAX's PRNG gives other numbers;
 the machine with the card has no JAX); ``seeded_tree`` draws the tree of
@@ -90,13 +99,20 @@ import torch
 from svt_speechbrain_tpu_torch.models.avhubert import (AVHubertModel,
                                                       FairseqAVHubert)
 from svt_speechbrain_tpu_torch.models.avhubert_asr import AVHubertASR
+from svt_speechbrain_tpu_torch.models.ecapa_tdnn import Classifier
+from svt_speechbrain_tpu_torch.models.enhancement import (
+    EnhancementGenerator, Learnable_sigmoid)
 from svt_speechbrain_tpu_torch.models.fusion import FusionRCA
+from svt_speechbrain_tpu_torch.models.separation import (GlobalLayerNorm,
+                                                      SharedPReLU)
 from svt_speechbrain_tpu_torch.models.seq2seq_decoder import (
     FairseqTransformerDecoder)
 from svt_speechbrain_tpu_torch.models.wav2vec2 import HuggingFaceWav2Vec2
 from svt_speechbrain_tpu_torch.nnet.activations import PReLU
 from svt_speechbrain_tpu_torch.nnet.attention import (MultiheadAttention,
                                                       RelPosMHAXL)
+from svt_speechbrain_tpu_torch.nnet.complex_networks import (
+    CBatchNorm, CLinear, _CConvNd, _CNormBase)
 from svt_speechbrain_tpu_torch.nnet.cnn import (ConvTranspose1d, SincConv,
                                                 _ConvNd,
                                                 jax_to_torch_conv_weight,
@@ -107,6 +123,8 @@ from svt_speechbrain_tpu_torch.nnet.normalization import (GroupNorm,
                                                           LayerNorm,
                                                           _BatchNorm,
                                                           _InstanceNorm)
+from svt_speechbrain_tpu_torch.nnet.quaternion_networks import (
+    QBatchNorm, QLinear, _QConvNd)
 from svt_speechbrain_tpu_torch.nnet.rnn import (GRU, LSTM, _LiGRULayer,
                                                 _RNNBase)
 from svt_speechbrain_tpu_torch.processing.features import InputNormalization
@@ -165,12 +183,26 @@ def _owner(module, name):
         return None, leaf
 
 
+def _state_child_name(module, name):
+    """The name of a running statistic that the JAX state tree keeps at an
+    ancestor's path: while the owner names a ``jax_state_child`` and holds
+    no such leaf itself, the leaf moves down to that child (a chain, as
+    ECAPA's pooling → its ``TDNNBlock`` → the norm)."""
+    owner, leaf = _owner(module, name)
+    path = name[:-len(leaf)]
+    while (owner is not None and getattr(owner, "jax_state_child", None)
+           and leaf not in owner._parameters and leaf not in owner._buffers):
+        path += owner.jax_state_child + "."
+        owner = getattr(owner, owner.jax_state_child, None)
+    return path + leaf
+
+
 def _conv_leaves(module, state):
     """The convs' JAX leaves ``w`` (*k, in, out) (a transposed conv's (k,
     out, in)) and ``b`` → ``weight`` (out, in, *k) (in, out, k) and
     ``bias``, by the module that owns them; the running statistics of a
-    ``jax_state_child`` norm, which the JAX state tree keeps at its
-    parent's path, → the norm's buffers."""
+    ``jax_state_child`` norm, which the JAX state tree keeps at an
+    ancestor's path, → the norm's buffers."""
     out = {}
     for name, t in state.items():
         owner, leaf = _owner(module, name)
@@ -182,15 +214,18 @@ def _conv_leaves(module, state):
                 name, t = name[:-1] + "weight", t.permute(2, 1, 0)
             else:
                 name, t = name[:-1] + "weight", jax_to_torch_conv_weight(t)
-        elif (getattr(owner, "jax_state_child", None)
-              and leaf in ("mean", "var")):
-            name = f"{name[:-len(leaf)]}{owner.jax_state_child}.{leaf}"
+        elif getattr(owner, "jax_state_child", None):
+            name = _state_child_name(module, name)
         out[name] = t
     return out
 
 
 _STATE_LEAVES = ((_BatchNorm, ("mean", "var")),
-                 (InputNormalization, ("glob_mean", "glob_std", "count")))
+                 (InputNormalization, ("glob_mean", "glob_std", "count")),
+                 (CBatchNorm, ("num_batches_tracked", "moving_Vrr",
+                               "moving_Vii", "moving_Vri", "moving_mean")),
+                 (QBatchNorm, ("num_batches_tracked", "running_mean",
+                               "running_var")))
 
 
 def _running_stat(module, name):
@@ -647,6 +682,20 @@ def _init_embedding(gen, module):
     return init_embedding(gen, module.num_embeddings, module.embedding_dim)
 
 
+def _with_own(own):
+    """The initialiser of a module with children and parameters of its
+    own: its children's trees, in their order, then ``own(gen, module)``."""
+    def init(gen, module):
+        tree = {}
+        for name, child in module.named_children():
+            sub = seeded_tree(child, gen)
+            if sub is not None:
+                tree[name] = sub
+        tree.update(own(gen, module))
+        return tree
+    return init
+
+
 # the seeded initialiser of each of the port's leaf classes with
 # parameters: the distributions and bounds of the JAX ``init``s
 _LEAF_INITS = (
@@ -665,6 +714,17 @@ _LEAF_INITS = (
                                                  m.vdim)),
     (RelPosMHAXL, _init_relpos_mha),
     (_LiGRULayer, _init_ligru_layer),
+    (GlobalLayerNorm, lambda gen, m: _ln(m.channel_size)),
+    (SharedPReLU, lambda gen, m: {"alpha": np.full((), m.init_val,
+                                                   np.float32)}),
+    (Classifier, _with_own(lambda gen, m: {"weight": _glorot(
+        gen, m.out_neurons, m.lin_neurons)})),
+    (EnhancementGenerator, _with_own(lambda gen, m: {
+        "sigmoid_beta": np.ones((), np.float32)})),
+    (Learnable_sigmoid, lambda gen, m: {
+        "slope": np.ones(m.in_features, np.float32)}),
+    ((CLinear, _CConvNd, _CNormBase, QLinear, _QConvNd, QBatchNorm),
+     lambda gen, m: m.init_tree(gen)),
 )
 
 
@@ -677,8 +737,10 @@ def seeded_tree(module, generator):
     ``init_fusion`` for a ``FusionRCA``, the initialiser of
     ``_LEAF_INITS`` for a leaf class (``Linear``, the convs, the norms,
     ``PReLU``, ``Embedding``, the RNNs and cells, the attentions, a LiGRU
-    layer), and for any other module the trees of its children, in their
-    order. A module with parameters of its own and no initialiser raises
+    layer, gLN/cLN, the dual path's scalar PReLU, ``Classifier``,
+    ``EnhancementGenerator``, ``Learnable_sigmoid``, the complex and
+    quaternion layers and norms), and for any other module the trees of
+    its children, in their order. A module with parameters of its own and no initialiser raises
     ``NotImplementedError`` naming its class."""
     if isinstance(module, HuggingFaceWav2Vec2):
         return init_wav2vec2(module.config, generator)
@@ -785,11 +847,12 @@ def module_tree(module, running_stats=False):
                           if isinstance(owner, ConvTranspose1d)
                           else torch_to_jax_conv_weight(tensor))
             name = name[:-len(leaf)] + {"weight": "w", "bias": "b"}[leaf]
-        parent, _, child = name[:-len(leaf) - 1].rpartition(".")
-        if running_stats and child and getattr(
-                module.get_submodule(parent), "jax_state_child", None) \
-                == child:
-            name = f"{parent}.{leaf}" if parent else leaf
+        if running_stats:       # a statistic kept at an ancestor's path
+            path = name.split(".")[:-1]
+            while path and getattr(module.get_submodule(".".join(path[:-1])),
+                                   "jax_state_child", None) == path[-1]:
+                path.pop()
+            name = ".".join(path + [leaf])
         path, value = _unconvert(name, tensor)
         node = tree
         *parents, leaf = path.split("/")

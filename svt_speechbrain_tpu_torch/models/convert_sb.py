@@ -6,10 +6,8 @@ directory. A converter maps such a flat name → array dict onto the JAX
 package's tree of the same module (the layouts of the JAX ``init``s:
 (in, out) matrices, channel-last convs, unpacked attention projections),
 which ``convert_jax.load_module_tree(module, tree[, state])`` loads into
-the port's module (a LiGRU's converter gives the state tree too).
-
-``convert_xvector``, ``convert_ecapa`` and ``convert_dual_path`` wait for
-their models (ROADMAP.md queue 1 item 19c).
+the port's module (the converters of models with BatchNorm statistics —
+LiGRU, x-vector, ECAPA-TDNN — give the state tree too).
 """
 from __future__ import annotations
 
@@ -52,6 +50,16 @@ def _lin(sd, prefix):
 def _sb_lin(sd, prefix):
     # SpeechBrain's Linear wraps the torch linear as ".w"
     return _lin(sd, prefix + "w.")
+
+
+def _conv1d(sd, prefix):
+    """A torch ``Conv1d``'s entries (out, in/groups, k) → {"w" (k,
+    in/groups, out), "b"} (no "b" when the bias is absent)."""
+    p = {"w": np.ascontiguousarray(
+        np.transpose(np.asarray(sd[prefix + "weight"]), (2, 1, 0)))}
+    if prefix + "bias" in sd:
+        p["b"] = np.asarray(sd[prefix + "bias"])
+    return p
 
 
 def _affine(sd, prefix):
@@ -119,6 +127,99 @@ def convert_transformer_encoder(sd, num_layers, d_model, prefix=""):
     layers = {str(i): _encoder_layer(sd, f"{prefix}layers.{i}.", d_model)
               for i in range(num_layers)}
     return {"layers": layers, "norm": _affine(sd, prefix + "norm.norm.")}
+
+
+def convert_xvector(sd, tdnn_blocks=5):
+    """SpeechBrain's ``Xvector`` → (params, state) of a ``models.xvector.
+    Xvector``: block i's conv is ``blocks.{3i}``, its norm
+    ``blocks.{3i+2}``, the embedding ``blocks.{3·tdnn_blocks+1}``."""
+    params, state = {}, {}
+    for i in range(tdnn_blocks):
+        norm_p, state[f"tdnn{i}"] = _bn(sd, f"blocks.{3 * i + 2}.norm.")
+        params[f"tdnn{i}"] = {"conv": _conv1d(sd, f"blocks.{3 * i}.conv."),
+                              "norm": norm_p}
+    params["fc"] = _sb_lin(sd, f"blocks.{3 * tdnn_blocks + 1}.")
+    return params, state
+
+
+def convert_ecapa(sd, n_se_blocks=3, res2net_scale=8):
+    """SpeechBrain's ``ECAPA_TDNN`` → (params, state) of a ``models.
+    ecapa_tdnn.ECAPA_TDNN``; each ``TDNNBlock``'s statistics at the block's
+    path, as the JAX state tree keeps them."""
+
+    def tdnn(prefix):
+        norm_p, norm_s = _bn(sd, prefix + "norm.norm.")
+        return {"conv": _conv1d(sd, prefix + "conv.conv."),
+                "norm": norm_p}, norm_s
+
+    params, state = {}, {}
+    params["block0"], state["block0"] = tdnn("blocks.0.")
+    for i in range(1, n_se_blocks + 1):
+        pre = f"blocks.{i}."
+        p, st = {}, {}
+        p["tdnn1"], st["tdnn1"] = tdnn(pre + "tdnn1.")
+        res = [tdnn(pre + f"res2net_block.blocks.{j}.")
+               for j in range(res2net_scale - 1)]
+        p["res2net"] = {str(j): r[0] for j, r in enumerate(res)}
+        st["res2net"] = {str(j): r[1] for j, r in enumerate(res)}
+        p["tdnn2"], st["tdnn2"] = tdnn(pre + "tdnn2.")
+        p["se"] = {"conv1": _conv1d(sd, pre + "se_block.conv1.conv."),
+                   "conv2": _conv1d(sd, pre + "se_block.conv2.conv.")}
+        if pre + "shortcut.conv.weight" in sd:
+            p["shortcut"] = _conv1d(sd, pre + "shortcut.conv.")
+        params[f"block{i}"], state[f"block{i}"] = p, st
+    params["mfa"], state["mfa"] = tdnn("mfa.")
+    asp_p, state["asp"] = tdnn("asp.tdnn.")
+    params["asp"] = {"tdnn": asp_p, "conv": _conv1d(sd, "asp.conv.conv.")}
+    params["asp_norm"], state["asp_norm"] = _bn(sd, "asp_bn.norm.")
+    params["fc"] = _conv1d(sd, "fc.conv.")
+    return params, state
+
+
+def convert_dual_path(sd, num_layers, num_tlayers, d_model):
+    """SpeechBrain's ``Dual_Path_Model`` with ``SBTransformerBlock`` intra
+    and inter models → a ``models.separation.Dual_Path_Model`` tree (1x1
+    convs as ``Linear``s, the PReLU's one slope as a scalar).
+
+    The blocks' ``intra_linear``/``inter_linear`` are read only when the
+    state dict has them: a model built with
+    ``linear_layer_after_inter_intra`` has them, SpeechBrain's published
+    SepFormer has none. The JAX converter always reads them
+    (``convert_sb.py:207-208``) and raises ``KeyError`` on it."""
+    linears = "dual_mdl.0.intra_linear.w.weight" in sd
+
+    def conv1x1(name, bias=True):
+        p = {"w": _t(np.asarray(sd[name + ".weight"])[:, :, 0])}
+        if bias:
+            p["b"] = np.asarray(sd[name + ".bias"])
+        return p
+
+    conv2d_w = np.asarray(sd["conv2d.weight"])[:, :, 0, 0]
+    params = {
+        "norm": _affine(sd, "norm."),
+        "conv_in": conv1x1("conv1d", bias=False),
+        "conv2d": {"w": _t(conv2d_w), "b": np.asarray(sd["conv2d.bias"])},
+        "end_conv": conv1x1("end_conv1x1", bias=False),
+        "output": conv1x1("output.0"),
+        "output_gate": conv1x1("output_gate.0"),
+        "prelu": {"alpha": np.asarray(sd["prelu.weight"])[0]},
+        "blocks": {},
+    }
+    for i in range(num_layers):
+        pre = f"dual_mdl.{i}."
+        block = {
+            "intra": {"encoder": convert_transformer_encoder(
+                sd, num_tlayers, d_model, prefix=pre + "intra_mdl.mdl.")},
+            "inter": {"encoder": convert_transformer_encoder(
+                sd, num_tlayers, d_model, prefix=pre + "inter_mdl.mdl.")},
+            "intra_norm": _affine(sd, pre + "intra_norm."),
+            "inter_norm": _affine(sd, pre + "inter_norm."),
+        }
+        if linears:
+            block["intra_linear"] = _sb_lin(sd, pre + "intra_linear.")
+            block["inter_linear"] = _sb_lin(sd, pre + "inter_linear.")
+        params["blocks"][str(i)] = block
+    return params
 
 
 def convert_rca_layer(sd, prefix, d_model):

@@ -304,9 +304,10 @@ def ctc_loss(log_probs, targets, input_lens, target_lens, blank_index,
 
 def cal_si_snr(source, estimate_source, eps=1e-8):
     """Scale-invariant SNR in dB per (batch, source), both (B, T, C), each
-    signal zero-meaned over time (``losses.py:267``)."""
-    source = torch.as_tensor(source).float()
-    estimate_source = torch.as_tensor(estimate_source).float()
+    signal zero-meaned over time (``losses.py:267``); in f32, or in f64 for
+    f64 inputs (the JAX function has no f64 path)."""
+    source = wide(torch.as_tensor(source))
+    estimate_source = wide(torch.as_tensor(estimate_source))
     s = source - source.mean(dim=1, keepdim=True)
     e = estimate_source - estimate_source.mean(dim=1, keepdim=True)
     dot = (e * s).sum(dim=1, keepdim=True)

@@ -9,26 +9,35 @@ modules only: ``init_params(seed)`` fills them with seeded draws, and
 installs trained ones. ``from_hparams`` builds an interface from an
 inference ``hyperparams.yaml`` (read by ``config``'s own reader) and the
 files its ``pretrainer`` names (``torch.save`` state dicts or JAX msgpack
-exports, fetched from a local directory). The other interfaces of the JAX
-module (``EncoderClassifier``, the ASR ones, ``SpeakerRecognition``,
-``VAD``, ...) wait for their models.
+exports, fetched from a local directory).
+
+``EncoderClassifier``, ``SpeakerRecognition``, ``SepformerSeparation`` and
+``SpectralMaskEnhancement`` serve the speaker, separation and enhancement
+models: each runs its modules (and the hparams' feature modules) on its
+``device``, CUDA unless the caller names another, in eval and without
+autograd, and keeps the JAX interface's host reads (the numpy score and
+argmax of ``classify_batch``, the cosine of ``verify_batch``). The ASR
+interfaces and ``VAD`` wait for ROADMAP.md queue 1 item 20.
 """
 from __future__ import annotations
 
+import functools
 import os
 import pathlib
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from svt_speechbrain_tpu_torch import resolve_device
 from svt_speechbrain_tpu_torch.config import load_hyperyaml
 from svt_speechbrain_tpu_torch.convert_jax import init_modules
-from svt_speechbrain_tpu_torch.dataio.dataio import read_audio
+from svt_speechbrain_tpu_torch.dataio.dataio import read_audio, write_audio
 from svt_speechbrain_tpu_torch.inference import (BatchedAMTTranscriber,
                                                  StreamingAMTTranscriber,
                                                  StreamingServer)
 from svt_speechbrain_tpu_torch.models.quantize import quantize_wav2vec2
+from svt_speechbrain_tpu_torch.models.separation import separate
 from svt_speechbrain_tpu_torch.pretrained.fetching import fetch
 
 
@@ -203,3 +212,148 @@ class SingingTranscriber(Pretrained):
         return StreamingServer(
             self._serving_bridge(), self.mods.model, batch_size=batch_size,
             **{**self._decode_args(), **kwargs})
+
+
+def _to_device(objects, device):
+    """Move every ``nn.Module`` of ``objects`` (and those bound in a
+    ``functools.partial``'s arguments) to ``device``."""
+    for obj in objects:
+        if isinstance(obj, torch.nn.Module):
+            obj.to(device)
+        elif isinstance(obj, functools.partial):
+            _to_device(list(obj.args) + list(obj.keywords.values()), device)
+
+
+class _DeviceInterface(Pretrained):
+    """An interface whose modules run on its ``device`` (CUDA unless the
+    caller names another)."""
+
+    def __init__(self, *args, device=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.device = resolve_device(device)
+        _to_device(list(vars(self.mods).values())
+                   + list(vars(self.hparams).values()), self.device)
+
+    def _tensor(self, x):
+        if isinstance(x, np.ndarray):
+            x = np.ascontiguousarray(x)
+        return None if x is None else torch.as_tensor(x, device=self.device)
+
+
+class EncoderClassifier(_DeviceInterface):
+    """Features → embedding → classifier (``interfaces.py:189``).
+    ``encode_batch`` hands the relative ``wav_lens`` to the embedding
+    model as they are; ``classify_batch`` returns (logits on the device,
+    the numpy max score and argmax index of each row).
+
+    Example
+    -------
+    >>> import numpy as np
+    >>> from svt_speechbrain_tpu_torch.models.ecapa_tdnn import (
+    ...     ECAPA_TDNN, Classifier)
+    >>> from svt_speechbrain_tpu_torch.models.features import Fbank
+    >>> clf = EncoderClassifier(modules={
+    ...     "compute_features": Fbank(n_mels=24),
+    ...     "embedding_model": ECAPA_TDNN(24, lin_neurons=16,
+    ...         channels=(16, 16, 16, 16, 48), attention_channels=8,
+    ...         res2net_scale=4, se_channels=8),
+    ...     "classifier": Classifier(16, 16, 5)}, device="cpu")
+    >>> _ = clf.init_params()
+    >>> out, score, index = clf.classify_batch(np.zeros((2, 4000), np.float32))
+    >>> tuple(out.shape), index.shape
+    ((2, 1, 5), (2, 1))
+    """
+
+    MODULES_NEEDED = ["compute_features", "embedding_model", "classifier"]
+
+    def encode_batch(self, wavs, wav_lens=None):
+        with torch.no_grad():
+            feats = self.mods.compute_features(self._tensor(wavs))
+            return self.mods.embedding_model(feats,
+                                             lengths=self._tensor(wav_lens))
+
+    def classify_batch(self, wavs, wav_lens=None):
+        emb = self.encode_batch(wavs, wav_lens)
+        with torch.no_grad():
+            out = self.mods.classifier(emb)
+        host = out.cpu().numpy()
+        return out, host.max(-1), host.argmax(-1)
+
+
+class SpeakerRecognition(EncoderClassifier):
+    """Speaker verification by the cosine of two embeddings
+    (``interfaces.py:275``), computed on the host in numpy."""
+
+    MODULES_NEEDED = ["compute_features", "embedding_model"]
+
+    def verify_batch(self, wavs1, wavs2, wav_lens1=None, wav_lens2=None,
+                     threshold=0.25):
+        """(cosine scores, same-speaker decisions) of each row pair."""
+        emb1 = self.encode_batch(wavs1, wav_lens1).cpu().numpy().reshape(
+            len(wavs1), -1)
+        emb2 = self.encode_batch(wavs2, wav_lens2).cpu().numpy().reshape(
+            len(wavs2), -1)
+        num = np.sum(emb1 * emb2, axis=-1)
+        den = (np.linalg.norm(emb1, axis=-1) * np.linalg.norm(emb2, axis=-1)
+               + 1e-12)
+        score = num / den
+        return score, score > threshold
+
+    def verify_files(self, path_x, path_y, threshold=0.25):
+        """(score, decision) of two audio files, read by ``dataio``."""
+        x = np.asarray(read_audio(path_x))[None]
+        y = np.asarray(read_audio(path_y))[None]
+        score, decision = self.verify_batch(x, y, threshold=threshold)
+        return float(score[0]), bool(decision[0])
+
+
+class SepformerSeparation(_DeviceInterface):
+    """Source separation (``interfaces.py:440``): encoder → mask network →
+    a masked decode a source; the (B, T, sources) estimate is cut or
+    zero-padded to the mixture's length. Any separator with the
+    encoder/masknet/decoder split serves (SepFormer, Conv-TasNet's
+    ``MaskNet``)."""
+
+    MODULES_NEEDED = ["encoder", "masknet", "decoder"]
+
+    def separate_batch(self, mix):
+        with torch.no_grad():
+            return separate(self.mods.encoder, self.mods.masknet,
+                            self.mods.decoder, self._tensor(mix))
+
+    def separate_file(self, path):
+        """The separated sources of one audio file, read by ``dataio``."""
+        return self.separate_batch(np.asarray(read_audio(path))[None])
+
+
+class SpectralMaskEnhancement(_DeviceInterface):
+    """Spectral-mask enhancement (``interfaces.py:472``): log1p magnitudes
+    → the mask model → masked features → resynthesis with the noisy phase
+    (the hparams' ``compute_stft``, ``spectral_magnitude`` and ``resynth``,
+    moved to the device with the modules)."""
+
+    HPARAMS_NEEDED = ["compute_stft", "spectral_magnitude", "resynth"]
+    MODULES_NEEDED = ["enhance_model"]
+
+    def compute_features(self, wavs):
+        """log1p of the spectral magnitude of ``wavs``."""
+        stft = self.hparams.compute_stft(self._tensor(wavs))
+        return torch.log1p(self.hparams.spectral_magnitude(stft))
+
+    def enhance_batch(self, noisy, lengths=None):
+        noisy = self._tensor(noisy)
+        with torch.no_grad():
+            feats = self.compute_features(noisy)
+            out = self.mods.enhance_model(feats,
+                                          lengths=self._tensor(lengths))
+            mask = out[0] if isinstance(out, tuple) else out
+            return self.hparams.resynth(torch.expm1(mask * feats), noisy)
+
+    def enhance_file(self, path, output_path=None):
+        """Enhance one audio file read by ``dataio``; with ``output_path``
+        also write it (at ``hparams.sample_rate``, 16 kHz without one)."""
+        enhanced = self.enhance_batch(np.asarray(read_audio(path))[None])
+        if output_path is not None:
+            write_audio(output_path, enhanced[0].cpu().numpy(),
+                        getattr(self.hparams, "sample_rate", 16000))
+        return enhanced

@@ -55,7 +55,7 @@ def test_conformer_assembly_card_matches_cpu(cuda_device):
         for dev in ("cuda", "cpu") for dt in (torch.float32, torch.float64)}
     t = cs.TOL_CONFORMER
     got, want = out["cuda_32"], out["cpu_32"]
-    for g, w in zip(got["logp"], want["logp"]):
+    for g, w in zip(got["out"], want["out"]):
         assert (g - w).abs().max().item() <= t["logp_abs"]
     assert abs(got["loss"] / want["loss"] - 1) <= t["loss_rel"]
     for name, w in want["stats"].items():

@@ -218,3 +218,209 @@ def test_load_torch_state_dict(tmp_path):
     assert got.keys() == want.keys()
     for k in got:
         np.testing.assert_array_equal(got[k], want[k])
+
+
+# --- the speaker and separation converters: SpeechBrain-keyed state dicts
+# built from JAX-initialised trees (the inverse of the JAX converters), read
+# by both packages' converters
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _jax_init(module, seed=0):
+    return _np_tree(jax.jit(module.init)(jax.random.PRNGKey(seed)))
+
+
+def _sb_conv(sd, prefix, p):
+    sd[prefix + "weight"] = np.ascontiguousarray(
+        np.transpose(p["w"], (2, 1, 0)))
+    if "b" in p:
+        sd[prefix + "bias"] = p["b"]
+
+
+def _sb_bn(sd, prefix, p, s):
+    sd[prefix + "weight"], sd[prefix + "bias"] = p["scale"], p["bias"]
+    sd[prefix + "running_mean"], sd[prefix + "running_var"] = (s["mean"],
+                                                               s["var"])
+
+
+def _stats(state, seed):
+    """A JAX state tree of the same shapes with drawn statistics."""
+    draw = _Draw(seed)
+    return jax.tree_util.tree_map(
+        lambda v: (draw(*v.shape) if v.ndim else v), _np_tree(state))
+
+
+def _same_trees(a, b):
+    assert jax.tree_util.tree_structure(a) == jax.tree_util.tree_structure(b)
+    assert jax.tree_util.tree_all(jax.tree_util.tree_map(
+        np.array_equal, a, b))
+
+
+def test_convert_xvector():
+    from svt_speechbrain_tpu.models import xvector as jxv
+    from svt_speechbrain_tpu_torch.models import xvector as txv
+
+    kw = dict(in_channels=6, tdnn_channels=(8, 8, 8, 8, 12), lin_neurons=5)
+    jm = jxv.Xvector(**kw)
+    params = _jax_init(jm)
+    state = _stats(jm.init_state(), 5)
+    state = jax.tree_util.tree_map(lambda v: np.abs(v) + 0.5 if v.ndim
+                                   else v, state)
+    sd = {}
+    for i in range(5):
+        _sb_conv(sd, f"blocks.{3 * i}.conv.", params[f"tdnn{i}"]["conv"])
+        _sb_bn(sd, f"blocks.{3 * i + 2}.norm.", params[f"tdnn{i}"]["norm"],
+               state[f"tdnn{i}"])
+    sd["blocks.16.w.weight"] = np.ascontiguousarray(params["fc"]["w"].T)
+    sd["blocks.16.w.bias"] = params["fc"]["b"]
+    got_p, got_s = tsb.convert_xvector(sd)
+    want_p, want_s = jsb.convert_xvector(sd)
+    _same_trees(got_p, want_p)
+    _same_trees(got_s, want_s)
+    tm = _loaded(txv.Xvector(**kw), got_p, got_s)
+    assert torch.equal(tm.tdnn3.norm.var,
+                       torch.from_numpy(sd["blocks.11.norm.running_var"]))
+    x = _x((2, 20, 6), 6)
+    jout, _ = jax.jit(lambda p, s, x: jm(p, x, state=s))(want_p, want_s,
+                                                          jnp.asarray(x))
+    with torch.no_grad():
+        _close(tm(torch.from_numpy(x)), jout)
+
+
+def _ecapa_sd(params, state, n_blocks, scale):
+    sd = {}
+
+    def tdnn(prefix, p, s):
+        _sb_conv(sd, prefix + "conv.conv.", p["conv"])
+        _sb_bn(sd, prefix + "norm.norm.", p["norm"], s)
+
+    tdnn("blocks.0.", params["block0"], state["block0"])
+    for i in range(1, n_blocks + 1):
+        p, s, pre = params[f"block{i}"], state[f"block{i}"], f"blocks.{i}."
+        tdnn(pre + "tdnn1.", p["tdnn1"], s["tdnn1"])
+        for j in range(scale - 1):
+            tdnn(pre + f"res2net_block.blocks.{j}.", p["res2net"][str(j)],
+                 s["res2net"][str(j)])
+        tdnn(pre + "tdnn2.", p["tdnn2"], s["tdnn2"])
+        _sb_conv(sd, pre + "se_block.conv1.conv.", p["se"]["conv1"])
+        _sb_conv(sd, pre + "se_block.conv2.conv.", p["se"]["conv2"])
+        if "shortcut" in p:
+            _sb_conv(sd, pre + "shortcut.conv.", p["shortcut"])
+    tdnn("mfa.", params["mfa"], state["mfa"])
+    tdnn("asp.tdnn.", params["asp"]["tdnn"], state["asp"])
+    _sb_conv(sd, "asp.conv.conv.", params["asp"]["conv"])
+    _sb_bn(sd, "asp_bn.norm.", params["asp_norm"], state["asp_norm"])
+    _sb_conv(sd, "fc.conv.", params["fc"])
+    return sd
+
+
+@pytest.mark.parametrize("channels", [(8, 8, 8, 8, 24), (8, 12, 12, 12, 36)])
+def test_convert_ecapa(channels):
+    """Both widths: equal blocks, and the first SE-Res2Net block with a
+    shortcut conv (8 → 12 channels)."""
+    from svt_speechbrain_tpu.models import ecapa_tdnn as jecapa
+    from svt_speechbrain_tpu_torch.models import ecapa_tdnn as tecapa
+
+    kw = dict(input_size=6, lin_neurons=5, channels=channels,
+              attention_channels=4, res2net_scale=4, se_channels=4)
+    jm = jecapa.ECAPA_TDNN(**kw)
+    params = _jax_init(jm)
+    state = jax.tree_util.tree_map(lambda v: np.abs(v) + 0.5,
+                                   _stats(jm.init_state(), 7))
+    sd = _ecapa_sd(params, state, 3, 4)
+    got_p, got_s = tsb.convert_ecapa(sd, n_se_blocks=3, res2net_scale=4)
+    want_p, want_s = jsb.convert_ecapa(sd, n_se_blocks=3, res2net_scale=4)
+    _same_trees(got_p, want_p)
+    _same_trees(got_s, want_s)
+    tm = _loaded(tecapa.ECAPA_TDNN(**kw), got_p, got_s)
+    assert torch.equal(tm.asp.tdnn.norm.mean, torch.from_numpy(
+        sd["asp.tdnn.norm.norm.running_mean"]))
+    x = _x((2, 20, 6), 8)
+    lens = np.asarray([1.0, 0.6], np.float32)
+    jout, _ = jax.jit(lambda p, s, x, lens: jm(p, x, lengths=lens,
+                                                state=s))(
+        want_p, want_s, jnp.asarray(x), jnp.asarray(lens))
+    with torch.no_grad():
+        _close(tm(torch.from_numpy(x), lengths=torch.from_numpy(lens)), jout)
+
+
+def _sb_encoder(sd, prefix, tree):
+    for i, layer in tree["layers"].items():
+        p = f"{prefix}layers.{i}."
+        att = layer["self_att"]
+        sd[p + "self_att.att.in_proj_weight"] = np.concatenate(
+            [att["wq"].T, att["wk"].T, att["wv"].T])
+        sd[p + "self_att.att.in_proj_bias"] = np.concatenate(
+            [att["bq"], att["bk"], att["bv"]])
+        sd[p + "self_att.att.out_proj.weight"] = np.ascontiguousarray(
+            att["wo"].T)
+        sd[p + "self_att.att.out_proj.bias"] = att["bo"]
+        for k, name in (("0", "ffn1"), ("3", "ffn2")):
+            sd[p + f"pos_ffn.ffn.{k}.weight"] = np.ascontiguousarray(
+                layer["pos_ffn"][name]["w"].T)
+            sd[p + f"pos_ffn.ffn.{k}.bias"] = layer["pos_ffn"][name]["b"]
+        for n in ("norm1", "norm2"):
+            sd[p + f"{n}.norm.weight"] = layer[n]["scale"]
+            sd[p + f"{n}.norm.bias"] = layer[n]["bias"]
+    sd[prefix + "norm.norm.weight"] = tree["norm"]["scale"]
+    sd[prefix + "norm.norm.bias"] = tree["norm"]["bias"]
+
+
+def _dual_path_sd(params, linear):
+    def conv1x1(name, p, dims=1):
+        sd[name + ".weight"] = p["w"].T.reshape(p["w"].T.shape + (1,) * dims)
+        if "b" in p:
+            sd[name + ".bias"] = p["b"]
+
+    sd = {"norm.weight": params["norm"]["scale"],
+          "norm.bias": params["norm"]["bias"],
+          "prelu.weight": np.asarray([params["prelu"]["alpha"]])}
+    conv1x1("conv1d", params["conv_in"])
+    conv1x1("conv2d", params["conv2d"], 2)
+    conv1x1("end_conv1x1", params["end_conv"])
+    conv1x1("output.0", params["output"])
+    conv1x1("output_gate.0", params["output_gate"])
+    for i, block in params["blocks"].items():
+        pre = f"dual_mdl.{i}."
+        for part in ("intra", "inter"):
+            _sb_encoder(sd, f"{pre}{part}_mdl.mdl.", block[part]["encoder"])
+            sd[f"{pre}{part}_norm.weight"] = block[f"{part}_norm"]["scale"]
+            sd[f"{pre}{part}_norm.bias"] = block[f"{part}_norm"]["bias"]
+            if linear:
+                sd[f"{pre}{part}_linear.w.weight"] = np.ascontiguousarray(
+                    block[f"{part}_linear"]["w"].T)
+                sd[f"{pre}{part}_linear.w.bias"] = block[f"{part}_linear"]["b"]
+    return sd
+
+
+@pytest.mark.parametrize("linear", [True, False])
+def test_convert_dual_path(linear):
+    """With the intra/inter linears both converters agree; without them
+    (SpeechBrain's published SepFormer) the JAX converter raises
+    ``KeyError`` and the port's loads the model."""
+    from svt_speechbrain_tpu.models import separation as jsep
+    from svt_speechbrain_tpu_torch.models import separation as tsep
+
+    def model(pkg):
+        return pkg.Dual_Path_Model(
+            6, D, pkg.SBTransformerBlock(2, D, H, FFN, True, True),
+            pkg.SBTransformerBlock(2, D, H, FFN, True, True), num_layers=2,
+            K=6, linear_layer_after_inter_intra=linear)
+
+    jm = model(jsep)
+    params = _jax_init(jm)
+    sd = _dual_path_sd(params, linear)
+    got = tsb.convert_dual_path(sd, 2, 2, D)
+    _same_trees(got, params)
+    if linear:
+        _same_trees(jsb.convert_dual_path(sd, 2, 2, D), params)
+    else:
+        with pytest.raises(KeyError):
+            jsb.convert_dual_path(sd, 2, 2, D)
+    tm = _loaded(model(tsep), got)
+    x = _x((2, 17, 6), 9)
+    jout = jax.jit(lambda p, x: jm(p, x))(got, jnp.asarray(x))
+    with torch.no_grad():
+        _close(tm(torch.from_numpy(x)), jout)

@@ -59,12 +59,12 @@ def test_crdnn_assembly_card_matches_cpu(cuda_device):
     modules = cs.crdnn_modules(ARCH, DEC, 13, 8)
     init_modules(modules, 5)
     batch = cs.crdnn_batch(np.random.default_rng(0), (1.2, 0.9, 0.6), 13)
-    out = {(dev, dt): cs.crdnn_step(copy.deepcopy(modules), batch, dev,
-                                    dtype)
+    out = {(dev, dt): cs.brain_step(cs.crdnn_brain, copy.deepcopy(modules),
+                                    batch, dev, dtype, state=cs.crdnn_state)
            for dev in ("cuda", "cpu")
            for dt, dtype in (("f32", torch.float32), ("f64", torch.float64))}
     got, want = out["cuda", "f32"], out["cpu", "f32"]
-    for g, w in zip(got["logp"], want["logp"]):
+    for g, w in zip(got["out"], want["out"]):
         assert (g - w).abs().max().item() <= LOGP_ATOL
     assert abs(got["loss"] / want["loss"] - 1) <= LOSS_RTOL
     for name, w in want["stats"].items():

@@ -226,6 +226,70 @@ def test_conformer_slice_runs_without_loading_jax():
     assert "LOADED []" in res.stdout, res.stdout
 
 
+_SEP_SPK_ENH_PROBE = """
+import sys
+import numpy as np
+import torch
+import chip_smoke as cs
+from svt_speechbrain_tpu_torch import pretrained
+from svt_speechbrain_tpu_torch.convert_jax import init_modules
+from svt_speechbrain_tpu_torch.models import (contextnet, convert_sb,
+                                              ecapa_tdnn, enhancement,
+                                              separation, transformer_se_st,
+                                              xvector)
+from svt_speechbrain_tpu_torch.nnet import (complex_networks,
+                                            quaternion_networks)
+rng = np.random.default_rng(0)
+arch = dict(cs.SEP_ARCH, num_layers=1, tlayers=1, nhead=2, d_ffn=16, K=10)
+sep = cs.sepformer_brain(cs.sepformer_modules(arch, 8, 8), "cpu", 0)
+assert np.isfinite(sep.fit_batch(cs.sepformer_batch(rng, 1, 200)))
+face = pretrained.SepformerSeparation(modules=dict(sep.modules.items()),
+                                      hparams={}, device="cpu")
+assert face.separate_batch(np.zeros((1, 205), np.float32)).shape == (1, 205, 2)
+spk = dict(cs.ECAPA_ARCH, input_size=12, lin_neurons=6,
+           channels=(8, 8, 8, 8, 24), attention_channels=4, res2net_scale=4,
+           se_channels=4)
+mods = cs.ecapa_modules(spk, 5)
+mods["compute_features"] = cs.Fbank(n_mels=12)
+brain = cs.ecapa_brain(mods, "cpu", 0)
+wav, lens = cs.speech_rows(rng, (0.3, 0.2))
+batch = {"sig": cs.PaddedData(torch.from_numpy(wav), lens),
+         "spk_id": torch.tensor([1, 4])}
+assert np.isfinite(brain.fit_batch(batch))
+score, _ = pretrained.SpeakerRecognition(
+    modules=dict(brain.modules.items()), hparams={},
+    device="cpu").verify_batch(wav, wav[::-1], lens, lens[::-1])
+assert score.shape == (2,)
+enh = {"enhance_model": enhancement.EnhancementGenerator(257, 4, 1)}
+init_modules(enh, 0)
+out = pretrained.SpectralMaskEnhancement(
+    modules=enh, hparams=cs.metricgan_hparams(),
+    device="cpu").enhance_batch(wav)
+assert out.shape == wav.shape
+for name, make, inputs, call, grads in cs._rest_cases():
+    cs._rest_run(make, inputs(rng), call, "cpu", torch.float32, 0, False)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "svt_speechbrain_tpu" or m.startswith("svt_speechbrain_tpu."))
+print("LOADED", bad)
+"""
+
+
+def test_separation_speaker_enhancement_slice_runs_without_loading_jax():
+    """The separation, speaker and enhancement slice (the eight modules,
+    their converters, the four interfaces and phases 24-25's assemblies and
+    ``Brain``s) imports, takes TINY training steps, serves each interface
+    and runs phase 25's small set on the CPU without loading JAX or the JAX
+    package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    res = subprocess.run([sys.executable, "-c", _SEP_SPK_ENH_PROBE],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "LOADED []" in res.stdout, res.stdout
+
+
 _IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|svt_speechbrain_tpu)"
     r"(?![\w])", re.MULTILINE)
