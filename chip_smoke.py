@@ -271,11 +271,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    of a fixed seeded projection of the output); no launch of a ``csrc/``
    kernel.
 
+26. SSL pretraining and the port's multi-device layer on one card:
+   ``HuggingFaceWav2Vec2Pretrain`` on wav2vec2-large-lv60 at full width and
+   depth (seeded weights, codevectors 256 of G 2 x V 320, K 100 negatives,
+   masks 0.65 x 10, every dropout 0.1, f32, Adam): batch 4 of 25 s crops
+   (1249 frames, the streaming attention kernels: 7 frontend and 24 each of
+   3b, 4a, 4b launches a step asserted), a warm-up and 3 timed steps with
+   their host mask sampling, then one step of fairseq's 20 s crops (999
+   frames, the eager band: no attention kernel); the same step under a
+   one-rank NCCL process group through ``DistributedDataParallel`` (loss
+   and every updated parameter bit for bit) and ``parallel.fsdp.apply_fsdp``
+   (within ``TOL_FSDP``); an asynchronous ``torch.distributed.checkpoint``
+   save of the model and Adam and a restore, bit for bit;
+   ``AVHubertPretrain`` on AV-HuBERT large (audio and video, concat) at
+   batch 2 of 6 s, a warm-up and 3 timed Adam steps; and one f64 step of
+   2 lv60-width and 2 AV-HuBERT-width layers card vs CPU on the same Gumbel
+   noise, every leaf within 1e-9.
+
 A card-vs-CPU reading that is not finite (a NaN or an inf on either side)
 fails its check.
 
 Phases run in the order 1-5, 8, 9, 6, 7, 10-15, 19, 17, 18, 16, 20, 21,
-22, 23, 24, 25.
+22, 23, 24, 25, 26.
 
 Phases 2 and 5 also hold and time the two RNN-T kernels (the lattice on
 alpha and on beta panels, the gradient) against their plain versions at the
@@ -349,7 +366,14 @@ from svt_speechbrain_tpu_torch.tasks.amt import AudioAMT  # noqa: E402
 from svt_speechbrain_tpu_torch.inference import (  # noqa: E402
     BatchedAMTTranscriber)
 from svt_speechbrain_tpu_torch.models.avhubert import (  # noqa: E402
-    AVHubertConfig, FairseqAVHubert)
+    AVHubertConfig, AVHubertPretrain, FairseqAVHubert)
+from svt_speechbrain_tpu_torch.models.wav2vec2_pretrain import (  # noqa: E402
+    HuggingFaceWav2Vec2Pretrain)
+from svt_speechbrain_tpu_torch.nnet.dropout import StepRNG  # noqa: E402
+from svt_speechbrain_tpu_torch.parallel.fsdp import apply_fsdp  # noqa: E402
+from svt_speechbrain_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from svt_speechbrain_tpu_torch.utils.orbax_checkpoints import (  # noqa: E402
+    OrbaxCheckpointer)
 from svt_speechbrain_tpu_torch.models.avhubert_asr import (  # noqa: E402
     AVHubertASR, default_decoder_config)
 from svt_speechbrain_tpu_torch.models.quantize import (  # noqa: E402
@@ -831,13 +855,17 @@ def check_video_kernels(gen, errs):
 
 def frontend_wavs(gen):
     """Phase 2's frontend inputs: chunked serving's batch, the 30 s song
-    window, and a (3, 16123) view one sample into its storage (an odd
-    length at an odd offset: layer 0 takes it as it is)."""
+    window, phase 26's pretraining batch, and a (3, 16123) view one sample
+    into its storage (an odd length at an odd offset: layer 0 takes it as
+    it is)."""
     flat = torch.randn(3 * 16123 + 1, generator=gen, device="cuda")
+    pretrain = (PRETRAIN_BATCH, int(PRETRAIN_SECONDS * SR))
     return (("(8, 80000)", torch.randn(8, 80000, generator=gen,
                                        device="cuda")),
             ("(1, 480000)", torch.randn(1, 480000, generator=gen,
                                         device="cuda")),
+            (f"{pretrain} (pretraining)",
+             torch.randn(pretrain, generator=gen, device="cuda")),
             ("(3, 16123) at offset 1", flat))
 
 
@@ -873,12 +901,16 @@ def _max_abs(got, want):
 def check_training_kernels(gen, errs):
     """3b (forward + L + dropout), 4a (dQ) and 4b (dK, dV) against their
     plain versions, rate 0.1, at the 30 s training shape without lengths
-    and with lengths [1499, 700, 0]. The gradients are held to their error
-    over the plain version's peak magnitude; rows of length 0 and keys past
-    the length must give exact zeros; ``errs`` keeps each kernel's largest
-    max abs error per dtype."""
+    and with lengths [1499, 700, 0], and at phase 26's pretraining shape
+    (batch 4 of 25 s, T 1249: 33 keys past the last full tile of 64)
+    without lengths, as ``Wav2Vec2Pretrain`` calls them. The gradients are
+    held to their error over the plain version's peak magnitude; rows of
+    length 0 and keys past the length must give exact zeros; ``errs`` keeps
+    each kernel's largest max abs error per dtype."""
+    pretrain = cf.output_frames(int(PRETRAIN_SECONDS * SR))
     for shape, lengths in (((8, 16, 1499, 64), None),
-                           ((3, 16, 1499, 64), LONG_LENGTHS)):
+                           ((3, 16, 1499, 64), LONG_LENGTHS),
+                           ((PRETRAIN_BATCH, 16, pretrain, 64), None)):
         for tag, dtype in DTYPES.items():
             q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
                              .to(dtype) for _ in range(4))
@@ -6299,6 +6331,401 @@ def speaker_enhancement_phase(rng):
     return summary
 
 
+# --------------------------------------------------------------- phase 26
+# wav2vec2-large-lv60 pretraining: the JAX ``Wav2Vec2Pretrain`` defaults
+# (fairseq's examples/wav2vec/config/pretraining/wav2vec2_large_librivox.yaml:
+# codevectors 256 of 2 groups x 320 entries, 100 negatives, mask 0.65 x 10,
+# logit temperature 0.1, diversity weight 0.1, dropouts 0.1), Adam at a
+# fixed 1e-4 (fairseq's schedule warms up to 5e-3; one step on seeded
+# weights needs no schedule). Batch 4 of 25 s crops reaches the streaming
+# kernels (T 1249 >= 1024); fairseq crops to max_sample_size 320000, 20 s,
+# T 999, which the dispatch sends to the eager path.
+PRETRAIN_BATCH = 4
+PRETRAIN_SECONDS = 25.0
+PRETRAIN_CROP_SECONDS = 20.0
+PRETRAIN_LR = 1e-4
+# AV-HuBERT large pretraining (audio + video, concat), the JAX
+# ``AVHubertPretrain`` defaults: 500 clusters, final_dim 256, logit
+# temperature 0.1, mask 0.8 x 10; batch 2 of 6 s at 25 fps, 88 x 88 crops
+AVH_PRETRAIN_BATCH, AVH_PRETRAIN_FRAMES, AVH_CROP = 2, 150, 88
+# FSDP2 on one rank against the plain step: the same kernels on the copies
+# its all-gather makes, and a one-rank reduce-scatter and division by the
+# world size, which are exact, so the expected difference is 0; 1e-6 of a
+# leaf's largest update (and of the loss) leaves room for an f32 sum taken
+# in another order in its flat buffers, far below a wrong shard (which
+# moves a leaf by its whole update)
+TOL_FSDP = {"loss_rel": 1e-6, "update_rel": 1e-6}
+# one f64 step card vs CPU: every gradient leaf, the loss and the aux values
+TOL_PRETRAIN_F64 = 1e-9
+
+
+def pretrain_model(arch=None, seed=SEED + 120):
+    model = HuggingFaceWav2Vec2Pretrain("facebook/wav2vec2-large-lv60",
+                                        arch_overrides=arch)
+    init_modules({"model": model}, seed)
+    return model
+
+
+def pretrain_rng(seed):
+    return StepRNG(torch.Generator("cuda").manual_seed(seed),
+                   torch.Generator().manual_seed(seed))
+
+
+def pretrain_step(call, opt, wav, mask, negs, seed):
+    """One Adam step of ``call`` (the model, or a wrapper of it) with the
+    generators seeded from ``seed``; returns (loss, aux) as floats."""
+    opt.zero_grad(set_to_none=True)
+    loss, aux = call(wav, mask, negs, rng=pretrain_rng(seed), train=True)
+    loss.backward()
+    opt.step()
+    vals = torch.stack([loss.detach()] + [v.detach() for v in aux.values()])
+    vals = vals.tolist()
+    return vals[0], dict(zip(aux, vals[1:]))
+
+
+def pretrain_full_width(rng):
+    """Phase 26 (a): returns (model, optimizer, batch, counts, summary)."""
+    model = pretrain_model().cuda()
+    c = model.config
+    opt = torch.optim.Adam(model.parameters(), lr=PRETRAIN_LR)
+    n = int(PRETRAIN_SECONDS * SR)
+    wav = torch.from_numpy((0.1 * rng.standard_normal(
+        (PRETRAIN_BATCH, n))).astype(np.float32)).cuda()
+    frames = c.output_length(n)
+    log(f"  lv60 pretraining: {c.num_layers} layers x {c.hidden_size}, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+        f"parameters; batch {PRETRAIN_BATCH} x {PRETRAIN_SECONDS:.0f} s "
+        f"({frames} frames), f32, dropouts 0.1, Adam {PRETRAIN_LR}")
+    want = dict({name: c.num_layers for name in TRAIN_KERNELS},
+                conv_frontend=len(c.conv_dim))
+    steps = []
+    for i in range(4):                       # a warm-up, then 3 timed
+        t0 = time.perf_counter()
+        mask, negs = model.sample_masks(PRETRAIN_BATCH, n, rng)
+        mask_ms = (time.perf_counter() - t0) * 1e3
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, aux = pretrain_step(model, opt, wav, mask, negs, SEED + i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        log(f"  {'warm-up' if i == 0 else f'step {i}'}: {wall * 1e3:.1f} ms, "
+            f"masks on the host {mask_ms:.1f} ms ({int(mask.sum())} masked "
+            f"frames), loss {loss:.6f} {aux}, launches {counts} (total "
+            f"{sum(counts.values())})")
+        if not math.isfinite(loss):
+            raise AssertionError(f"nonfinite pretraining loss {loss}")
+        expect_counts(counts, want, "lv60 pretraining step")
+        if i:
+            steps.append((wall, mask_ms, loss, aux))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = float(np.median([w for w, *_ in steps])) * 1e3
+    log(f"  median step {step_ms:.1f} ms, peak memory {peak_gb:.2f} GiB")
+    log("  where the device time goes (torch.profiler, one step):")
+    idle = profile_run(lambda: pretrain_step(model, opt, wav, mask, negs,
+                                             SEED + 9))
+
+    crop = int(PRETRAIN_CROP_SECONDS * SR)
+    short = wav[:, :crop].contiguous()
+    mask_s, negs_s = model.sample_masks(PRETRAIN_BATCH, crop, rng)
+    pretrain_step(model, opt, short, mask_s, negs_s, SEED + 10)  # warm-up
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_s, _ = pretrain_step(model, opt, short, mask_s, negs_s, SEED + 11)
+    torch.cuda.synchronize()
+    crop_ms = (time.perf_counter() - t0) * 1e3
+    crop_counts = ops.launch_counts()
+    log(f"  fairseq's {PRETRAIN_CROP_SECONDS:.0f} s crop "
+        f"({c.output_length(crop)} frames, eager attention): "
+        f"{crop_ms:.1f} ms a step, loss {loss_s:.6f}, launches {crop_counts}")
+    expect_counts(crop_counts, {"conv_frontend": len(c.conv_dim)},
+                  "20 s pretraining step")
+    summary = dict(step_ms=step_ms, step_ms_all=[w * 1e3 for w, *_ in steps],
+                   mask_ms=[m for _, m, *_ in steps], peak_gb=peak_gb,
+                   idle=idle, losses=[(l, a) for *_, l, a in steps],
+                   launches=counts, crop20_step_ms=crop_ms)
+    return model, opt, (wav, mask, negs), counts, summary
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _full(t):
+    return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach()
+
+
+def pretrain_parallel(model, batch):
+    """Phase 26 (b): the plain step (twice), the step through DDP and the
+    step under FSDP2, each from (a)'s weights with a fresh Adam, on a
+    one-rank NCCL group, deterministic algorithms on. The FSDP check leaves
+    out the attention's key biases, whose gradient is 0 in exact arithmetic
+    (float noise, which Adam's first step turns into ±lr)."""
+    wav, mask, negs = batch
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {}
+        for how in ("plain", "plain_again", "ddp", "fsdp"):
+            clone = call = copy.deepcopy(model)
+            if how == "ddp":
+                call = torch.nn.parallel.DistributedDataParallel(
+                    clone, device_ids=[torch.cuda.current_device()])
+            elif how == "fsdp":
+                apply_fsdp(clone, make_mesh())
+            copt = torch.optim.Adam(clone.parameters(), lr=PRETRAIN_LR)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, aux = pretrain_step(call, copt, wav, mask, negs, SEED + 20)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            runs[how] = dict(loss=loss, aux=aux, ms=wall, params={
+                n: _full(p).cpu() for n, p in clone.named_parameters()})
+            log(f"  {how}: loss {loss!r}, {wall:.1f} ms")
+            del clone, copt, call
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    before = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    ref = runs["plain"]
+    result = {}
+    for how in ("plain_again", "ddp", "fsdp"):
+        got = runs[how]
+        equal = sum(torch.equal(got["params"][n], ref["params"][n])
+                    for n in ref["params"])
+        worst = max(reading((got["params"][n] - ref["params"][n]).abs().max()
+                            / (ref["params"][n] - before[n]).abs().max()
+                            .clamp(min=1e-30)) for n in ref["params"]
+                    if not n.endswith("attn.bk"))
+        loss_rel = reading(abs(got["loss"] / ref["loss"] - 1))
+        result[how] = dict(loss_rel=loss_rel, update_rel=worst,
+                           equal_leaves=equal, leaves=len(ref["params"]),
+                           ms=got["ms"])
+        log(f"  {how} against the plain step: loss {got['loss']!r} vs "
+            f"{ref['loss']!r} (rel {loss_rel:.3e}); {equal} of "
+            f"{len(ref['params'])} updated leaves bit for bit, worst "
+            f"|difference| / |update| {worst:.3e}")
+    bitwise = lambda r: (r["equal_leaves"] == r["leaves"]  # noqa: E731
+                         and r["loss_rel"] == 0)
+    ok = (bitwise(result["ddp"]) and within(
+        {k: result["fsdp"][k] for k in TOL_FSDP}, TOL_FSDP))
+    log(f"  DDP bit for bit: {bitwise(result['ddp'])} (the plain step again:"
+        f" {bitwise(result['plain_again'])}); FSDP within {TOL_FSDP}: "
+        f"{within({k: result['fsdp'][k] for k in TOL_FSDP}, TOL_FSDP)} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the DDP or FSDP step departs from the plain "
+                             "step")
+    return result
+
+
+def pretrain_checkpoint(model, opt):
+    """Phase 26 (e): an asynchronous DCP save of ``model`` and its Adam,
+    then a restore into fresh copies, bit for bit."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_dcp_")
+    try:
+        ck = OrbaxCheckpointer(root, {"model": model}, async_save=True)
+        ck.add_recoverable("opt", opt, module=model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save_checkpoint(meta={"phase": 26})
+        staged = time.perf_counter() - t0
+        ck.wait_until_finished()
+        saved = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, files in os.walk(root) for f in files)
+        fresh = pretrain_model(seed=SEED + 121).cuda()
+        fopt = torch.optim.Adam(fresh.parameters(), lr=PRETRAIN_LR)
+        back = OrbaxCheckpointer(root, {"model": fresh})
+        back.add_recoverable("opt", fopt, module=fresh)
+        t0 = time.perf_counter()
+        step = back.recover_if_possible()
+        restored = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(
+            model.state_dict().values(), fresh.state_dict().values()))
+        mine, theirs = opt.state_dict()["state"], fopt.state_dict()["state"]
+        same_opt = len(mine) == len(theirs) and all(
+            torch.equal(torch.as_tensor(mine[k][f]), torch.as_tensor(
+                theirs[k][f])) for k in mine for f in mine[k])
+        log(f"  DCP async save: {staged:.2f} s to hand back, {saved:.2f} s "
+            f"written ({size / 2 ** 30:.2f} GiB), restore {restored:.2f} s "
+            f"(step {step}); model bit for bit: {same}, Adam state bit for "
+            f"bit: {same_opt}")
+        if not (same and same_opt and step == 0):
+            raise AssertionError("the DCP checkpoint did not restore bit for "
+                                 "bit")
+        return dict(staged_s=staged, saved_s=saved, restore_s=restored,
+                    gib=size / 2 ** 30)
+    finally:
+        shutil.rmtree(root)
+
+
+def avhubert_pretrain_batch(rng, batch, frames, crop, feat_dim=104):
+    audio = torch.from_numpy(rng.standard_normal(
+        (batch, frames, feat_dim)).astype(np.float32))
+    video = torch.from_numpy(rng.standard_normal(
+        (batch, frames, crop, crop, 1)).astype(np.float32))
+    targets = torch.from_numpy(rng.integers(0, 500, (batch, frames)))
+    return {"audio": audio, "video": video}, targets
+
+
+def avhubert_pretrain_full_width(rng):
+    """Phase 26 (c): AV-HuBERT large pretraining steps."""
+    model = AVHubertPretrain(AVHubertConfig.large())
+    init_modules({"model": model}, SEED + 122)
+    model.cuda()
+    opt = torch.optim.Adam(model.parameters(), lr=PRETRAIN_LR)
+    source, targets = avhubert_pretrain_batch(
+        rng, AVH_PRETRAIN_BATCH, AVH_PRETRAIN_FRAMES, AVH_CROP)
+    source = {k: v.cuda() for k, v in source.items()}
+    targets = targets.cuda()
+    log(f"  AV-HuBERT large pretraining (concat): "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+        f"parameters, batch {AVH_PRETRAIN_BATCH} x {AVH_PRETRAIN_FRAMES} "
+        f"frames (audio 104, video {AVH_CROP} x {AVH_CROP}), f32")
+    walls = []
+    for i in range(4):
+        mask = model.sample_masks(AVH_PRETRAIN_BATCH, AVH_PRETRAIN_FRAMES,
+                                  rng)
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss, aux = model(source, targets, mask, rng=pretrain_rng(SEED + i),
+                          train=True)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        vals = {k: v.item() for k, v in aux.items()}
+        log(f"  {'warm-up' if i == 0 else f'step {i}'}: {wall * 1e3:.1f} ms, "
+            f"loss {loss.item():.6f} {vals}, launches {ops.launch_counts()}")
+        if not math.isfinite(loss.item()):
+            raise AssertionError("nonfinite AV-HuBERT pretraining loss")
+        if i:
+            walls.append(wall * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  median step {float(np.median(walls)):.1f} ms, peak {peak:.2f} GiB")
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(step_ms=float(np.median(walls)), step_ms_all=walls,
+                peak_gb=peak)
+
+
+def _f64_step(make, call, device):
+    module = make().to(device, torch.float64)
+    loss, aux = call(module, device)
+    loss.backward()
+    return dict(loss=loss.item(), aux={k: v.item() for k, v in aux.items()},
+                grads={n: p.grad.cpu() for n, p in module.named_parameters()
+                       if p.grad is not None},
+                stats={n: b.cpu() for n, b in module.named_buffers()})
+
+
+def pretrain_card_vs_cpu(rng):
+    """Phase 26 (d): one f64 step of 2 lv60-width and of 2 AV-HuBERT-width
+    layers, dropouts 0, the Gumbel noise drawn once on the host; every
+    gradient leaf, the loss, the aux values and the statistics card vs
+    CPU."""
+    # dropouts 0, and the eager attention (the kernels take f32 and bf16)
+    quiet = dict(num_layers=2, hidden_dropout=0.0, attention_dropout=0.0,
+                 activation_dropout=0.0, feat_proj_dropout=0.0,
+                 attention_impl="eager")
+    n = 2 * SR
+    wav = torch.from_numpy(rng.standard_normal((2, n)))
+    w2v = pretrain_model(quiet, seed=SEED + 123)
+    frames = w2v.config.output_length(n)
+    mask, negs = w2v.sample_masks(2, n, rng)
+    noise = w2v.model.quantizer.draw_noise(
+        torch.Generator().manual_seed(SEED), 2, frames).double()
+
+    def w2v_call(m, dev):
+        return m(wav.to(dev), mask, negs, train=True,
+                 gumbel_noise=noise.to(dev), fused_frontend=False)
+
+    cfg = dataclasses.replace(AVHubertConfig.large(), encoder_layers=2,
+                              dropout=0.0, attention_dropout=0.0)
+    avh = AVHubertPretrain(cfg)
+    avh.model.enc_cfg.attention_impl = "eager"     # every layer's config
+    init_modules({"model": avh}, SEED + 124)
+    source, targets = avhubert_pretrain_batch(rng, 2, 25, AVH_CROP)
+    avh_mask = avh.sample_masks(2, 25, rng)
+
+    def avh_call(m, dev):
+        src = {k: v.to(dev, torch.float64) for k, v in source.items()}
+        return m(src, targets.to(dev), avh_mask, train=True)
+
+    out = {}
+    for name, module, call in (("wav2vec2", w2v, w2v_call),
+                               ("avhubert", avh, avh_call)):
+        res = {dev: _f64_step(lambda: copy.deepcopy(module), call, dev)
+               for dev in ("cuda", "cpu")}
+        got, want = res["cuda"], res["cpu"]
+        errs, exempt = leaf_errors(got, want, {"grad_rel": "grads"})
+        worst = _worst(errs["grad_rel"])
+        vals = dict(loss=(got["loss"], want["loss"]),
+                    **{k: (got["aux"][k], want["aux"][k]) for k in got["aux"]})
+        readings = {"grad_rel": errs["grad_rel"].get(worst, 0.0),
+                    **{k: reading(abs(a - b) / max(abs(b), 1e-30))
+                       for k, (a, b) in vals.items()}}
+        if got["stats"]:
+            readings["stats_rel"] = max(_stats_rel(got["stats"],
+                                                   want["stats"]).values())
+        tol = {k: TOL_PRETRAIN_F64 for k in readings}
+        ok = within(readings, tol) and all(
+            n.endswith("attn.bk") for n in exempt)
+        log(f"  {name} f64 card vs CPU: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+            + f" (worst leaf {worst}, exempt {exempt}; tol "
+            f"{TOL_PRETRAIN_F64:.0e}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} pretraining on the card disagrees "
+                                 f"with the CPU")
+        out[name] = readings
+    return out
+
+
+def pretrain_phase(rng):
+    """Phase 26; returns (launches of a 25 s lv60 step, summary). TF32 stays
+    off, as in ``main``."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    model, opt, batch, counts, summary = pretrain_full_width(rng)
+    log("  (b) the same step under a one-rank NCCL process group: plain, "
+        "plain again, DistributedDataParallel, FSDP2 (apply_fsdp)")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        summary["parallel"] = pretrain_parallel(model, batch)
+        log("  (e) an asynchronous torch.distributed.checkpoint save of the "
+            "model and Adam, and a restore")
+        summary["checkpoint"] = pretrain_checkpoint(model, opt)
+    finally:
+        dist.destroy_process_group()
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    log("  (c) AV-HuBERT large pretraining")
+    summary["avhubert"] = avhubert_pretrain_full_width(rng)
+    log("  (d) f64 steps card vs CPU")
+    summary["card_vs_cpu"] = pretrain_card_vs_cpu(rng)
+    summary["phase_s"] = time.perf_counter() - t0
+    return counts, summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6515,6 +6942,13 @@ def main():
     spk_summary = speaker_enhancement_phase(rng)
     log(f"  phase 25 summary: {json.dumps(spk_summary)}")
 
+    log("phase 26: SSL pretraining at full width: wav2vec2-large-lv60 "
+        "(batch 4 x 25 s, then a 20 s crop), the same step under DDP and "
+        "FSDP2 on a one-rank NCCL group, a DCP checkpoint, AV-HuBERT large "
+        "(batch 2 x 6 s); f64 steps card vs CPU")
+    pretrain_counts, pretrain_summary = pretrain_phase(rng)
+    log(f"  phase 26 summary: {json.dumps(pretrain_summary)}")
+
     kernels = []
     for key, r in rows.items():
         if not isinstance(key, tuple) and key not in SOURCES:
@@ -6523,7 +6957,7 @@ def main():
             name, tag = key
             if tag != "f32":
                 continue
-            launches = train_counts[name]
+            launches = train_counts[name] + pretrain_counts[name]
         else:
             name = key
             tag = "f32" if name.startswith("rnnt_") else "bf16"
@@ -6532,6 +6966,8 @@ def main():
                         "rnnt_lattice": rnnt_counts,
                         "rnnt_grad": rnnt_counts}.get(
                             name, chunked_counts)[name]
+            if name == "conv_frontend":
+                launches += pretrain_counts[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches,

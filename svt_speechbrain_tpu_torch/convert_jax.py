@@ -97,6 +97,7 @@ import numpy as np
 import torch
 
 from svt_speechbrain_tpu_torch.models.avhubert import (AVHubertModel,
+                                                      AVHubertPretrain,
                                                       FairseqAVHubert)
 from svt_speechbrain_tpu_torch.models.avhubert_asr import AVHubertASR
 from svt_speechbrain_tpu_torch.models.ecapa_tdnn import Classifier
@@ -107,7 +108,10 @@ from svt_speechbrain_tpu_torch.models.separation import (GlobalLayerNorm,
                                                       SharedPReLU)
 from svt_speechbrain_tpu_torch.models.seq2seq_decoder import (
     FairseqTransformerDecoder)
-from svt_speechbrain_tpu_torch.models.wav2vec2 import HuggingFaceWav2Vec2
+from svt_speechbrain_tpu_torch.models.wav2vec2 import (HuggingFaceWav2Vec2,
+                                                       Wav2Vec2Encoder)
+from svt_speechbrain_tpu_torch.models.wav2vec2_pretrain import (
+    GumbelVectorQuantizer, HuggingFaceWav2Vec2Pretrain, Wav2Vec2Pretrain)
 from svt_speechbrain_tpu_torch.nnet.activations import PReLU
 from svt_speechbrain_tpu_torch.nnet.attention import (MultiheadAttention,
                                                       RelPosMHAXL)
@@ -325,9 +329,20 @@ def load_optax_state(optimizer, tree, modules):
             optimizer.state[p] = state
 
 
-def load_jax_params(tree, bridge, head=None):
+_PRETRAIN = (HuggingFaceWav2Vec2Pretrain, Wav2Vec2Pretrain, AVHubertPretrain)
+
+
+def load_jax_params(tree, bridge, head=None, state=None):
     """Fill ``bridge`` (``HuggingFaceWav2Vec2``) from ``tree["wav2vec2"]``
-    and ``head`` (``Linear``) from ``tree["model"]``."""
+    and ``head`` (``Linear``) from ``tree["model"]``. A pretraining model
+    (``HuggingFaceWav2Vec2Pretrain``, ``Wav2Vec2Pretrain`` or
+    ``AVHubertPretrain``) takes its whole JAX tree: the encoder, the
+    quantizer's ``proj`` and ``codevectors`` (1, G·V, D/G), ``project_hid``,
+    ``project_q`` and ``mask_emb``, or ``final_proj`` and ``label_embs``
+    beside AV-HuBERT's ``model`` with its BatchNorm ``state``."""
+    if isinstance(bridge, _PRETRAIN):
+        load_module_tree(bridge, tree, state)
+        return
     load_module_tree(bridge, tree["wav2vec2"])
     if head is not None:
         load_module_tree(head, tree["model"])
@@ -725,6 +740,14 @@ _LEAF_INITS = (
         "slope": np.ones(m.in_features, np.float32)}),
     ((CLinear, _CConvNd, _CNormBase, QLinear, _QConvNd, QBatchNorm),
      lambda gen, m: m.init_tree(gen)),
+    (GumbelVectorQuantizer, _with_own(lambda gen, m: {
+        "codevectors": _uniform(gen, tuple(m.codevectors.shape), math.sqrt(
+            6.0 / sum(m.codevectors.shape[1:])))})),
+    (Wav2Vec2Pretrain, _with_own(lambda gen, m: {
+        "mask_emb": torch.rand(m.mask_emb.shape, generator=gen).numpy()})),
+    (AVHubertPretrain, _with_own(lambda gen, m: {
+        "label_embs": _normal(gen, tuple(m.label_embs.shape), 0.02),
+        "mask_emb": torch.rand(m.mask_emb.shape, generator=gen).numpy()})),
 )
 
 
@@ -739,11 +762,15 @@ def seeded_tree(module, generator):
     ``PReLU``, ``Embedding``, the RNNs and cells, the attentions, a LiGRU
     layer, gLN/cLN, the dual path's scalar PReLU, ``Classifier``,
     ``EnhancementGenerator``, ``Learnable_sigmoid``, the complex and
-    quaternion layers and norms), and for any other module the trees of
+    quaternion layers and norms, the pretraining models' quantizer and
+    their own ``mask_emb``/``label_embs``; ``init_wav2vec2``'s encoder for
+    a ``Wav2Vec2Encoder``), and for any other module the trees of
     its children, in their order. A module with parameters of its own and no initialiser raises
     ``NotImplementedError`` naming its class."""
     if isinstance(module, HuggingFaceWav2Vec2):
         return init_wav2vec2(module.config, generator)
+    if isinstance(module, Wav2Vec2Encoder):
+        return init_wav2vec2(module.config, generator)["encoder"]
     if isinstance(module, FairseqAVHubert):
         return {"model": init_avhubert(module.config, generator)[0]}
     if isinstance(module, AVHubertModel):

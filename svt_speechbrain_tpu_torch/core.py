@@ -1,4 +1,4 @@
-"""The training engine, on one device (port of ``svt_speechbrain_tpu/core.py``).
+"""The training engine (port of ``svt_speechbrain_tpu/core.py``).
 
 A ``Brain`` subclass overrides ``compute_forward(batch, stage, rng)`` and
 ``compute_objectives(predictions, batch, stage)``, and is driven by ``fit``
@@ -45,12 +45,32 @@ predictions to the host in one copy and hands them, as numpy, to
 A ``checkpointer`` gets every module, every optimizer (``<name>_opt``), the
 train loader's position and the brain's counters with both generators'
 states, so that a run recovered from a checkpoint continues with the numbers
-of an uninterrupted one. One process is all that runs (data parallelism is
-ROADMAP.md queue 1 item 16).
+of an uninterrupted one.
+
+Under a launch of more than one process (``torchrun``; the group set up by
+``parallel.distributed.ddp_init_group``) the brain trains data-parallel,
+one process per device, where the JAX engine shards one program's batch
+over a device mesh: each rank loads its part of the train set
+(``DistributedSamplerWrapper``), the forward runs through
+``DistributedDataParallel`` over the trainable modules (frozen ones stay out
+of it and of the optimizers), and the gradient all-reduce weighs each rank
+by its valid rows, so the step is the step on the whole batch. Accumulated
+micro-batches but the last run under ``no_sync``. The loss, and with it the
+nonfinite skip, is agreed over the ranks. With the ``fsdp`` run option the
+modules are fully sharded instead (``parallel.fsdp.apply_fsdp``: FSDP2 over
+a "data" mesh of every rank); the forward then runs on the sharded modules
+themselves, frozen modules by ``requires_grad`` and bf16 by FSDP2's
+``MixedPrecisionPolicy``. Every rank runs the stage ends, so that an
+annealed learning rate is every rank's (the JAX loop runs the validation
+stage end on the main process only), and every rank calls the
+checkpointer, whose main process alone writes; under ``fsdp`` each module
+and optimizer state is gathered whole first (``_FullState``), so the files
+are those of one process.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import inspect
 import logging
 import math
@@ -65,6 +85,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 from torch import nn
+from torch.utils._pytree import tree_map
 
 from svt_speechbrain_tpu_torch import resolve_device
 from svt_speechbrain_tpu_torch.config import convert_to_yaml
@@ -73,7 +94,8 @@ from svt_speechbrain_tpu_torch.dataio.batch import PaddedBatch, PaddedData
 from svt_speechbrain_tpu_torch.dataio.dataloader import (LoopedLoader,
                                                          SaveableDataLoader,
                                                          make_dataloader)
-from svt_speechbrain_tpu_torch.dataio.sampler import ReproducibleRandomSampler
+from svt_speechbrain_tpu_torch.dataio.sampler import (
+    DistributedSamplerWrapper, ReproducibleRandomSampler)
 from svt_speechbrain_tpu_torch.nnet.dropout import StepRNG
 from svt_speechbrain_tpu_torch.parallel.distributed import (if_main_process,
                                                             run_on_main)
@@ -135,9 +157,8 @@ def _logging_excepthook(exc_type, exc_value, exc_traceback):
     logger.error("Exception:", exc_info=(exc_type, exc_value, exc_traceback))
 
 
-# flags of the JAX command line that configure TPU meshes or XLA: refused
-_TPU_ONLY = {"fsdp": "--fsdp (parameter sharding)",
-             "jit_module_keys": "--jit_module_keys (XLA compilation)"}
+# flags of the JAX command line that configure XLA: refused
+_TPU_ONLY = {"jit_module_keys": "--jit_module_keys (XLA compilation)"}
 
 
 def parse_arguments(arg_list=None):
@@ -145,8 +166,10 @@ def parse_arguments(arg_list=None):
     (param_file, run_opts dict, overrides yaml string); run options not
     given are left out, so the hyperparameter file's values apply.
     ``--device`` is ``cuda`` unless named. The JAX package's TPU flags
-    (``--fsdp``, ``--jit_module_keys``, ``--distributed_backend ici``) and a
-    data-parallel count above 1 are refused.
+    (``--jit_module_keys``, ``--distributed_backend ici``) are refused. A
+    ``--data_parallel_count`` N above 1 is a launch of N processes: given
+    outside one (``WORLD_SIZE`` other than N) it raises, naming
+    ``torchrun``.
 
     Example
     -------
@@ -174,17 +197,20 @@ def parse_arguments(arg_list=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="Torch device to run on (cuda, cuda:1, cpu)")
     parser.add_argument("--data_parallel_count", type=int, default=-1,
-                        help="Number of devices (one is ported)")
-    parser.add_argument("--fsdp", default=False, action="store_true",
-                        help="TPU parameter sharding: refused")
+                        help="Number of processes of the launch (torchrun)")
+    parser.add_argument("--fsdp", default=None, action="store_true",
+                        help="Fully shard parameters and optimizer state "
+                             "over the ranks (FSDP2)")
     parser.add_argument("--distributed_launch", default=False,
                         action="store_true",
-                        help="Set up a process group (one process is ported)")
-    parser.add_argument("--distributed_backend", type=str, default="nccl",
-                        help="torch.distributed backend")
-    parser.add_argument("--find_unused_parameters", default=False,
+                        help="Set up a process group")
+    parser.add_argument("--distributed_backend", type=str, default=None,
+                        help="torch.distributed backend (nccl on cuda, "
+                             "gloo on the cpu by default)")
+    parser.add_argument("--find_unused_parameters", default=None,
                         action="store_true",
-                        help="Kept for CLI compatibility with the reference")
+                        help="DistributedDataParallel: find the parameters "
+                             "a forward left unused")
     parser.add_argument("--jit_module_keys", type=str, nargs="*",
                         help="XLA compilation of modules: refused")
     parser.add_argument("--precision", type=str, default=None,
@@ -212,9 +238,11 @@ def parse_arguments(arg_list=None):
     if run_opts["distributed_backend"] == "ici":
         parser.error("--distributed_backend ici is the TPU interconnect; the "
                      "PyTorch port takes a torch.distributed backend")
-    if run_opts["data_parallel_count"] > 1:
-        parser.error("--data_parallel_count above 1: data parallelism is not "
-                     "ported yet (ROADMAP.md queue 1 item 16)")
+    count = run_opts["data_parallel_count"]
+    if count > 1 and int(os.environ.get("WORLD_SIZE", "1")) != count:
+        parser.error(f"--data_parallel_count {count} is a launch of {count} "
+                     f"processes, one a device: run it under torchrun "
+                     f"--nproc_per_node {count}")
     param_file = run_opts.pop("param_file")
     overrides = convert_to_yaml(overrides)
     run_opts = {k: v for k, v in run_opts.items()
@@ -258,8 +286,21 @@ def _progress(iterable, enable):
     return tqdm(iterable, dynamic_ncols=True)
 
 
+def _world_size():
+    import torch.distributed as dist
+
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
+def _local(t):
+    """The rank's own part of a tensor (a DTensor's local shard)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 class Brain:
-    """Training and evaluation engine on one device (``core.py:195``).
+    """Training and evaluation engine (``core.py:195``), on one device or
+    data-parallel over the ranks of a launch.
 
     Arguments
     ---------
@@ -275,8 +316,9 @@ class Brain:
         ``device`` (CUDA unless a device is named), ``precision``
         ("fp32" | "bf16"), ``max_grad_norm``, ``nonfinite_patience``,
         ``debug``/``debug_batches``/``debug_epochs``, ``noprogressbar``,
-        ``ckpt_interval_minutes``; run_opts take precedence over hparams,
-        then the defaults.
+        ``ckpt_interval_minutes``, ``fsdp``, ``find_unused_parameters``
+        (for ``DistributedDataParallel``); run_opts take precedence over
+        hparams, then the defaults.
     checkpointer : utils.checkpoints.Checkpointer or None
         Gets the modules, the optimizers, the train loader's position and
         the brain's counters and generator states.
@@ -313,7 +355,8 @@ class Brain:
                         "max_grad_norm": 5.0, "nonfinite_patience": 3,
                         "debug": False, "debug_batches": 2, "debug_epochs": 2,
                         "noprogressbar": False, "ckpt_interval_minutes": 0,
-                        "grad_accumulation_factor": 1}
+                        "grad_accumulation_factor": 1, "fsdp": False,
+                        "find_unused_parameters": False}
 
     def __init__(self, modules=None, opt_class=None, hparams=None,
                  run_opts=None, checkpointer=None):
@@ -337,6 +380,10 @@ class Brain:
         # that no one loaded or seeded are drawn, in order, from the seed
         init_modules({name: m for name, m in self.modules.items()
                       if is_unseeded(m)}, self.seed)
+        self.world_size = _world_size()
+        self._ddp = self._ddp_frozen = None
+        if self.fsdp:
+            self._shard_modules()
         self.generator = torch.Generator(self.device).manual_seed(self.seed)
         self.host_generator = torch.Generator().manual_seed(self.seed)
         self.optimizers = {}
@@ -352,7 +399,8 @@ class Brain:
         if checkpointer is not None:
             checkpointer.add_recoverable("brain", _BrainCounters(self))
             for name, module in self.modules.items():
-                checkpointer.add_recoverable(name, module)
+                checkpointer.add_recoverable(
+                    name, _FullState(module) if self.fsdp else module)
         total = sum(p.numel() for p in self.modules.parameters())
         if total > 0:
             num, units = format_order_of_magnitude(total)
@@ -408,7 +456,8 @@ class Brain:
         opt = factory(params) if lr is None else factory(params, lr=lr)
         self.optimizers[name] = {"opt": opt, "modules": tuple(module_names)}
         if self.checkpointer is not None:
-            self.checkpointer.add_recoverable(f"{name}_opt", opt)
+            self.checkpointer.add_recoverable(
+                f"{name}_opt", _FullState(opt) if self.fsdp else opt)
 
     def set_learning_rate(self, opt_name, lr):
         for group in self.optimizers[opt_name]["opt"].param_groups:
@@ -424,6 +473,64 @@ class Brain:
         if unknown:
             raise ValueError(f"unknown modules {sorted(unknown)}")
         self.frozen_modules = frozenset(names)
+        if self.fsdp:
+            for name, module in self.modules.items():
+                module.requires_grad_(name not in self.frozen_modules)
+
+    # ------------------------------------------------------- data parallel
+    def _shard_modules(self):
+        """Every module with parameters fully sharded over a "data" mesh of
+        all ranks (``parallel.fsdp.apply_fsdp``)."""
+        import torch.distributed as dist
+        from torch.distributed.fsdp import MixedPrecisionPolicy
+
+        from svt_speechbrain_tpu_torch.parallel.fsdp import apply_fsdp
+        from svt_speechbrain_tpu_torch.parallel.mesh import make_mesh
+
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError("fsdp shards over the ranks of a process "
+                               "group: launch with torchrun (ddp_init_group)")
+        self.mesh = make_mesh()
+        kwargs = {}
+        if self.precision == "bf16":
+            kwargs["mp_policy"] = MixedPrecisionPolicy(
+                param_dtype=torch.bfloat16, reduce_dtype=torch.float32,
+                cast_forward_inputs=False)
+        for module in self.modules.values():
+            if next(module.parameters(), None) is not None:
+                apply_fsdp(module, self.mesh, **kwargs)
+
+    def _data_parallel(self):
+        """``DistributedDataParallel`` over the brain's modules, built
+        again when the frozen modules change: their parameters are left out
+        of it."""
+        from torch.nn.parallel import DistributedDataParallel
+
+        if self._ddp is None or self._ddp_frozen != self.frozen_modules:
+            ignore = [f"mods.{n}.{k}" for n in self.frozen_modules
+                      for k, _ in self.modules[n].named_parameters()]
+            DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(
+                self._forward, ignore)
+            self._ddp = DistributedDataParallel(
+                self._forward, broadcast_buffers=False,
+                find_unused_parameters=self.find_unused_parameters,
+                device_ids=([self.device.index] if self.device.type == "cuda"
+                            else None))
+            self._ddp_frozen = self.frozen_modules
+        return self._ddp
+
+    def _call_forward(self, batch, stage, rng):
+        """``compute_forward`` on the compute parameters; a training
+        forward of several ranks through ``DistributedDataParallel``, or on
+        the sharded modules themselves under ``fsdp``."""
+        if self.fsdp:
+            return self._forward(batch, stage, rng)
+        params = self._compute_params()
+        module = self._forward
+        if self.world_size > 1 and stage == Stage.TRAIN:
+            module = self._data_parallel()
+            params = {"module." + k: v for k, v in params.items()}
+        return torch.func.functional_call(module, params, (batch, stage, rng))
 
     # ------------------------------------------------------------- batching
     def make_dataloader(self, dataset, stage, ckpt_prefix="dataloader-",
@@ -438,6 +545,10 @@ class Brain:
                     loader_kwargs.get("sampler") is None:
                 loader_kwargs["sampler"] = ReproducibleRandomSampler(
                     dataset, seed=self.seed)
+            if self.world_size > 1:             # each rank its own part
+                loader_kwargs["sampler"] = DistributedSamplerWrapper(
+                    loader_kwargs.get("sampler")
+                    or torch.utils.data.SequentialSampler(dataset))
             self.train_sampler = loader_kwargs.get("sampler")
         loader_kwargs.setdefault("pin_memory", self.device.type == "cuda")
         dataloader = make_dataloader(dataset, **loader_kwargs)
@@ -502,29 +613,45 @@ class Brain:
         trainable = self.trainable_parameters()
         for p in trainable:
             p.grad = None
+        # several ranks: each rank's loss counts by its valid rows
+        ranks = self.world_size > 1
+        weight = batch["valid_rows"].sum() if ranks else None
+        ddp = self._data_parallel() if ranks and not self.fsdp else None
         loss = None
         for i in range(accum):
             micro = batch if accum == 1 else _map_rows(
                 batch, accum * rows, lambda x: x[i * rows:(i + 1) * rows])
             rng = StepRNG(self.generator, self.host_generator)
-            preds = torch.func.functional_call(
-                self._forward, self._compute_params(),
-                (micro, Stage.TRAIN, rng))
-            micro_loss = self.compute_objectives(preds, micro,
-                                                 Stage.TRAIN).float()
-            micro_loss.backward()
+            sync = (ddp.no_sync() if ddp is not None and i < accum - 1
+                    else contextlib.nullcontext())
+            with sync:
+                preds = self._call_forward(micro, Stage.TRAIN, rng)
+                micro_loss = self.compute_objectives(preds, micro,
+                                                     Stage.TRAIN).float()
+                (micro_loss * weight if ranks else micro_loss).backward()
             loss = micro_loss.detach() if loss is None \
                 else loss + micro_loss.detach()
-        grads = [p.grad for p in trainable if p.grad is not None]
+        if self.fsdp:       # a frozen module has no backward to reshard it
+            for module in self.modules.values():
+                if hasattr(module, "reshard"):
+                    module.reshard()
+        grads = [_local(p.grad) for p in trainable if p.grad is not None]
         if accum > 1:
             loss = loss / accum
             torch._foreach_div_(grads, accum)
+        if ranks:
+            loss = self._agree(loss, weight, grads)
         # a sum of squares per leaf, as optax.global_norm: on the CPU,
         # torch's f32 vector_norm loses 2.5e-4 of the norm of an 8.4M-element
         # leaf (lv60's positional conv), a sum 1e-8
         squares = [g.float().square().sum() for g in grads]
-        gnorm = torch.stack(
-            squares + [torch.zeros((), device=self.device)]).sum().sqrt()
+        gnorm_sq = torch.stack(
+            squares + [torch.zeros((), device=self.device)]).sum()
+        if self.fsdp:                            # the shards' squares
+            import torch.distributed as dist
+
+            dist.all_reduce(gnorm_sq)
+        gnorm = gnorm_sq.sqrt()
         loss_val, gnorm_val = torch.stack([loss.detach(), gnorm]).tolist()
         self.last_grad_norm = gnorm_val
         if not (math.isfinite(loss_val) and math.isfinite(gnorm_val)):
@@ -544,6 +671,20 @@ class Brain:
         self.optimizer_step += 1
         return loss_val
 
+    def _agree(self, loss, weight, grads):
+        """The loss of the whole batch, from every rank's loss weighed by
+        its valid rows, and the gradients rescaled from the all-reduce's
+        mean of the weighed ones to that batch's; a nonfinite loss on any
+        rank makes the loss NaN on every rank, so all of them skip."""
+        import torch.distributed as dist
+
+        total = torch.stack([loss * weight, weight.float(),
+                             (~torch.isfinite(loss)).float()])
+        dist.all_reduce(total)
+        torch._foreach_mul_(grads, self.world_size / total[1])
+        return torch.where(total[2] > 0, torch.full_like(loss, math.nan),
+                           total[0] / total[1])
+
     def evaluate_batch(self, batch, stage):
         """Evaluation on one batch (``core.py:717``): the forward and the
         objectives under ``torch.inference_mode``, the predictions and the
@@ -551,8 +692,7 @@ class Brain:
         the loss."""
         arrays = self._batch_to_device(batch)
         with torch.inference_mode():
-            preds = torch.func.functional_call(
-                self._forward, self._compute_params(), (arrays, stage, None))
+            preds = self._call_forward(arrays, stage, None)
             loss = self.compute_objectives(preds, arrays, stage)
             preds_np, loss_val = _to_host(preds, loss)
         self.on_evaluate_batch_end(batch, preds_np, loss_val, stage)
@@ -597,9 +737,10 @@ class Brain:
                     break
                 if (self.checkpointer is not None
                         and self.ckpt_interval_minutes > 0
-                        and time.time() - last_ckpt_time
-                        >= self.ckpt_interval_minutes * 60.0):
-                    run_on_main(self._save_intra_epoch_ckpt)
+                        and self._main_decides(
+                            time.time() - last_ckpt_time
+                            >= self.ckpt_interval_minutes * 60.0)):
+                    self._save_intra_epoch_ckpt()
                     last_ckpt_time = time.time()
             self.on_stage_end(Stage.TRAIN, self.avg_train_loss, epoch)
             self.train_loss = self.avg_train_loss
@@ -616,11 +757,21 @@ class Brain:
                     if self.debug and self.step == self.debug_batches:
                         break
                 self.step = 0
-                run_on_main(self.on_stage_end,
-                            args=[Stage.VALID, avg_valid_loss, epoch])
+                self.on_stage_end(Stage.VALID, avg_valid_loss, epoch)
 
             if self.debug and epoch == self.debug_epochs:
                 break
+
+    def _main_decides(self, flag):
+        """The main process's ``flag`` on every rank: each rank's own clock
+        would have some ranks save while others step on."""
+        if self.world_size == 1:
+            return flag
+        import torch.distributed as dist
+
+        box = torch.tensor([float(flag)], device=self.device)
+        dist.broadcast(box, src=0)
+        return bool(box.item())
 
     def _save_intra_epoch_ckpt(self):
         """Intra-epoch checkpoint (``core.py:789``): only the newest is kept."""
@@ -683,6 +834,53 @@ def _to_host(preds, loss):
     if isinstance(preds, (tuple, list)):
         return tuple(out), loss_val
     return out[0], loss_val
+
+
+def _shard_as(full, like):
+    """The rank's shard of the whole tensor ``full``, placed as the DTensor
+    ``like`` is (each rank cuts it from its own copy); anything else as
+    it is."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if not (isinstance(like, DTensor) and torch.is_tensor(full)
+            and full.shape == like.shape):
+        return full
+    return distribute_tensor(full.to(like.device, like.dtype),
+                             like.device_mesh, like.placements,
+                             src_data_rank=None)
+
+
+class _FullState:
+    """A sharded module or optimizer as the checkpointer sees it under
+    ``fsdp``: ``state_dict`` gathers every DTensor whole, on every rank
+    (``collective``; the main process writes it), and ``load_state_dict``
+    cuts each rank's shards from the whole tensors read back, placed as the
+    parameters are. The files are those of one process, so a checkpoint
+    of a sharded run recovers in one process and one process's in a
+    sharded run."""
+
+    collective = True
+
+    def __init__(self, obj):
+        self.obj = obj
+
+    def state_dict(self):
+        from torch.distributed.tensor import DTensor
+
+        return tree_map(lambda t: t.full_tensor().cpu()
+                        if isinstance(t, DTensor) else t,
+                        self.obj.state_dict())
+
+    def load_state_dict(self, data):
+        if isinstance(self.obj, torch.optim.Optimizer):
+            params = [p for g in self.obj.param_groups for p in g["params"]]
+            data = dict(data, state={
+                i: {k: _shard_as(v, params[int(i)]) for k, v in s.items()}
+                for i, s in data["state"].items()})
+        else:
+            like = self.obj.state_dict()
+            data = {k: _shard_as(v, like.get(k)) for k, v in data.items()}
+        self.obj.load_state_dict(data)
 
 
 class _BrainCounters:

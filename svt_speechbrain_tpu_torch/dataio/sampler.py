@@ -2,8 +2,8 @@
 
 They are ``torch.utils.data.Sampler``s that draw with numpy exactly as the
 JAX package's do, so an order is the same in both packages for the same
-seed and epoch. ``DistributedSamplerWrapper`` waits for data parallelism
-(ROADMAP.md queue 1 item 16).
+seed and epoch. ``DistributedSamplerWrapper`` gives each rank of a
+``torch.distributed`` process group its part of any sampler's stream.
 """
 from __future__ import annotations
 
@@ -255,3 +255,51 @@ class DynamicBatchSampler(Sampler):
 
     def __len__(self):
         return len(self._batches)
+
+
+class DistributedSamplerWrapper(Sampler):
+    """Any sampler shared over the ranks of a process group
+    (``sampler.py:235``): rank r of W sees indices ``r::W`` of the inner
+    sampler's stream, padded by wrap-around to a multiple of W, or cut to
+    one with ``drop_last``. ``rank``/``num_replicas`` default to the process
+    group's (0 and 1 without one).
+
+    Example
+    -------
+    >>> inner = range(5)
+    >>> [list(DistributedSamplerWrapper(inner, rank=r, num_replicas=2))
+    ...  for r in (0, 1)]
+    [[0, 2, 4], [1, 3, 0]]
+    >>> len(DistributedSamplerWrapper(inner, 1, 2, drop_last=True))
+    2
+    """
+
+    def __init__(self, sampler, rank=None, num_replicas=None,
+                 drop_last=False):
+        import torch.distributed as dist
+
+        group = dist.is_available() and dist.is_initialized()
+        self.sampler = sampler
+        self.rank = rank if rank is not None else (
+            dist.get_rank() if group else 0)
+        self.num_replicas = num_replicas if num_replicas is not None else (
+            dist.get_world_size() if group else 1)
+        self.drop_last = drop_last
+
+    def __iter__(self):
+        indices = list(iter(self.sampler))
+        if self.drop_last:
+            total = (len(indices) // self.num_replicas) * self.num_replicas
+            indices = indices[:total]
+        else:
+            indices = indices + indices[:(-len(indices)) % self.num_replicas]
+        return iter(indices[self.rank::self.num_replicas])
+
+    def __len__(self):
+        if self.drop_last:
+            return len(self.sampler) // self.num_replicas
+        return -(-len(self.sampler) // self.num_replicas)
+
+    def set_epoch(self, epoch):
+        if hasattr(self.sampler, "set_epoch"):
+            self.sampler.set_epoch(epoch)

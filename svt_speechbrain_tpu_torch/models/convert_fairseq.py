@@ -8,7 +8,9 @@ renaming (and a transpose of each linear weight into the port's (in, out)
 statistics among its buffers. The pretraining head (``final_proj``,
 ``label_embs_concat``) and the BatchNorm batch counters are dropped.
 ``convert_fairseq_avhubert_asr`` does the same for a seq2seq ASR
-checkpoint, encoder and decoder, for ``AVHubertASR.load_state_dict``.
+checkpoint, encoder and decoder, for ``AVHubertASR.load_state_dict``, and
+``convert_wav2vec2_fairseq_state_dict`` for a fairseq wav2vec 2.0
+checkpoint, for ``Wav2Vec2Encoder.load_state_dict``.
 """
 from __future__ import annotations
 
@@ -116,6 +118,53 @@ def convert_avhubert_state_dict(sd, config):
 def load_avhubert(path, config):
     """``convert_avhubert_state_dict`` of a local checkpoint file."""
     return convert_avhubert_state_dict(load_fairseq_state_dict(path), config)
+
+
+def convert_wav2vec2_fairseq_state_dict(sd, config):
+    """A fairseq ``Wav2Vec2Model`` state dict (keys with or without the
+    ``w2v_model.`` prefix of a fine-tuned checkpoint) → the state dict of
+    the port's ``Wav2Vec2Encoder(config)`` (``convert_fairseq.py:160``):
+    ``feature_extractor.conv_layers.<i>.0`` convs with their norms (``.2``,
+    or ``.2.1`` behind fairseq's transpose in "layer" mode; the first conv
+    only in "group" mode), ``layer_norm`` and ``post_extract_proj``, the
+    weight-normed ``encoder.pos_conv.0`` (``weight_g``/``weight_v`` or the
+    parametrization's), ``encoder.layer_norm`` and ``encoder.layers``."""
+    sd = {k.removeprefix("w2v_model."): v for k, v in sd.items()}
+    out = {}
+    for i in range(len(config.conv_dim)):
+        pre, dst = (f"feature_extractor.conv_layers.{i}.",
+                    f"feature_extractor.layers.{i}.")
+        out[dst + "conv.weight"] = _t(sd[pre + "0.weight"])
+        if pre + "0.bias" in sd:
+            out[dst + "conv.bias"] = _t(sd[pre + "0.bias"])
+        norm = pre + ("2.1" if pre + "2.1.weight" in sd else "2")
+        if config.feat_extract_norm == "layer":
+            _norm(sd, norm, dst + "layer_norm", out)
+        elif i == 0:
+            _norm(sd, norm, dst + "group_norm", out)
+    _norm(sd, "layer_norm", "feat_proj_ln", out)
+    _linear(sd, "post_extract_proj", "feat_proj", out)
+    pc = "encoder.pos_conv.0."
+    if pc + "weight_g" in sd:
+        g, v = sd[pc + "weight_g"], sd[pc + "weight_v"]
+    else:
+        g = sd[pc + "parametrizations.weight.original0"]
+        v = sd[pc + "parametrizations.weight.original1"]
+    out["pos_conv.g"] = _t(g).reshape(1, 1, -1)
+    out["pos_conv.v"], out["pos_conv.b"] = _t(v), _t(sd[pc + "bias"])
+    _norm(sd, "encoder.layer_norm", "encoder_ln", out)
+    for i in range(config.num_layers):
+        src, dst = f"encoder.layers.{i}.", f"layers.{i}."
+        for proj, name in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"),
+                           ("out_proj", "o")):
+            out[f"{dst}attn.w{name}"] = _t(
+                sd[f"{src}self_attn.{proj}.weight"]).t()
+            out[f"{dst}attn.b{name}"] = _t(sd[f"{src}self_attn.{proj}.bias"])
+        _norm(sd, src + "self_attn_layer_norm", dst + "ln1", out)
+        _norm(sd, src + "final_layer_norm", dst + "ln2", out)
+        _linear(sd, src + "fc1", dst + "ffn1", out)
+        _linear(sd, src + "fc2", dst + "ffn2", out)
+    return {k: v.contiguous() for k, v in out.items()}
 
 
 def convert_fairseq_seq2seq_decoder(sd, cfg):

@@ -135,8 +135,7 @@ class _DecoderLayer(nn.Module):
 
 
 def _proj(x, attn, name):
-    return (torch.matmul(x, getattr(attn, "w" + name).to(x.dtype))
-            + getattr(attn, "b" + name).to(x.dtype))
+    return attn._mm(x, "w" + name) + getattr(attn, "b" + name).to(x.dtype)
 
 
 class FairseqTransformerDecoder(nn.Module):
@@ -235,10 +234,10 @@ class FairseqTransformerDecoder(nn.Module):
         the cross-attention ``k_cross``/``v_cross`` (B, S, D), computed here
         once; ``enc_mask`` (B, S), True = padding, or None."""
         rows = encoder_out.shape[0] * beam
-        d = self.cfg.embed_dim
         layers = []
         for layer in self.layers:
-            ring = encoder_out.new_zeros(rows, max_len, d)
+            ring = encoder_out.new_zeros(rows, max_len,
+                                         layer.self_attn.d_model)
             layers.append({
                 "k_self": ring, "v_self": torch.zeros_like(ring),
                 "k_cross": _proj(encoder_out, layer.encoder_attn, "k"),
@@ -257,13 +256,13 @@ class FairseqTransformerDecoder(nn.Module):
                   for lc in cache["layers"]]
         return dict(cache, layers=layers)
 
-    def _attend(self, q, k, v, mask=None):
+    def _attend(self, attn, q, k, v, mask=None):
         """q (N, D) over k, v (B, L, D), N = B·g: each group of g rows
-        attends to its own row of k and v; ``mask`` (B, L) True = masked
-        (an all-masked row gives NaN, as in the JAX step)."""
-        h = self.cfg.num_heads
+        attends to its own row of k and v, with the heads of ``attn`` (its
+        own under tensor parallelism); ``mask`` (B, L) True = masked (an
+        all-masked row gives NaN, as in the JAX step)."""
+        h, dh = attn.nhead, attn.head_dim
         b, n = k.shape[0], q.shape[0]
-        dh = self.cfg.embed_dim // h
         qh = q.reshape(b, n // b, h, dh)
         kh = k.reshape(b, -1, h, dh)
         vh = v.reshape(b, -1, h, dh)
@@ -286,13 +285,13 @@ class FairseqTransformerDecoder(nn.Module):
             def self_attn(h, lc=lc, attn=layer.self_attn):
                 lc["k_self"][:, t] = _proj(h, attn, "k")
                 lc["v_self"][:, t] = _proj(h, attn, "v")
-                o = self._attend(_proj(h, attn, "q"),
+                o = self._attend(attn, _proj(h, attn, "q"),
                                  lc["k_self"][:, :t + 1],
                                  lc["v_self"][:, :t + 1])
                 return _proj(o, attn, "o")
 
             def cross_attn(h, lc=lc, attn=layer.encoder_attn):
-                o = self._attend(_proj(h, attn, "q"), lc["k_cross"],
+                o = self._attend(attn, _proj(h, attn, "q"), lc["k_cross"],
                                  lc["v_cross"], mask=cache["enc_mask"])
                 return _proj(o, attn, "o")
 

@@ -32,8 +32,14 @@ through the bridge, as the reference bridge picks them):
   in training the whole-batch norms over the real rows (``row_mask``), and
   the bridge's ``freeze`` / ``freeze_feature_extractor``.
 
-Activation sharding (``act_sharding``) is not ported yet and raises
-``NotImplementedError`` (ROADMAP.md queue 1 item 16).
+``act_sharding`` (a mesh axis name, or None, per activation axis) runs the
+layers sequence-parallel over the mesh axis it names for the frames, on the
+active mesh (``parallel.mesh.use_mesh``), where the JAX layer constrains
+its output's sharding: each rank holds its slice of the frames between
+layers and runs the norms, the feed-forward block and the residuals on it,
+and the attention gathers the whole sequence (``parallel.mesh.
+SequenceShards``). The numbers are those of the unsharded run; without an
+active mesh it raises, as ``with_sharding_constraint`` does.
 """
 from __future__ import annotations
 
@@ -54,7 +60,7 @@ from svt_speechbrain_tpu_torch.nnet.dropout import dropout
 from svt_speechbrain_tpu_torch.nnet.linear import Linear
 from svt_speechbrain_tpu_torch.nnet.normalization import (
     GroupNorm, LayerNorm, global_layer_norm, layer_norm,
-    per_item_masked_layer_norm)
+    per_item_masked_layer_norm, wide)
 from svt_speechbrain_tpu_torch.ops import conv_frontend as cf
 
 # the CI-sized architecture of the JAX package (``wav2vec2.py:50``)
@@ -186,9 +192,11 @@ def normalizes_wav(name):
 
 
 def _check_supported(c: Wav2Vec2Config):
-    if c.act_sharding is not None:
-        raise NotImplementedError(
-            "not ported yet: act_sharding (ROADMAP.md queue 1 item 16)")
+    """Every field of the JAX config has a port; an ``act_sharding`` needs
+    one name (or None) per (B, T, D) axis."""
+    if c.act_sharding is not None and len(c.act_sharding) != 3:
+        raise ValueError(f"act_sharding names the (B, T, D) axes, not "
+                         f"{c.act_sharding!r}")
 
 
 class _ExtractorLayer(nn.Module):
@@ -210,8 +218,8 @@ def _masked_group_norm(gn, x, t_valid):
     g = gn.num_groups
     valid = (torch.arange(t, device=x.device)[None, :]
              < t_valid.to(x.device)[:, None])                    # (B, T)
-    m = valid[:, :, None, None].float()
-    x32 = x.float().reshape(b, t, g, ch // g)
+    x32 = wide(x).reshape(b, t, g, ch // g)
+    m = valid[:, :, None, None].to(x32.dtype)
     count = torch.clamp(m.sum(dim=(1, 3), keepdim=True) * (ch // g), min=1.0)
     mean = (x32 * m).sum(dim=(1, 3), keepdim=True) / count
     var = ((x32 - mean).square() * m).sum(dim=(1, 3), keepdim=True) / count
@@ -304,9 +312,9 @@ class ConvPositionalEmbedding(nn.Module):
         self.b = nn.Parameter(torch.zeros(d))
 
     def forward(self, x):
-        v = self.v.float()
+        v = wide(self.v)
         norm = torch.sqrt(v.square().sum(dim=(0, 1), keepdim=True) + 1e-12)
-        w = (v * (self.g.float() / norm)).to(x.dtype)
+        w = (v * (self.g.to(v.dtype) / norm)).to(x.dtype)
         return fast_gelu(_same_conv(x, w, self.b, self.groups))
 
 
@@ -446,6 +454,37 @@ class WavLMSelfAttention(nn.Module):
         return out.to(x.dtype)
 
 
+def run_layers(layers, c, x, position_bias, kwargs):
+    """The transformer layers over ``x``, each recomputed in the backward
+    pass under ``remat``; under ``act_sharding`` sequence-parallel on the
+    active mesh (``wav2vec2.py:492-497``): ``x`` is cut into each rank's
+    slice of the frames before the first layer and gathered whole after the
+    last, and the layers' parameters and the shared position bias, used on
+    the slices, sum their gradients over the ranks."""
+    rng = kwargs.get("rng")
+    seq = None
+    if c.act_sharding is not None:
+        from svt_speechbrain_tpu_torch.parallel.mesh import sequence_shards
+
+        seq = sequence_shards(c.act_sharding, x.shape[1])
+    if seq is None:
+        for layer in layers:
+            x = (_remat(layer, rng, (x, position_bias), kwargs) if c.remat
+                 else layer(x, position_bias, **kwargs))
+        return x
+    x = seq.scatter(x)
+    if position_bias is not None:
+        position_bias = seq.summed(position_bias)
+    kwargs = dict(kwargs, seq=seq)
+    for layer in layers:
+        tensors = {**{n: seq.summed(p) for n, p in layer.named_parameters()},
+                   **dict(layer.named_buffers())}
+        x = (_remat(layer, rng, (x, position_bias), kwargs, tensors)
+             if c.remat else torch.func.functional_call(
+                 layer, tensors, (x, position_bias), kwargs))
+    return seq.gather(x, partial=False)
+
+
 def _drop(x, rate, rng, train):
     return dropout(x, rate, None if rng is None else rng.device, train)
 
@@ -456,7 +495,10 @@ class TransformerLayer(nn.Module):
     hidden dropout after the attention and FFN outputs, activation dropout
     after the GELU. WavLM layers (``rel_pos_bias``) take the shared
     ``position_bias`` and a ``key_padding_mask``; the others take
-    ``key_lengths``, which keeps the attention kernels available."""
+    ``key_lengths``, which keeps the attention kernels available. With
+    ``seq`` (``parallel.mesh.SequenceShards``) ``x`` is the rank's slice of
+    the frames: the attention runs on the whole sequence, gathered, and
+    keeps the slice of its output; the rest runs on the slice."""
 
     def __init__(self, config: Wav2Vec2Config, layer_index=0):
         super().__init__()
@@ -477,10 +519,13 @@ class TransformerLayer(nn.Module):
         self.ln2 = LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
 
     def forward(self, x, position_bias=None, key_lengths=None, rng=None,
-                train=False, key_padding_mask=None):
+                train=False, key_padding_mask=None, seq=None):
         c = self.config
+        drop = _drop if seq is None else seq.drop
 
         def attn_block(h):
+            if seq is not None:
+                h = seq.gather(h)
             if c.rel_pos_bias:
                 h = self.attn(h, position_bias,
                               key_padding_mask=key_padding_mask, rng=rng,
@@ -488,12 +533,13 @@ class TransformerLayer(nn.Module):
             else:
                 h = self.attn(h, h, h, key_lengths=key_lengths,
                               impl=c.attention_impl, rng=rng, train=train)
-            return _drop(h, c.hidden_dropout, rng, train)
+            h = _drop(h, c.hidden_dropout, rng, train)
+            return h if seq is None else seq.local(h)
 
         def ffn_block(h):
-            h = _drop(fast_gelu(self.ffn1(h)), c.activation_dropout, rng,
-                      train)
-            return _drop(self.ffn2(h), c.hidden_dropout, rng, train)
+            h = drop(fast_gelu(self.ffn1(h)), c.activation_dropout, rng,
+                     train)
+            return drop(self.ffn2(h), c.hidden_dropout, rng, train)
 
         if c.do_stable_layer_norm:                      # pre-LN
             x = x + attn_block(self.ln1(x))
@@ -532,18 +578,21 @@ def _replaying(fn, rng):
     return run
 
 
-def _remat(module, rng, args, kwargs):
+def _remat(module, rng, args, kwargs, tensors=None):
     """``module(*args, **kwargs)`` with its activations recomputed in the
     backward pass instead of kept (``torch.utils.checkpoint``). The
     recomputation runs on the very parameter tensors of the first pass
     (under ``torch.func.functional_call``, as a training step runs, the
     module's attributes are put back before the backward pass), and replays
     the step's generators (``_replaying``); the port draws from no global
-    generator, so checkpoint saves none."""
+    generator, so checkpoint saves none. ``tensors``, when given, are
+    the parameters and buffers to run on instead of the module's."""
     if not torch.is_grad_enabled():
-        return module(*args, **kwargs)
-    tensors = {**dict(module.named_parameters()),
-               **dict(module.named_buffers())}
+        return (module(*args, **kwargs) if tensors is None else
+                torch.func.functional_call(module, tensors, args, kwargs))
+    if tensors is None:
+        tensors = {**dict(module.named_parameters()),
+                   **dict(module.named_buffers())}
 
     def run(*args):
         return torch.func.functional_call(module, tensors, args, kwargs)
@@ -606,9 +655,7 @@ class Wav2Vec2Encoder(nn.Module):
                          if c.rel_pos_bias else None)
         kwargs = dict(key_lengths=key_lengths, rng=rng, train=train,
                       key_padding_mask=key_padding_mask)
-        for layer in self.layers:
-            x = (_remat(layer, rng, (x, position_bias), kwargs) if c.remat
-                 else layer(x, position_bias, **kwargs))
+        x = run_layers(self.layers, c, x, position_bias, kwargs)
         if c.do_stable_layer_norm:
             x = self.encoder_ln(x)
         return x

@@ -173,8 +173,14 @@ class _BatchNorm(nn.Module):
     biased ``var = E[x²] - E[x]²``; the running estimate takes the unbiased
     ``var · n/(n-1)`` by ``(1-m)·old + m·new`` (m = ``momentum``), outside
     autograd. Padded frames count in the statistics, as in the JAX package.
-    In eval the buffers normalize. Cross-replica statistics (``axis_name``,
-    SyncBN) are not ported (ROADMAP.md queue 1 item 16) and raise.
+    In eval the buffers normalize.
+
+    With ``axis_name`` in training the statistics are cross-replica (SyncBN,
+    ``normalization.py:183-197``): the mean and the mean of squares are
+    averaged over the ranks of that dim of the active mesh
+    (``parallel.mesh.use_mesh``), or of the whole process group without
+    one, by an all-reduce with autograd; ``n`` counts every rank's rows, so
+    every rank keeps the same running statistics.
 
     Example
     -------
@@ -199,16 +205,17 @@ class _BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(input_size))
 
     def forward(self, x, train=False, axis_name=None):
-        if axis_name is not None:
-            raise NotImplementedError(
-                "cross-replica batch statistics (SyncBN) are not ported yet "
-                "(ROADMAP.md queue 1 item 16)")
         x32 = wide(x)
         if train:
             dims = tuple(range(x.dim() - 1))
             mean = x32.mean(dim=dims)
-            var = x32.square().mean(dim=dims) - mean.square()
+            mean_sq = x32.square().mean(dim=dims)
             n = x32.numel() // x32.shape[-1]
+            if axis_name is not None:
+                mean, mean_sq, replicas = _cross_replica_mean(
+                    mean, mean_sq, axis_name)
+                n *= replicas
+            var = mean_sq - mean.square()
             m = self.momentum
             with torch.no_grad():
                 self.mean.copy_((1 - m) * self.mean + m * mean)
@@ -220,6 +227,24 @@ class _BatchNorm(nn.Module):
         if self.affine:
             y = y * self.scale + self.bias
         return y.to(x.dtype)
+
+
+def _cross_replica_mean(mean, mean_sq, axis_name):
+    """(mean, mean of squares) averaged over the replicas of ``axis_name``
+    (a dim of the active mesh, or the whole process group), with autograd;
+    and the number of replicas."""
+    import torch.distributed as dist
+    from torch.distributed.nn.functional import all_reduce
+
+    from svt_speechbrain_tpu_torch.parallel.mesh import active_mesh
+
+    mesh = active_mesh()
+    group = (mesh.get_group(axis_name) if mesh is not None
+             and axis_name in (mesh.mesh_dim_names or ()) else
+             dist.group.WORLD)
+    replicas = dist.get_world_size(group)
+    both = all_reduce(torch.stack([mean, mean_sq]), group=group) / replicas
+    return both[0], both[1], replicas
 
 
 class BatchNorm1d(_BatchNorm):

@@ -26,6 +26,13 @@ Brain's ``model_states`` file fills the modules' BatchNorm statistics. The
 YAML state dicts (counters, schedulers, the loader's position) have the
 port's keys; the JAX brain's PRNG key has no counterpart, so the port's
 generators keep their own streams.
+
+Under a process group every rank saves (``save_checkpoint``,
+``save_and_keep_only``) and recovers: the main process alone writes and
+deletes, and all ranks return the same checkpoint. A recoverable whose
+``collective`` attribute is true (a sharded module's or optimizer's state
+in full, which every rank must help gather) has its ``state_dict()`` taken
+on every rank.
 """
 from __future__ import annotations
 
@@ -37,6 +44,10 @@ import shutil
 import time
 
 import torch
+
+from svt_speechbrain_tpu_torch.parallel.distributed import (_group,
+                                                            ddp_barrier,
+                                                            if_main_process)
 
 logger = logging.getLogger(__name__)
 
@@ -190,17 +201,35 @@ class Checkpointer:
     # ------------------------------------------------------------- saving
     def save_checkpoint(self, meta={}, end_of_epoch=True, name=None,
                         verbosity=logging.INFO):
-        """Save every recoverable, then the meta file (``checkpoints.py:164``)."""
+        """Save every recoverable, then the meta file (``checkpoints.py:164``);
+        on every rank of a process group, the main process writing."""
+        main = if_main_process()
         ckpt_dir = (self._new_checkpoint_dirpath() if name is None
                     else os.path.join(self.checkpoints_dir,
                                       f"{CKPT_PREFIX}+{name}"))
-        os.makedirs(ckpt_dir, exist_ok=True)
+        if main:
+            os.makedirs(ckpt_dir, exist_ok=True)
         paramfiles = {}
         for name_, obj in self.recoverables.items():
             paramfiles[name_] = os.path.join(ckpt_dir, f"{name_}.ckpt")
-            _save_obj(obj, paramfiles[name_])
-        saved_meta = self._save_checkpoint_metafile(
+            if getattr(obj, "collective", False):
+                state = obj.state_dict()
+                if main:
+                    tmp = paramfiles[name_] + ".tmp"
+                    torch.save(state, tmp)
+                    _publish(tmp, paramfiles[name_])
+            elif main:
+                _save_obj(obj, paramfiles[name_])
+        saved_meta = (self._save_checkpoint_metafile(
             os.path.join(ckpt_dir, METAFNAME), meta, end_of_epoch)
+            if main else None)
+        group = _group()
+        if group is not None:     # the main process's name and meta, written
+            box = [(ckpt_dir, saved_meta)]
+            group.broadcast_object_list(box, src=0)
+            ckpt_dir, saved_meta = box[0]
+            paramfiles = {k: os.path.join(ckpt_dir, os.path.basename(v))
+                          for k, v in paramfiles.items()}
         logger.log(verbosity, f"Saved an end-of-epoch checkpoint in {ckpt_dir}"
                    if end_of_epoch
                    else f"Saved an intra-epoch checkpoint in {ckpt_dir}")
@@ -216,10 +245,12 @@ class Checkpointer:
             importance_keys = list(importance_keys) + [ckpt_recency]
         self.save_checkpoint(meta=meta, end_of_epoch=end_of_epoch, name=name,
                              verbosity=verbosity)
-        self.delete_checkpoints(
-            num_to_keep=num_to_keep, max_keys=max_keys, min_keys=min_keys,
-            importance_keys=importance_keys, ckpt_predicate=ckpt_predicate,
-            verbosity=verbosity)
+        if if_main_process():
+            self.delete_checkpoints(
+                num_to_keep=num_to_keep, max_keys=max_keys, min_keys=min_keys,
+                importance_keys=importance_keys,
+                ckpt_predicate=ckpt_predicate, verbosity=verbosity)
+        ddp_barrier()
 
     # ------------------------------------------------------------ finding
     def list_checkpoints(self):

@@ -1,10 +1,13 @@
 """Train loggers (port of ``svt_speechbrain_tpu/utils/train_logger.py``):
 ``FileTrainLogger`` writes one text line per stage end, the same text as the
 JAX package's; ``TensorboardLogger`` and ``WandBLogger`` import their
-package only when built."""
+package only when built. Every rank of a launch calls ``log_stats`` (the
+brain's stage ends run on all of them); the main process alone logs."""
 from __future__ import annotations
 
 import logging
+
+from svt_speechbrain_tpu_torch.parallel.distributed import if_main_process
 
 logger = logging.getLogger(__name__)
 
@@ -48,6 +51,8 @@ class FileTrainLogger(TrainLogger):
 
     def log_stats(self, stats_meta, train_stats=None, valid_stats=None,
                   test_stats=None, verbose=True):
+        if not if_main_process():
+            return
         string_summary = self._stats_to_string(stats_meta)
         for dataset, stats in [("train", train_stats), ("valid", valid_stats),
                                ("test", test_stats)]:
@@ -76,6 +81,8 @@ class TensorboardLogger(TrainLogger):
 
     def log_stats(self, stats_meta, train_stats=None, valid_stats=None,
                   test_stats=None, verbose=False):
+        if not if_main_process():
+            return
         self.global_step["meta"] += 1
         for name, value in stats_meta.items():
             if isinstance(value, (int, float)):
@@ -111,6 +118,8 @@ class WandBLogger(TrainLogger):
 
     def log_stats(self, stats_meta, train_stats=None, valid_stats=None,
                   test_stats=None, verbose=False):
+        if not if_main_process():
+            return
         logs = {}
         for dataset, stats in [("train", train_stats), ("valid", valid_stats),
                                ("test", test_stats)]:

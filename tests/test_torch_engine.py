@@ -397,10 +397,19 @@ def test_yaml_equals_the_python_hparams_of_chip_smoke(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--fsdp"], "--fsdp"), (["--jit_module_keys", "wav2vec2"], "jit"),
+    (["--fsdp"], None), (["--jit_module_keys", "wav2vec2"], "jit"),
     (["--distributed_backend", "ici"], "ici"),
-    (["--data_parallel_count", "4"], "item 16")])
-def test_command_line_refuses_the_tpu_flags(argv, message, capsys):
+    (["--data_parallel_count", "4"], "torchrun --nproc_per_node 4")])
+def test_command_line_refuses_the_tpu_flags(argv, message, capsys,
+                                            monkeypatch):
+    """The XLA and TPU-interconnect flags are refused; ``--fsdp`` parses
+    into the run options; a data-parallel count without a launch of that
+    many processes names ``torchrun``."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    if message is None:
+        _, run_opts, _ = core.parse_arguments(["h.yaml"] + argv)
+        assert run_opts["fsdp"] is True
+        return
     with pytest.raises(SystemExit):
         core.parse_arguments(["h.yaml"] + argv)
     assert message in capsys.readouterr().err
@@ -416,12 +425,20 @@ def test_command_line_defaults_to_cuda_and_passes_overrides():
 
 
 def test_one_process_only(monkeypatch):
+    """One process needs no group; a launch of two whose group cannot be
+    set up (no ``MASTER_ADDR``) raises the init error instead of training
+    one process on its part of the data."""
     monkeypatch.setenv("WORLD_SIZE", "1")
     assert distributed.ddp_init_group({}) is None
     assert distributed.if_main_process()
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        distributed.ddp_init_group({"distributed_launch": True})
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(RuntimeError, match="gloo process group failed"):
+        distributed.ddp_init_group({"distributed_launch": True,
+                                    "device": "cpu"})
+    import torch.distributed as dist
+    assert not dist.is_initialized()
 
 
 def test_evaluate_batch_brings_predictions_home_in_one_copy():

@@ -290,6 +290,89 @@ def test_separation_speaker_enhancement_slice_runs_without_loading_jax():
     assert "LOADED []" in res.stdout, res.stdout
 
 
+_PRETRAIN_PARALLEL_PROBE = """
+import sys
+import numpy as np
+import torch
+from svt_speechbrain_tpu_torch.convert_jax import init_modules
+from svt_speechbrain_tpu_torch.models import avhubert, convert_fairseq
+from svt_speechbrain_tpu_torch.models.wav2vec2 import TINY_ARCH, Wav2Vec2Config
+from svt_speechbrain_tpu_torch.models.wav2vec2_pretrain import (
+    HuggingFaceWav2Vec2Pretrain, Wav2Vec2Pretrain)
+from svt_speechbrain_tpu_torch.nnet.dropout import StepRNG
+from svt_speechbrain_tpu_torch.parallel import (distributed, fsdp, mesh,
+                                                pipeline, tp)
+from svt_speechbrain_tpu_torch.utils import orbax_checkpoints
+from svt_speechbrain_tpu_torch.dataio.sampler import DistributedSamplerWrapper
+model = Wav2Vec2Pretrain(Wav2Vec2Config(**TINY_ARCH), codevector_dim=16,
+                         num_negatives=4)
+init_modules({"model": model}, 0)
+mask, negs = model.sample_masks(2, 49, np.random.default_rng(0))
+opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+rng = StepRNG(torch.Generator().manual_seed(0), torch.Generator().manual_seed(0))
+loss, aux = model(torch.randn(2, 16000), mask, negs, rng=rng, train=True)
+loss.backward()
+opt.step()
+assert np.isfinite(loss.item()) and len(aux) == 3
+cfg = avhubert.AVHubertConfig(encoder_layers=1, encoder_embed_dim=16,
+                              encoder_ffn_embed_dim=32,
+                              encoder_attention_heads=4, audio_feat_dim=10,
+                              conv_pos=8, conv_pos_groups=2)
+av = avhubert.AVHubertPretrain(cfg, num_classes=5, final_dim=8)
+init_modules({"av": av}, 0)
+loss, _ = av({"audio": torch.randn(2, 20, 10)},
+             torch.zeros(2, 20, dtype=torch.long), av.sample_masks(2, 20))
+assert np.isfinite(loss.item())
+assert list(DistributedSamplerWrapper(range(5), 1, 2)) == [1, 3, 0]
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "svt_speechbrain_tpu" or m.startswith("svt_speechbrain_tpu."))
+print("LOADED", bad)
+"""
+
+
+def test_pretraining_and_parallel_modules_run_without_loading_jax():
+    """The pretraining models and the parallel layer import, and a TINY
+    ``Wav2Vec2Pretrain`` Adam step and an ``AVHubertPretrain`` forward run
+    on the CPU, without loading JAX or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    res = subprocess.run([sys.executable, "-c", _PRETRAIN_PARALLEL_PROBE],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "LOADED []" in res.stdout, res.stdout
+
+
+def _public_names(path):
+    """Top-level public classes, functions and assignments of a file, read
+    with ``ast`` (no import)."""
+    import ast
+
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.ClassDef, ast.FunctionDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("rel", [
+    "models/wav2vec2_pretrain.py", "models/avhubert.py",
+    "models/convert_fairseq.py", "parallel/distributed.py",
+    "parallel/mesh.py", "parallel/fsdp.py", "parallel/tp.py",
+    "parallel/pipeline.py", "utils/orbax_checkpoints.py",
+    "dataio/sampler.py"])
+def test_public_names_of_the_pretraining_and_parallel_modules(rel):
+    """Every public name of the JAX modules of SSL pretraining and of
+    parallelism beyond one device exists in the port's module."""
+    want = _public_names(REPO / "svt_speechbrain_tpu" / rel)
+    got = _public_names(PORT / rel)
+    assert sorted(want - got) == []
+
+
 _IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|svt_speechbrain_tpu)"
     r"(?![\w])", re.MULTILINE)

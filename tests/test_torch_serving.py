@@ -520,10 +520,12 @@ def test_convert_hf_fills_the_encoder_like_jax(weight_norm_names):
 
 
 def test_convert_hf_refuses_families_the_port_does_not_run(tmp_path):
-    """Every family converts now; only activation sharding is refused."""
-    with pytest.raises(NotImplementedError, match="act_sharding"):
+    """Every family converts, activation sharding too; only an
+    ``act_sharding`` that does not name the three activation axes is
+    refused."""
+    with pytest.raises(ValueError, match="act_sharding"):
         convert_hf.convert_wav2vec2_state_dict(
-            {}, Wav2Vec2Config(act_sharding=("data", None, None)))
+            {}, Wav2Vec2Config(act_sharding=("data", None)))
     base = {"hidden_size": 64, "num_hidden_layers": 1,
             "num_attention_heads": 4, "intermediate_size": 128,
             "conv_dim": [32] * 7, "conv_kernel": [10, 3, 3, 3, 3, 2, 2],

@@ -179,9 +179,21 @@ def test_batchnorm_statistics_are_buffers_outside_autograd():
     x = torch.randn(2, 4, 4, 3, requires_grad=True)
     bn(x, train=True).sum().backward()
     assert not bn.mean.requires_grad and x.grad is not None
-    bn.to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="SyncBN"):
+    # cross-replica statistics (SyncBN): they need a process group, and
+    # over one rank they are the batch's own
+    with pytest.raises((RuntimeError, ValueError)):
         bn(x, train=True, axis_name="data")
+    import torch.distributed as dist
+    plain = normalization.BatchNorm2d(3)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        synced = normalization.BatchNorm2d(3)
+        torch.testing.assert_close(synced(x, train=True, axis_name="data"),
+                                   plain(x, train=True), rtol=0, atol=0)
+        torch.testing.assert_close(synced.var, plain.var, rtol=0, atol=0)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("n", [1, 6])

@@ -128,14 +128,16 @@ def test_load_is_strict():
     dict(feat_extract_norm="group"), dict(do_stable_layer_norm=False),
     dict(pos_conv_type="stacked"), dict(rel_pos_bias=True), dict(remat=True)])
 def test_unported_variants_raise(override):
-    """Each variant the port once refused now builds and serves; only
-    activation sharding (ROADMAP.md queue 1 item 16) still raises, on top
-    of any of them."""
+    """Each variant the port once refused now builds and serves, and so
+    does activation sharding on top of any of them, which raises only when
+    it runs outside a device mesh, as the JAX sharding constraint does."""
     bridge = HuggingFaceWav2Vec2(config=Wav2Vec2Config(**TINY_ARCH,
                                                        **override)).eval()
     with torch.no_grad():
         out = bridge(torch.ones(2, 3200))
     assert out.shape == (2, 9, TINY_ARCH["hidden_size"])
-    with pytest.raises(NotImplementedError, match="act_sharding"):
-        HuggingFaceWav2Vec2(config=Wav2Vec2Config(
-            **TINY_ARCH, **override, act_sharding=("data", None, None)))
+    sharded = HuggingFaceWav2Vec2(config=Wav2Vec2Config(
+        **TINY_ARCH, **override, act_sharding=("data", "seq", None))).eval()
+    with pytest.raises(RuntimeError, match="active device mesh"), \
+            torch.no_grad():
+        sharded(torch.ones(2, 3200))

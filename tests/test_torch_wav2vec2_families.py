@@ -428,14 +428,20 @@ def test_seeded_tree_has_the_jax_structure(family):
 
 
 def test_act_sharding_alone_is_refused():
+    """Every family builds with activation sharding; outside a device mesh
+    its forward raises, as the JAX sharding constraint does."""
     for make in ("base", "data2vec_audio_large", "wavlm_large"):
         cfg = dataclasses.replace(getattr(w2v.Wav2Vec2Config, make)(),
                                   **w2v.TINY_ARCH,
                                   act_sharding=("data", None, None))
-        with pytest.raises(NotImplementedError, match="act_sharding"):
-            w2v.HuggingFaceWav2Vec2(config=cfg)
-        with pytest.raises(NotImplementedError, match="act_sharding"):
-            w2v.Wav2Vec2Encoder(cfg)
+        bridge = w2v.HuggingFaceWav2Vec2(config=cfg).eval()
+        encoder = w2v.Wav2Vec2Encoder(cfg)
+        with pytest.raises(RuntimeError, match="active device mesh"), \
+                torch.no_grad():
+            bridge(torch.ones(1, 3200))
+        with pytest.raises(RuntimeError, match="active device mesh"), \
+                torch.no_grad():
+            encoder(torch.ones(1, 3200), False)
 
 
 def test_wavlm_attention_never_reaches_the_kernels(monkeypatch):
