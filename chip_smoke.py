@@ -15,11 +15,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel the clusters of each size resident on the card);
 2. hold each kernel against its plain PyTorch version at main-path shapes,
    in bf16 and in f32 (TF32 off); the frontend at wav (8, 80000), at the
-   30 s song window (1, 480000) and on a (3, 16123) view one sample into
-   its storage; the short attention also at the video recipe's evaluation
-   shapes (1, 16, T, 64), T 250-400, every frame attended
-   (``lengths=None``), and the int8 kernel at int8 AV-HuBERT's shapes for
-   T 250 (post_extract_proj's (250, 2048, 1024) among them);
+   30 s song window (1, 480000), at phase 26's pretraining batch, at
+   phase 27's 10 s segmentation recording (1, 160000) and on a (3, 16123)
+   view one sample into its storage; the short attention also at the
+   segmentation's (1, 16, 499, 64) with key length 499 and at the video
+   recipe's evaluation shapes (1, 16, T, 64), T 250-400, every frame
+   attended (``lengths=None``), and the int8 kernel at int8 AV-HuBERT's
+   shapes for T 250 (post_extract_proj's (250, 2048, 1024) among them);
 3. serve wav2vec2-large-lv60 AMT (24 layers, 1024 wide, 16 heads, seeded
    random weights) through ``BatchedAMTTranscriber`` at 5 s chunks, batch 8,
    bf16, on synthetic songs, counting kernel launches; and compare one
@@ -288,11 +290,49 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    2 lv60-width and 2 AV-HuBERT-width layers card vs CPU on the same Gumbel
    noise, every leaf within 1e-9.
 
+27. the serving interfaces and back-ends (``interfaces_phase``), every
+   model on seeded weights carried through ``convert_jax``: (a)
+   ``EncoderASR`` over wav2vec2-large-lv60 at full width and depth with a
+   ``Linear(1024, 1000)`` CTC head and a log-softmax, greedy decoding
+   (blank 0) and a 1000-piece unigram tokenizer written by
+   ``spm_proto.write_model``, read by ``from_hparams`` from an export
+   folder the phase writes (the port's
+   ``pretrained/hparams/encoder_asr_lv60.yaml``, ``encoder.pt``,
+   ``tokenizer.model``): ``transcribe_batch`` on 8 rows of 3-5 s padded
+   to 5 s (a warm-up and 3 timed, 7 launches of row 1 and 24 of row 2 a
+   batch asserted; ms, RTFx, every kernel launch, busy share,
+   peak memory), ``transcribe_file`` on a 5 s WAV, and ``CTCSegmentation``
+   of 4 texts in one 10 s recording (T 499: 7 + 24 launches asserted);
+   (b) ``EncoderDecoderASR`` over phase 23's conformer-small-librispeech
+   (``TransformerASREncoder``: Fbank, the settled global normalization,
+   the frontend, the conformer) with ``S2STransformerBeamSearch`` at beam
+   10, CTC weight 0.4 and a 5000-piece unigram tokenizer, batch 4 x 5 s,
+   the decode capped at ``E2E_STEPS`` (seeded weights never emit EOS); (c)
+   ``VAD`` at vad-crdnn-libriparty's widths (Fbank 40, global
+   normalization, CRDNN of 2 CNN blocks of 16, 2 bidirectional GRU layers
+   of 32, a DNN block of 16, ``Linear(16, 1)``, 10 ms) on one 60 s
+   recording of noise bursts: ``get_speech_segments`` with the double
+   check, the normalization's statistics asserted bit for bit as loaded;
+   (d) ``DelaySum_Beamformer``, ``Covariance``, ``GccPhat``, ``DelaySum``,
+   ``Mvdr``, ``Gev`` (``gevd`` on cuSOLVER; its share of ``Gev``),
+   ``SrpPhat`` and ``Music`` over ``sphere()`` on 4 mics x 4 x 10 s over
+   one STFT; (e) ECAPA-TDNN (phase 25's widths) embeddings of 1.5 s
+   windows of a 60 s three-source recording, ``Spec_Clust_unorm`` and
+   ``do_spec_clustering`` on the host, an RTTM written; (b)-(e) reach no
+   ``csrc/`` kernel (asserted); (f) the card against the CPU in f64, every
+   reading within 1e-9: a 2-layer lv60-width CTC encoder's
+   log-posteriors through ``EncoderASR.encode_batch`` (the bridge's
+   ``fused_frontend=False``), (b)'s encoder states, (c)'s posteriors, (d)'s
+   ``DelaySum``/``Mvdr`` outputs, ``Gev``'s magnitude and ``gevd``'s
+   eigenvalues, ``SrpPhat``'s and ``Music``'s directions equal, and
+   ``HMMAligner``'s forward and Viterbi scores on phase 22's CRDNN
+   posteriors, its Viterbi alignments equal.
+
 A card-vs-CPU reading that is not finite (a NaN or an inf on either side)
 fails its check.
 
 Phases run in the order 1-5, 8, 9, 6, 7, 10-15, 19, 17, 18, 16, 20, 21,
-22, 23, 24, 25, 26.
+22, 23, 24, 25, 26, 27.
 
 Phases 2 and 5 also hold and time the two RNN-T kernels (the lattice on
 alpha and on beta panels, the gradient) against their plain versions at the
@@ -347,7 +387,7 @@ from svt_speechbrain_tpu_torch.convert_jax import (  # noqa: E402
 from svt_speechbrain_tpu_torch.decoders import (  # noqa: E402
     FairseqSequenceGenerator, TransducerBeamSearcher)
 from svt_speechbrain_tpu_torch.models.wav2vec2 import (  # noqa: E402
-    HuggingFaceWav2Vec2, Wav2Vec2Config)
+    HuggingFaceWav2Vec2, Wav2Vec2CTCEncoder, Wav2Vec2Config)
 from svt_speechbrain_tpu_torch.nnet import losses  # noqa: E402
 from svt_speechbrain_tpu_torch.nnet.activations import Softmax  # noqa: E402
 from svt_speechbrain_tpu_torch.nnet.embedding import Embedding  # noqa: E402
@@ -407,7 +447,7 @@ from svt_speechbrain_tpu_torch.models.convolution import (  # noqa: E402
     ConvolutionFrontEnd)
 from svt_speechbrain_tpu_torch.models.rnnlm import RNNLM  # noqa: E402
 from svt_speechbrain_tpu_torch.models.transformer_asr import (  # noqa: E402
-    TransformerASR, TransformerLM)
+    TransformerASR, TransformerASREncoder, TransformerLM)
 from svt_speechbrain_tpu_torch.processing import (  # noqa: E402
     speech_augmentation as augmentation)
 from svt_speechbrain_tpu_torch.models.separation import (  # noqa: E402
@@ -429,12 +469,24 @@ from svt_speechbrain_tpu_torch.nnet.complex_networks import (  # noqa: E402
 from svt_speechbrain_tpu_torch.nnet.quaternion_networks import (  # noqa: E402
     QBatchNorm, QConv1d, QConv2d, QLinear, QLiGRU, QLSTM, QRNN)
 from svt_speechbrain_tpu_torch.pretrained.interfaces import (  # noqa: E402
-    EncoderClassifier, SepformerSeparation, SpeakerRecognition,
-    SpectralMaskEnhancement)
+    VAD, EncoderASR, EncoderClassifier, EncoderDecoderASR,
+    SepformerSeparation, SpeakerRecognition, SpectralMaskEnhancement)
 from svt_speechbrain_tpu_torch.processing.features import (  # noqa: E402
     ISTFT, STFT, spectral_magnitude)
 from svt_speechbrain_tpu_torch.processing.signal_processing import (  # noqa: E402
     resynthesize)
+from svt_speechbrain_tpu_torch.alignment.aligner import HMMAligner  # noqa: E402
+from svt_speechbrain_tpu_torch.alignment.ctc_segmentation import (  # noqa: E402
+    CTCSegmentation)
+from svt_speechbrain_tpu_torch.models.beamform_multimic import (  # noqa: E402
+    DelaySum_Beamformer)
+from svt_speechbrain_tpu_torch.nnet.containers import Sequential  # noqa: E402
+from svt_speechbrain_tpu_torch.processing import (  # noqa: E402
+    decomposition, diarization)
+from svt_speechbrain_tpu_torch.processing.multi_mic import (  # noqa: E402
+    Covariance, DelaySum, GccPhat, Gev, Music, Mvdr, SrpPhat)
+from svt_speechbrain_tpu_torch.tokenizers import (  # noqa: E402
+    spm_lite, spm_proto)
 
 SEED = 0
 SR = 16000
@@ -822,7 +874,7 @@ def check_attention(name, wrapper, shape, lengths, gen, errs):
         if not ok:
             raise AssertionError(f"{name} {tag} disagrees with its plain "
                                  f"version")
-        errs[(name, tag)] = err
+        errs[(name, tag)] = max(err, errs.get((name, tag), 0.0))
 
 
 def check_video_kernels(gen, errs):
@@ -855,17 +907,20 @@ def check_video_kernels(gen, errs):
 
 def frontend_wavs(gen):
     """Phase 2's frontend inputs: chunked serving's batch, the 30 s song
-    window, phase 26's pretraining batch, and a (3, 16123) view one sample
-    into its storage (an odd length at an odd offset: layer 0 takes it as
-    it is)."""
+    window, phase 26's pretraining batch, phase 27's segmentation
+    recording, and a (3, 16123) view one sample into its storage (an odd
+    length at an odd offset: layer 0 takes it as it is)."""
     flat = torch.randn(3 * 16123 + 1, generator=gen, device="cuda")
     pretrain = (PRETRAIN_BATCH, int(PRETRAIN_SECONDS * SR))
+    segment = (1, int(SEGMENT_SECONDS * SR))
     return (("(8, 80000)", torch.randn(8, 80000, generator=gen,
                                        device="cuda")),
             ("(1, 480000)", torch.randn(1, 480000, generator=gen,
                                         device="cuda")),
             (f"{pretrain} (pretraining)",
              torch.randn(pretrain, generator=gen, device="cuda")),
+            (f"{segment} (segmentation)",
+             torch.randn(segment, generator=gen, device="cuda")),
             ("(3, 16123) at offset 1", flat))
 
 
@@ -6344,6 +6399,11 @@ PRETRAIN_BATCH = 4
 PRETRAIN_SECONDS = 25.0
 PRETRAIN_CROP_SECONDS = 20.0
 PRETRAIN_LR = 1e-4
+# phase 27's CTCSegmentation: 4 texts inside one 10 s recording, encoded
+# whole (wav (1, 160000), T 499: the short kernel's last tile band of keys,
+# 449-512; 20 s would give T 999, the eager band). Phase 2 holds rows 1
+# and 2 at these shapes.
+SEGMENT_SECONDS = 10.0
 # AV-HuBERT large pretraining (audio + video, concat), the JAX
 # ``AVHubertPretrain`` defaults: 500 clusters, final_dim 256, logit
 # temperature 0.1, mask 0.8 x 10; batch 2 of 6 s at 25 fps, 88 x 88 crops
@@ -6726,6 +6786,660 @@ def pretrain_phase(rng):
     return counts, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the serving interfaces and the back-ends of ROADMAP.md item 20.
+
+# (a) wav2vec2-large-lv60 CTC serving through EncoderASR: a Linear(1024 ->
+# 1000) head with a log-softmax over a 1000-piece unigram tokenizer, blank
+# 0, decoded greedily (the shape of SpeechBrain's wav2vec2 EncoderASR
+# models, their DNN between encoder and head left out); batch 8 of 3-5 s
+# rows padded to 5 s (T 249: the short attention kernel), f32
+ENCODER_ASR_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "svt_speechbrain_tpu_torch", "pretrained",
+                                "hparams", "encoder_asr_lv60.yaml")
+CTC_VOCAB = 1000
+CTC_BLANK = 0
+CTC_SECONDS = (5.0, 4.7, 4.4, 4.1, 3.8, 3.5, 3.2, 3.0)
+# CTCSegmentation's recording (``SEGMENT_SECONDS``, beside phase 26's
+# constants, since phase 2 holds the kernels at its shapes too)
+SEGMENT_TEXTS = ["the cat sat on the mat", "a quiet morning by the sea",
+                 "seven green birds flew home", "and then the rain came"]
+# (b) conformer-small-librispeech through EncoderDecoderASR: phase 23's
+# assembly (its Transformer LM left out), S2STransformerBeamSearch at beam
+# 10 and CTC weight 0.4 over a 5000-piece unigram tokenizer, batch 4 x 5 s
+# (126 encoder frames). Seeded weights never emit EOS, so the decode is
+# capped here at E2E_STEPS steps (max_decode_ratio (steps + 0.5) / frames)
+E2E_BATCH, E2E_SECONDS, E2E_STEPS = 4, 5.0, 24
+# (c) vad-crdnn-libriparty: Fbank 40, global input normalization, a CRDNN
+# of 2 CNN blocks of (16, 16) channels, 3 x 3 kernels, no time pooling, 2
+# bidirectional GRU layers of 32, 1 DNN block of 16, Linear(16 -> 1); 10
+# ms posteriors; one 60 s recording of noise bursts and silences
+VAD_ARCH = dict(input_size=40, cnn_blocks=2, cnn_channels=(16, 16),
+                cnn_kernelsize=(3, 3), time_pooling=False, rnn_class="gru",
+                rnn_layers=2, rnn_neurons=32, rnn_bidirectional=True,
+                dnn_blocks=1, dnn_neurons=16, dropout=0.15)
+VAD_SECONDS = 60.0
+VAD_RESOLUTION = 0.01
+# (d) 4 mics on a 10 cm square, batch 4 of 10 s at 16 kHz, one STFT
+# (n_fft 400: 201 bins, 1001 frames); a source at MIC_DOA plus
+# uncorrelated noise, the first second noise only (the noise covariance's
+# frames)
+MICS = np.array([[-0.05, -0.05, 0.0], [-0.05, 0.05, 0.0],
+                 [0.05, 0.05, 0.0], [0.05, -0.05, 0.0]], np.float32)
+MIC_DOA = np.array([0.6, 0.64, 0.48], np.float32)
+MIC_BATCH, MIC_SECONDS, MIC_NOISE_SECONDS = 4, 10.0, 1.0
+# (e) diarization: ECAPA-TDNN at phase 25's widths, embeddings of 1.5 s
+# windows every 0.75 s of a 60 s recording of three synthetic sources
+DIAR_SECONDS, DIAR_WINDOW, DIAR_HOP = 60.0, 1.5, 0.75
+# (f) card against the CPU in f64: every reading within 1e-9 (of the
+# output's peak for the log-posteriors, states, beamformer outputs and
+# posteriors; of each value for the eigenvalues and the DP scores); the
+# Viterbi alignments and the localizers' directions equal
+TOL_F64 = 1e-9
+
+
+def seeded_unigram(path, n_pieces, seed):
+    """A ``n_pieces`` unigram SentencePiece model written by
+    ``spm_proto.write_model`` from a seeded piece list (<unk>, the word
+    marker, every letter alone and after the marker, then seeded letter
+    strings with seeded log-probabilities) to ``path``; returns it loaded
+    by ``spm_lite``."""
+    rng = np.random.default_rng(seed)
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    pieces = [("<unk>", 0.0, 2), ("▁", -4.0, 1)]
+    pieces += [(c, -8.0, 1) for c in letters]
+    pieces += [("▁" + c, -6.0, 1) for c in letters]
+    seen = {p[0] for p in pieces}
+    while len(pieces) < n_pieces:
+        word = "".join(rng.choice(letters, int(rng.integers(2, 7))))
+        word = ("▁" if rng.random() < 0.5 else "") + word
+        if word not in seen:
+            seen.add(word)
+            pieces.append((word, float(np.float32(-rng.uniform(5, 15))), 1))
+    with open(path, "wb") as f:
+        f.write(spm_proto.write_model(pieces, model_type="unigram", unk_id=0,
+                                      vocab_size=n_pieces))
+    tok = spm_lite.SentencePieceProcessor()
+    tok.load(path)
+    return tok
+
+
+def ctc_encoder(arch=None, vocab=CTC_VOCAB):
+    """lv60 (with ``arch`` over its config) → Linear(hidden → vocab) →
+    log-softmax, unseeded."""
+    config = Wav2Vec2Config.large_lv60()
+    if arch:
+        config = dataclasses.replace(config, **arch)
+    return Wav2Vec2CTCEncoder(
+        HuggingFaceWav2Vec2(config=config, normalize_wav=True),
+        Linear(vocab, config.hidden_size))
+
+
+def write_encoder_asr_export(folder, encoder, vocab, seed):
+    """An export folder that ``EncoderASR.from_hparams`` reads: the
+    inference yaml (``pretrained/hparams/encoder_asr_lv60.yaml``),
+    ``encoder.pt`` and ``tokenizer.model``; returns the tokenizer."""
+    os.makedirs(folder, exist_ok=True)
+    shutil.copy(ENCODER_ASR_YAML, os.path.join(folder, "hyperparams.yaml"))
+    torch.save(encoder.state_dict(), os.path.join(folder, "encoder.pt"))
+    return seeded_unigram(os.path.join(folder, "tokenizer.model"), vocab,
+                          seed)
+
+
+def vad_modules(arch=VAD_ARCH):
+    """The VAD's modules, unseeded."""
+    return {"compute_features": Fbank(n_mels=arch["input_size"]),
+            "mean_var_norm": InputNormalization(norm_type="global"),
+            "model": Sequential(CRDNN(**arch),
+                                Linear(1, arch["dnn_neurons"]))}
+
+
+def vad_recording(rng, seconds, sr=SR):
+    """One row of noise bursts (0.4-3 s, amplitude 0.05-0.3) between
+    silences (0.2-2 s of noise at 1e-3)."""
+    n = int(seconds * sr)
+    wav = 1e-3 * rng.standard_normal(n)
+    t = int(rng.uniform(0.2, 2.0) * sr)
+    while t < n:
+        k = min(int(rng.uniform(0.4, 3.0) * sr), n - t)
+        wav[t:t + k] += rng.uniform(0.05, 0.3) * rng.standard_normal(k)
+        t += k + int(rng.uniform(0.2, 2.0) * sr)
+    return wav[None].astype(np.float32)
+
+
+def settle_norm(norm, features, wav):
+    """Give a global ``InputNormalization`` the statistics of one training
+    batch (its first update), as a trained model holds them."""
+    with torch.no_grad():
+        norm(features(wav), torch.ones(wav.shape[0]), train=True)
+
+
+def seeded_vad(seed, arch=VAD_ARCH, device="cuda"):
+    """The VAD interface on seeded modules: the statistics of one seeded
+    training batch, and the output layer rescaled so that the logits of
+    that batch have median 0 and spread 4 (random weights give posteriors
+    in a narrow band about one value). Returns it and its parameter
+    count."""
+    rng = np.random.default_rng(seed)
+    modules, n_params = _seeded(vad_modules(arch), seed)
+    wav = torch.from_numpy(vad_recording(rng, 4.0))
+    settle_norm(modules["mean_var_norm"], modules["compute_features"], wav)
+    with torch.no_grad():
+        feats = modules["mean_var_norm"](modules["compute_features"](wav),
+                                         train=False)
+        logits = modules["model"](feats)
+        out = modules["model"][1]
+        scale = 4.0 / logits.std()
+        out.w *= scale
+        out.b.copy_((out.b - logits.median()) * scale)
+    vad = VAD(modules=modules, hparams={"sample_rate": SR,
+                                        "time_resolution": VAD_RESOLUTION},
+              device=device)
+    return vad, n_params
+
+
+def multimic_recording(rng, batch=MIC_BATCH, seconds=MIC_SECONDS,
+                       noise_seconds=MIC_NOISE_SECONDS, sr=SR):
+    """(batch, samples, 4) f32: a broadband source reaching each mic from
+    ``MIC_DOA``, mic m ahead by ``doas2taus``'s τ_m in whole samples (a
+    mic nearer the source hears it earlier), after ``noise_seconds`` of
+    noise only, plus uncorrelated noise."""
+    n, lead = int(seconds * sr), int(noise_seconds * sr)
+    taus = np.rint((sr / 343.0) * (MICS @ MIC_DOA)).astype(int)
+    pad = int(np.abs(taus).max()) + 1
+    src = rng.standard_normal((batch, n + 2 * pad))
+    src[:, :lead + pad] = 0.0
+    x = np.stack([src[:, pad + t: pad + t + n] for t in taus], axis=-1)
+    x = 0.1 * x + 0.02 * rng.standard_normal(x.shape)
+    return x.astype(np.float32)
+
+
+def multimic_covariances(xs, lead_frames):
+    """The mixture's covariance, the noise's (of the first
+    ``lead_frames`` frames) and the source's (of the rest), each averaged
+    over its frames and held at every frame: (B, T, F, 2, P)."""
+    cov = Covariance()
+    full = cov(xs)
+    nns = cov(xs[:, :lead_frames])[:, :1].expand(full.shape)
+    sss = cov(xs[:, lead_frames:])[:, :1].expand(full.shape)
+    return full, sss, nns
+
+
+def diarization_recording(rng, seconds=DIAR_SECONDS, sr=SR):
+    """Three synthetic sources in turns of 2-6 s, each a harmonic series
+    on its own pitch over noise of its own colour; returns the wav
+    (samples,) and the turns [(start s, end s, source)]."""
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    wav = np.zeros(n)
+    turns, start, spk = [], 0.0, 0
+    pitches, taps = (110.0, 180.0, 260.0), (1, 3, 7)
+    while start < seconds:
+        end = min(seconds, start + rng.uniform(2.0, 6.0))
+        a, b = int(start * sr), int(end * sr)
+        tone = sum(np.sin(2 * np.pi * pitches[spk] * h * t[a:b]) / h
+                   for h in range(1, 6))
+        noise = np.convolve(rng.standard_normal(b - a),
+                            np.ones(taps[spk]) / taps[spk], mode="same")
+        wav[a:b] = 0.1 * tone + 0.05 * noise
+        turns.append((start, end, spk))
+        start, spk = end, (spk + 1 + int(rng.integers(0, 2))) % 3
+    return wav.astype(np.float32), turns
+
+
+def _peak_err(got, want):
+    """max |got - want| over the peak of |want|, as a ``reading``."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return reading((got - want).abs().max() / want.abs().max())
+
+
+def _rows12(counts):
+    return {k: counts[k] for k in ("conv_frontend", "flash_attention_short")}
+
+
+def encoder_asr_serving(rng, root):
+    """Phase 27 (a): lv60 CTC serving through ``EncoderASR.from_hparams``
+    on an export folder, ``transcribe_file`` and ``CTCSegmentation``.
+    Returns (launches of rows 1 and 2 over one batch and one segmentation
+    call, summary)."""
+    t0 = time.perf_counter()
+    encoder = ctc_encoder()
+    _, n_params = _seeded({"encoder": encoder}, SEED + 130)
+    folder = os.path.join(root, "encoder_asr")
+    tok = write_encoder_asr_export(folder, encoder, CTC_VOCAB, SEED + 131)
+    want_w = encoder.ctc_lin.w.detach().clone()
+    del encoder
+    t1 = time.perf_counter()
+    asr = EncoderASR.from_hparams(folder, savedir=os.path.join(
+        folder, "collected"), device="cuda")
+    load_s = time.perf_counter() - t1
+    if not torch.equal(asr.mods.encoder.ctc_lin.w.cpu(), want_w) or \
+            asr.hparams.tokenizer.pieces != tok.pieces:
+        raise AssertionError("from_hparams did not load the export")
+    log(f"  lv60 CTC: {n_params / 1e6:.2f} M parameters seeded from seed "
+        f"{SEED + 130}; the export written in {t1 - t0:.2f} s and read by "
+        f"from_hparams in {load_s:.2f} s")
+    wav, lens = speech_rows(rng, CTC_SECONDS)
+    asr.transcribe_batch(wav, lens)                            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    walls, per_batch = [], []
+    for _ in range(3):
+        ops.reset_launch_counts()
+        (words, hyps), wall = _timed(lambda: asr.transcribe_batch(wav, lens))
+        walls.append(wall)
+        per_batch.append(ops.launch_counts())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for counts in per_batch:
+        expect_counts(counts, {"conv_frontend": 7,
+                               "flash_attention_short": 24},
+                      "an EncoderASR batch")
+    ms = float(np.median(walls)) * 1e3
+    audio_s = float(lens.sum()) * wav.shape[1] / SR
+    launches = kernel_launches(lambda: asr.transcribe_batch(wav, lens))
+    idle = profile_run(lambda: asr.transcribe_batch(wav, lens))
+    lp = asr.encode_batch(wav, lens)
+    frames = asr.mods.encoder.wav2vec2.config.output_length(wav.shape[1])
+    if tuple(lp.shape) != (len(wav), frames, CTC_VOCAB) or \
+            not bool(torch.isfinite(lp).all()) or \
+            float((lp.exp().sum(-1) - 1).abs().max()) > 1e-4:
+        raise AssertionError(f"log-posteriors {tuple(lp.shape)} are not "
+                             "finite normalized distributions")
+    if len(hyps) != len(wav) or not all(isinstance(w, str) for w in words):
+        raise AssertionError("transcribe_batch gave no hypothesis a row")
+    log(f"  transcribe_batch, {len(wav)} x {CTC_SECONDS[-1]}-"
+        f"{CTC_SECONDS[0]} s: {ms:.2f} ms a batch (median of 3: "
+        f"{[round(w * 1e3, 2) for w in walls]}), RTFx "
+        f"{audio_s / (ms / 1e3):.1f}, launches of rows 1 and 2 a batch "
+        f"{_rows12(per_batch[0])}, {launches} kernel launches a batch, "
+        f"peak {peak:.3f} GiB, tokens a row {[len(h) for h in hyps]}")
+    path = os.path.join(folder, "utt.wav")
+    write_audio(path, 0.1 * rng.standard_normal(int(5 * SR)), SR)
+    asr.transcribe_file(path)                                  # warm-up
+    text, file_s = _timed(lambda: asr.transcribe_file(path))
+    log(f"  transcribe_file on a 5 s WAV: {file_s * 1e3:.2f} ms, "
+        f"{len(text.split())} words")
+
+    seg_wav = speech_rows(rng, [SEGMENT_SECONDS])[0]
+    aligner = CTCSegmentation(asr, blank_id=CTC_BLANK)
+    aligner(seg_wav, SEGMENT_TEXTS)                            # warm-up
+    ops.reset_launch_counts()
+    task, seg_s = _timed(lambda: aligner(seg_wav, SEGMENT_TEXTS,
+                                         name="rec"))
+    seg_counts = ops.launch_counts()
+    expect_counts(seg_counts, {"conv_frontend": 7,
+                               "flash_attention_short": 24},
+                  "a CTCSegmentation call")
+    bounds = [(s, e) for s, e, _ in task.segments]
+    if len(bounds) != len(SEGMENT_TEXTS) or not all(
+            0.0 <= s <= e <= SEGMENT_SECONDS + 0.02 for s, e in bounds):
+        raise AssertionError(f"segments {task.segments}")
+    log(f"  CTCSegmentation of {len(SEGMENT_TEXTS)} texts in one "
+        f"{SEGMENT_SECONDS} s recording: {seg_s * 1e3:.2f} ms, launches of "
+        f"rows 1 and 2 {_rows12(seg_counts)}, segments "
+        f"{[(round(s, 2), round(e, 2)) for s, e in bounds]}")
+    counts = {k: per_batch[0][k] + seg_counts[k]
+              for k in ("conv_frontend", "flash_attention_short")}
+    del asr, aligner, lp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, dict(params_m=n_params / 1e6, load_s=load_s,
+                        batch_ms=ms, rtfx=audio_s / (ms / 1e3),
+                        launches=launches, idle=idle, peak_gb=peak,
+                        file_ms=file_s * 1e3, segmentation_ms=seg_s * 1e3)
+
+
+def conformer_asr_modules(seed, arch=CONFORMER_ARCH, front=CONFORMER_FRONT,
+                          n_mels=CONFORMER_N_MELS, vocab=CONFORMER_VOCAB):
+    """Phase 23's assembly seeded, its normalization settled on a seeded
+    batch: (the ``TransformerASREncoder``, the modules of
+    ``S2STransformerBeamSearch``, the parameter count)."""
+    rng = np.random.default_rng(seed)
+    m, n_params = _seeded(conformer_modules(arch, front, n_mels, vocab,
+                                            augment=False), seed)
+    wav = torch.from_numpy(speech_rows(rng, [4.0, 3.0])[0])
+    settle_norm(m["normalize"], m["compute_features"], wav)
+    encoder = TransformerASREncoder(m["compute_features"], m["normalize"],
+                                    m["front"], m["asr"])
+    return encoder, [m["asr"], m["seq_lin"], m["ctc_lin"]], n_params
+
+
+def conformer_interface(encoder, parts, tok, steps, frames, device,
+                        beam=CONFORMER_BEAM):
+    """``EncoderDecoderASR`` over the encoder and a beam search of at most
+    ``steps`` steps over ``frames`` encoder frames."""
+    searcher = S2STransformerBeamSearch(
+        parts, bos_index=CONFORMER_BOS, eos_index=CONFORMER_EOS,
+        blank_index=CONFORMER_BLANK, min_decode_ratio=0.0,
+        max_decode_ratio=(steps + 0.5) / frames, beam_size=beam,
+        ctc_weight=CONFORMER_DECODE_CTC)
+    return EncoderDecoderASR(modules={"encoder": encoder,
+                                      "decoder": searcher},
+                             hparams={"tokenizer": tok}, device=device)
+
+
+def conformer_frames(samples):
+    """Encoder frames of ``samples``: 10 ms Fbank frames through the
+    frontend's stride-2 blocks."""
+    frames = 1 + samples // int(SR * 0.01)
+    for _ in range(CONFORMER_FRONT["num_blocks"]):
+        frames = (frames - 1) // 2 + 1
+    return frames
+
+
+def encoder_decoder_serving(rng, root):
+    """Phase 27 (b): conformer-small-librispeech through
+    ``EncoderDecoderASR`` on 4 x 5 s."""
+    encoder, parts, n_params = conformer_asr_modules(SEED + 140)
+    tok = seeded_unigram(os.path.join(root, "conformer.model"),
+                         CONFORMER_VOCAB, SEED + 141)
+    frames = conformer_frames(int(E2E_SECONDS * SR))
+    asr = conformer_interface(encoder, parts, tok, E2E_STEPS, frames, "cuda")
+    steps = count_steps(asr.mods.decoder)
+    wav, lens = speech_rows(rng, [E2E_SECONDS * f for f in
+                                  (1.0, 0.9, 0.8, 0.7)][:E2E_BATCH])
+    asr.transcribe_batch(wav, lens)                            # warm-up
+    ops.reset_launch_counts()
+    walls = []
+    for _ in range(2):
+        steps[0] = 0
+        (words, hyps), wall = _timed(lambda: asr.transcribe_batch(wav, lens))
+        walls.append(wall)
+    enc, enc_s = _timed(lambda: asr.encode_batch(wav, lens))
+    if tuple(enc.shape) != (E2E_BATCH, frames, CONFORMER_ARCH["d_model"]) \
+            or not bool(torch.isfinite(enc).all()):
+        raise AssertionError(f"encoder states {tuple(enc.shape)}")
+    if steps[0] != E2E_STEPS or len(hyps) != E2E_BATCH or \
+            not all(isinstance(w, str) for w in words):
+        raise AssertionError(f"{steps[0]} decode steps, {len(hyps)} hyps")
+    _csrc_untouched("EncoderDecoderASR")
+    launches = kernel_launches(lambda: asr.transcribe_batch(wav, lens))
+    idle = profile_run(lambda: asr.transcribe_batch(wav, lens))
+    ms = float(np.median(walls)) * 1e3
+    step_ms = (ms - enc_s * 1e3) / E2E_STEPS
+    log(f"  conformer-small: {n_params / 1e6:.2f} M parameters; "
+        f"transcribe_batch {E2E_BATCH} x {E2E_SECONDS} s, beam "
+        f"{CONFORMER_BEAM}, {E2E_STEPS} steps (the cap), {frames} frames: "
+        f"{ms:.1f} ms a batch ({[round(w * 1e3, 1) for w in walls]}), "
+        f"encode {enc_s * 1e3:.2f} ms, {step_ms:.2f} ms a step, "
+        f"{launches} kernel launches a batch, tokens a row "
+        f"{[len(h) for h in hyps]}")
+    del asr, encoder, parts, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(params_m=n_params / 1e6, batch_ms=ms, steps=E2E_STEPS,
+                step_ms=step_ms, encode_ms=enc_s * 1e3, launches=launches,
+                idle=idle)
+
+
+def vad_serving(rng):
+    """Phase 27 (c): ``VAD.get_speech_segments`` with the double check on
+    one 60 s recording; the normalization's statistics as loaded."""
+    vad, n_params = seeded_vad(SEED + 150)
+    norm = vad.mods.mean_var_norm
+    loaded = {n: b.clone() for n, b in norm.named_buffers()}
+    wav = vad_recording(rng, VAD_SECONDS)
+    vad.get_speech_segments(wav)                               # warm-up
+    ops.reset_launch_counts()
+    bounds, wall = _timed(lambda: vad.get_speech_segments(wav))
+    _csrc_untouched("the VAD")
+    for name, buf in norm.named_buffers():
+        if not torch.equal(buf, loaded[name]):
+            raise AssertionError(f"the VAD moved mean_var_norm.{name}")
+    prob, prob_s = _timed(lambda: vad.get_speech_prob_chunk(wav))
+    launches = kernel_launches(lambda: vad.get_speech_segments(wav))
+    idle = profile_run(lambda: vad.get_speech_segments(wav))
+    if bounds.ndim != 2 or bounds.shape[1] != 2 or not len(bounds):
+        raise AssertionError(f"no speech segments: {bounds}")
+    log(f"  vad-crdnn-libriparty: {n_params} parameters; "
+        f"get_speech_segments with the double check on {VAD_SECONDS} s: "
+        f"{wall * 1e3:.1f} ms, {len(bounds)} segments, posteriors alone "
+        f"{prob_s * 1e3:.2f} ms ({tuple(prob.shape)}), {launches} kernel "
+        f"launches; mean_var_norm's statistics as loaded, bit for bit")
+    return dict(params=n_params, ms=wall * 1e3, segments=len(bounds),
+                prob_ms=prob_s * 1e3, launches=launches, idle=idle)
+
+
+def multimic_serving(rng):
+    """Phase 27 (d): the beamformers and localizers on 4 mics x 4 x 10 s
+    over one STFT; ms of each and gevd's share of Gev."""
+    wav = torch.from_numpy(multimic_recording(rng)).cuda()
+    xs = STFT(sample_rate=SR).cuda()(wav)
+    full, sss, nns = multimic_covariances(xs, int(MIC_NOISE_SECONDS * 100))
+    tdoas = GccPhat()(full)
+    mods = {"DelaySum_Beamformer": (DelaySum_Beamformer(SR).cuda(), (wav,)),
+            "Covariance": (Covariance(), (xs,)),
+            "GccPhat": (GccPhat(), (full,)),
+            "DelaySum": (DelaySum(), (xs, tdoas)),
+            "Mvdr": (Mvdr(), (xs, nns, tdoas)),
+            "Gev": (Gev(), (xs, sss, nns)),
+            "SrpPhat": (SrpPhat(mics=MICS).cuda(), (full,)),
+            "Music": (Music(mics=MICS).cuda(), (full,))}
+    ms, outs = {}, {}
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        for name, (mod, args) in mods.items():
+            mod(*args)                                         # warm-up
+            walls = []
+            for _ in range(3):
+                outs[name], wall = _timed(lambda: mod(*args))
+                walls.append(wall)
+            ms[name] = float(np.median(walls)) * 1e3
+        pair = (sss, decomposition.pos_def(nns))
+        decomposition.gevd(*pair)
+        gevd_ms = float(np.median([_timed(lambda: decomposition.gevd(
+            *pair))[1] for _ in range(3)])) * 1e3
+    _csrc_untouched("the multi-mic modules")
+    for name, out in outs.items():
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name} gave non-finite values")
+    doa = torch.from_numpy(MIC_DOA).double().cuda()
+    hits = {name: float((outs[name].double() @ doa).mean())
+            for name in ("SrpPhat", "Music")}
+    log(f"  multi-mic, {MIC_BATCH} x {MIC_SECONDS} s x 4 mics (STFT "
+        f"{tuple(xs.shape)}): ms of each "
+        f"{ {k: round(v, 2) for k, v in ms.items()} }; gevd {gevd_ms:.2f} "
+        f"ms = {100 * gevd_ms / ms['Gev']:.1f}% of Gev; mean cosine of the "
+        f"directions found to the source's {hits}")
+    del wav, xs, full, sss, nns, outs
+    torch.cuda.empty_cache()
+    return dict(ms=ms, gevd_ms=gevd_ms, gevd_share=gevd_ms / ms["Gev"],
+                doa_cosine=hits)
+
+
+def diarization_serving(rng, root):
+    """Phase 27 (e): ECAPA-TDNN embeddings of 1.5 s windows of a 60 s
+    recording on the card, then ``Spec_Clust_unorm`` and
+    ``do_spec_clustering`` on the host, writing an RTTM."""
+    modules, _ = _seeded(ecapa_modules(), SEED + 160)
+    encoder = EncoderClassifier(modules=modules, hparams={}, device="cuda")
+    wav, turns = diarization_recording(rng)
+    win, hop = int(DIAR_WINDOW * SR), int(DIAR_HOP * SR)
+    starts = list(range(0, len(wav) - win + 1, hop))
+    windows = np.stack([wav[s:s + win] for s in starts])
+    encoder.encode_batch(windows[:8])                          # warm-up
+    emb, embed_s = _timed(lambda: encoder.encode_batch(windows))
+    emb = emb.reshape(len(windows), -1).cpu().numpy().astype(np.float64)
+    t0 = time.perf_counter()
+    clust = diarization.Spec_Clust_unorm(min_num_spkrs=2, max_num_spkrs=10)
+    clust.do_spec_clust(emb, k_oracle=None, p_val=0.3)
+    clust_s = time.perf_counter() - t0
+
+    class Diary:
+        stat1 = emb
+        segset = np.array([f"rec_{s / SR:.2f}_{(s + win) / SR:.2f}"
+                           for s in starts], dtype="|O")
+
+    rttm = os.path.join(root, "rec.rttm")
+    t0 = time.perf_counter()
+    labels = diarization.do_spec_clustering(Diary(), rttm, "rec", k=None,
+                                            pval=0.3, affinity_type="cos")
+    rttm_s = time.perf_counter() - t0
+    with open(rttm) as f:
+        lines = f.read().splitlines()
+    if not lines or len(labels) != len(windows) or \
+            not np.isfinite(emb).all():
+        raise AssertionError("diarization wrote no RTTM")
+    speakers = len(set(clust.labels_.tolist()))
+    log(f"  diarization: {len(windows)} windows of {DIAR_WINDOW} s "
+        f"embedded in {embed_s * 1e3:.1f} ms (ECAPA-TDNN, {emb.shape[1]} "
+        f"wide), Spec_Clust_unorm {clust_s * 1e3:.1f} ms ({speakers} "
+        f"speakers; {len(turns)} turns of 3 sources planted), "
+        f"do_spec_clustering and the RTTM {rttm_s * 1e3:.1f} ms, "
+        f"{len(lines)} RTTM lines")
+    del encoder, modules
+    torch.cuda.empty_cache()
+    return dict(embed_ms=embed_s * 1e3, cluster_ms=clust_s * 1e3,
+                rttm_ms=rttm_s * 1e3, speakers=speakers,
+                windows=len(windows))
+
+
+def ctc_logp_f64(encoder, wav, lens, device):
+    """``EncoderASR.encode_batch``'s log-posteriors of a copy of the CTC
+    encoder in f64 on ``device``, its frontend through the plain
+    convolutions (``fused_frontend=False``: the kernel takes f32 and bf16,
+    not f64). ``encode_batch`` reads neither the tokenizer nor the
+    decoding function."""
+    encoder = copy.deepcopy(encoder).to(device, torch.float64)
+    encoder.wav2vec2.fused_frontend = False
+    asr = EncoderASR(modules={"encoder": encoder}, hparams={
+        "tokenizer": None, "decoding_function": None}, device=device)
+    return asr.encode_batch(wav.astype(np.float64), lens.astype(np.float64))
+
+
+def _rel_err(got, want):
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return reading(((got - want) / want.abs()).abs().max())
+
+
+# (f)'s CTC encoder: 2 lv60-width layers, dropouts 0, the eager attention
+# (the kernels take f32 and bf16)
+CTC_F64_ARCH = dict(num_layers=2, hidden_dropout=0.0, attention_dropout=0.0,
+                    activation_dropout=0.0, feat_proj_dropout=0.0,
+                    attention_impl="eager")
+
+
+def interfaces_card_vs_cpu(rng, ctc_arch=CTC_F64_ARCH, conformer=None,
+                           vad_arch=VAD_ARCH, crdnn=None):
+    """Phase 27 (f): the card against the CPU in f64. ``conformer`` and
+    ``crdnn`` (keyword arguments of ``conformer_asr_modules`` and
+    ``crdnn_modules``) and the archs narrow it for the card tests."""
+    errs, same = {}, {}
+    enc = ctc_encoder(ctc_arch)
+    _seeded({"encoder": enc}, SEED + 170)
+    wav, lens = speech_rows(rng, [5.0, 3.5])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        out[dev] = ctc_logp_f64(enc, wav, lens, dev)
+    errs["ctc_logp"] = _peak_err(out["cuda"], out["cpu"])
+    del enc, out
+
+    encoder, _, _ = conformer_asr_modules(SEED + 171, **(conformer or {}))
+    wav, lens = speech_rows(rng, [E2E_SECONDS, 3.5])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(encoder).to(dev, torch.float64).eval()
+        with torch.no_grad():
+            out[dev] = m(torch.from_numpy(wav).to(dev).double(),
+                         lengths=torch.from_numpy(lens).to(dev).double())
+    errs["conformer_states"] = _peak_err(out["cuda"], out["cpu"])
+    del encoder, out
+
+    vad_wav = vad_recording(rng, 8.0).astype(np.float64)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        vad, _ = seeded_vad(SEED + 150, arch=vad_arch, device=dev)
+        for m in vars(vad.mods).values():
+            m.to(torch.float64)
+        out[dev] = vad.get_speech_prob_chunk(vad_wav)
+    errs["vad_posteriors"] = _peak_err(out["cuda"], out["cpu"])
+
+    wav = torch.from_numpy(multimic_recording(rng, batch=1, seconds=2.0))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xs = STFT(sample_rate=SR).to(dev)(wav.to(dev, torch.float64))
+        full, sss, nns = multimic_covariances(xs, 50)
+        tdoas = GccPhat()(full)
+        gev = Gev()(xs, sss, nns)
+        _, ds = decomposition.gevd(sss, decomposition.pos_def(nns))
+        out[dev] = {
+            "DelaySum": DelaySum()(xs, tdoas),
+            "Mvdr": Mvdr()(xs, nns, tdoas),
+            "Gev_magnitude": torch.hypot(gev[..., 0, 0], gev[..., 1, 0]),
+            "gevd_eigenvalues": ds[..., 0].diagonal(dim1=-2, dim2=-1),
+            "SrpPhat": SrpPhat(mics=MICS).to(dev)(full),
+            "Music": Music(mics=MICS).to(dev)(full)}
+    for name, want in out["cpu"].items():
+        got = out["cuda"][name]
+        if name == "gevd_eigenvalues":
+            errs[name] = _rel_err(got, want)
+        elif name in ("SrpPhat", "Music"):
+            same[name] = bool(torch.equal(got.cpu(), want))
+        else:
+            errs[name] = _peak_err(got, want)
+
+    crdnn_kw = crdnn or {}
+    vocab = crdnn_kw.get("vocab", CRDNN_VOCAB)
+    crdnn = crdnn_modules(**crdnn_kw)
+    _seeded(crdnn, SEED + 172)
+    cwav, clens = speech_rows(rng, CRDNN_SECONDS[:4])
+    with torch.no_grad():
+        m = {k: v.cuda() for k, v in crdnn.items()}
+        feats = m["normalize"](m["compute_features"](
+            torch.from_numpy(cwav).cuda()), torch.from_numpy(clens).cuda(),
+            train=False)
+        emission = torch.log_softmax(m["ctc_lin"](m["enc"](feats)),
+                                     dim=-1).double().cpu()
+    phns = torch.from_numpy(rng.integers(1, vocab, (4, 12)))
+    phn_lens = torch.tensor([1.0, 0.9, 0.75, 0.5], dtype=torch.float64)
+    lens_t = torch.from_numpy(clens).double()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        aligner = HMMAligner()
+        args = (emission.to(dev), lens_t.to(dev), phns.to(dev),
+                phn_lens.to(dev))
+        fwd = aligner.forward(*args, dp_algorithm="forward")
+        vit, align = aligner.forward(*args, dp_algorithm="viterbi")
+        out[dev] = (fwd, vit, align)
+    errs["aligner_forward"] = _rel_err(out["cuda"][0], out["cpu"][0])
+    errs["aligner_viterbi"] = _rel_err(out["cuda"][1], out["cpu"][1])
+    same["viterbi_alignments"] = out["cuda"][2] == out["cpu"][2]
+    log(f"  f64 card vs CPU: { {k: f'{v:.2e}' for k, v in errs.items()} }; "
+        f"equal: {same}")
+    if not within(errs, {k: TOL_F64 for k in errs}) or \
+            not all(same.values()):
+        raise AssertionError(f"card against CPU in f64: {errs}, {same}")
+    return dict(errs=errs, same=same)
+
+
+def interfaces_phase(rng):
+    """Phase 27; returns (launches of rows 1 and 2 in (a), summary). TF32
+    stays off, as in ``main``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_interfaces_")
+    summary = {}
+    try:
+        log("  (a) EncoderASR over lv60 with a 1000-way CTC head, read from "
+            "an export folder; transcribe_file; CTCSegmentation")
+        counts, summary["encoder_asr"] = encoder_asr_serving(rng, root)
+        log("  (b) EncoderDecoderASR over conformer-small-librispeech, "
+            "S2STransformerBeamSearch at beam 10")
+        summary["encoder_decoder_asr"] = encoder_decoder_serving(rng, root)
+        log("  (c) VAD at vad-crdnn-libriparty's widths on 60 s")
+        summary["vad"] = vad_serving(rng)
+        log("  (d) multi-mic beamforming and localization")
+        summary["multimic"] = multimic_serving(rng)
+        log("  (e) the diarization back-end")
+        summary["diarization"] = diarization_serving(rng, root)
+        log("  (f) the card against the CPU, f64")
+        summary["card_vs_cpu"] = interfaces_card_vs_cpu(rng)
+    finally:
+        shutil.rmtree(root)
+    summary["phase_s"] = time.perf_counter() - t0
+    return counts, summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6760,6 +7474,9 @@ def main():
     check_frontend(extractor, gen, errs)
     check_attention("flash_attention_short", fa.flash_attention_short,
                     (8, 16, 249, 64), SHORT_LENGTHS, gen, errs)
+    segment = cf.output_frames(int(SEGMENT_SECONDS * SR))
+    check_attention("flash_attention_short", fa.flash_attention_short,
+                    (1, 16, segment, 64), [segment], gen, errs)
     check_attention("flash_attention", fa.flash_attention,
                     (3, 16, 1499, 64), LONG_LENGTHS, gen, errs)
     check_video_kernels(gen, errs)
@@ -6949,6 +7666,14 @@ def main():
     pretrain_counts, pretrain_summary = pretrain_phase(rng)
     log(f"  phase 26 summary: {json.dumps(pretrain_summary)}")
 
+    log("phase 27: the serving interfaces and back-ends: EncoderASR over "
+        "lv60 with a CTC head (batch 8 x 5 s, from an export folder) and "
+        "CTCSegmentation, EncoderDecoderASR over conformer-small "
+        "(beam 10), VAD (vad-crdnn-libriparty), multi-mic beamforming and "
+        "localization, the diarization back-end; f64 card vs CPU")
+    interface_counts, interface_summary = interfaces_phase(rng)
+    log(f"  phase 27 summary: {json.dumps(interface_summary)}")
+
     kernels = []
     for key, r in rows.items():
         if not isinstance(key, tuple) and key not in SOURCES:
@@ -6968,6 +7693,7 @@ def main():
                             name, chunked_counts)[name]
             if name == "conv_frontend":
                 launches += pretrain_counts[name]
+            launches += interface_counts.get(name, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches,

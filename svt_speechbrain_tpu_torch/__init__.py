@@ -11,7 +11,11 @@ hand-written Hopper (``sm_90a``) CUDA kernel under ``csrc/``, built with
 - ``ops``       — the CUDA kernel wrappers and their plain PyTorch versions.
 - ``models``    — wav2vec2-large-lv60 ("layer" extractor, pre-LN encoder),
   the RCA fusion network, int8 quantization.
-- ``processing`` — signal processing (SNR mixing for the noisy sets).
+- ``processing`` — signal processing (SNR mixing for the noisy sets),
+  features, augmentation, multi-mic beamforming and localization, NMF,
+  PLDA/LDA and diarization.
+- ``alignment``, ``lm``, ``tokenizers`` — HMM forced alignment and CTC
+  segmentation, back-off n-gram LMs, SentencePiece tokenizers.
 - ``core``      — the engine: ``Brain`` (``fit``, ``evaluate``), the
   command line and the experiment folder; ``config`` reads its yaml.
 - ``dataio``    — CSV datasets, WAV I/O, padded batches, samplers, loaders.

@@ -1,5 +1,6 @@
-"""Data I/O: CSV/JSON manifests and WAV files (port of
-``svt_speechbrain_tpu/dataio/dataio.py:19-144``).
+"""Data I/O: CSV/JSON manifests, WAV files and the char/word helpers of
+the tokenizers (port of ``svt_speechbrain_tpu/dataio/dataio.py:19-144``,
+``:217-233``).
 
 Reads return float32 samples in [-1, 1] through scipy, as the JAX package's
 scipy path does (16-bit PCM / 32768). The native C++ decoder is not ported
@@ -152,3 +153,28 @@ def merge_csvs(data_folder, csv_lst, merged_csv):
     with open(write_path, "w") as f:
         f.write(header)
         f.writelines(lines)
+
+
+def merge_char(sequences, space="_"):
+    """Char sequences → word sequences, split at ``space``
+    (``dataio.py:217``).
+
+    Example
+    -------
+    >>> merge_char([["a", "b", "_", "c", "d"]])
+    [['ab', 'cd']]
+    """
+    return [[word for word in "".join(seq).split(space) if word]
+            for seq in sequences]
+
+
+def split_word(sequences, space="_"):
+    """Word sequences → char sequences with ``space`` between the words
+    (``dataio.py:229``).
+
+    Example
+    -------
+    >>> split_word([["ab", "c"]])
+    [['a', 'b', '_', 'c']]
+    """
+    return [list(space.join(seq)) for seq in sequences]

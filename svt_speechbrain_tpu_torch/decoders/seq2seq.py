@@ -40,6 +40,14 @@ class S2SBaseSearcher:
         self.max_decode_ratio = max_decode_ratio
         self.host_reads = 0
 
+    def to(self, device):
+        """Move the modules the searcher holds (its model, heads and LM)
+        to ``device``, in eval mode; returns the searcher."""
+        for value in vars(self).values():
+            if isinstance(value, torch.nn.Module):
+                value.to(device).eval()
+        return self
+
     def _host(self, x):
         if torch.is_tensor(x):
             self.host_reads += 1

@@ -149,3 +149,48 @@ class EncoderWrapper(nn.Module):
     def forward(self, x, wav_lens=None, **kwargs):
         out, _ = self.transformer.encode(x, wav_len=wav_lens)
         return out
+
+
+class TransformerASREncoder(nn.Module):
+    """Waveforms → a ``TransformerASR``'s encoder states: the features, the
+    input normalization with its stored statistics (``train=False``), the
+    convolutional frontend and ``encode`` with the relative lengths — the
+    ``encoder`` of SpeechBrain's transformer and conformer
+    ``EncoderDecoderASR`` models (their yaml's ``LengthsCapableSequential``
+    of ``compute_features``, ``normalize``, ``CNN`` and ``EncoderWrapper``).
+
+    Example
+    -------
+    >>> import torch
+    >>> from svt_speechbrain_tpu_torch.models.convolution import (
+    ...     ConvolutionFrontEnd)
+    >>> from svt_speechbrain_tpu_torch.models.features import Fbank
+    >>> from svt_speechbrain_tpu_torch.processing.features import (
+    ...     InputNormalization)
+    >>> front = ConvolutionFrontEnd(input_size=8, num_blocks=1,
+    ...                             num_layers_per_block=1,
+    ...                             out_channels=(4,), kernel_sizes=(3,),
+    ...                             strides=(2,), residuals=(False,))
+    >>> asr = TransformerASR(7, front.output_dim(), d_model=8, nhead=2,
+    ...                      num_encoder_layers=1, num_decoder_layers=1,
+    ...                      d_ffn=16)
+    >>> enc = TransformerASREncoder(Fbank(n_mels=8), InputNormalization(),
+    ...                             front, asr)
+    >>> enc(torch.ones(2, 1600), lengths=torch.ones(2)).shape
+    torch.Size([2, 6, 8])
+    """
+
+    def __init__(self, compute_features, normalize, frontend, transformer):
+        super().__init__()
+        self.compute_features = compute_features
+        self.normalize = normalize
+        self.frontend = frontend
+        self.transformer = transformer
+
+    def forward(self, wavs, lengths=None):
+        if lengths is None:
+            lengths = torch.ones(wavs.shape[0], device=wavs.device)
+        feats = self.normalize(self.compute_features(wavs), lengths,
+                               train=False)
+        out, _ = self.transformer.encode(self.frontend(feats), wav_len=lengths)
+        return out

@@ -8,7 +8,9 @@ through the bridge, as the reference bridge picks them):
 - the conv extractor (``ConvFeatureExtractor``) in "layer" mode (a
   LayerNorm after every conv), dispatched to the CUDA conv-frontend kernel
   when ``ops.conv_frontend.can_fuse`` holds and the frontend is fused (not
-  training, or a frozen extractor), with or without conv biases; or in
+  training, or a frozen extractor; the bridge's ``fused_frontend=False``
+  selects the plain convolutions, for f64), with or without conv biases;
+  or in
   "group" mode (a per-channel GroupNorm after the first conv only), which
   runs the plain convolutions and, given ``true_samples``, takes the group
   statistics over each row's valid frames only;
@@ -666,7 +668,9 @@ class HuggingFaceWav2Vec2(nn.Module):
     encoder, optional output layer-norm. Without ``config`` the family comes
     from the ``source`` name (``config_for_name``); without
     ``normalize_wav`` the wav norm is the HF processor's default for that
-    name (``normalizes_wav``).
+    name (``normalizes_wav``). ``fused_frontend=False`` runs the conv
+    extractor's plain convolutions where it would launch the frontend
+    kernel (which takes f32 and bf16; f64 takes the plain ones).
 
     Example
     -------
@@ -687,7 +691,7 @@ class HuggingFaceWav2Vec2(nn.Module):
     def __init__(self, source=None, config: Wav2Vec2Config | None = None,
                  output_norm=True, normalize_wav=None, freeze=False,
                  freeze_feature_extractor=False, arch_overrides=None,
-                 save_path=None):
+                 save_path=None, fused_frontend=True):
         super().__init__()
         if isinstance(source, Wav2Vec2Config):       # a positional config
             config, source = source, None
@@ -708,6 +712,7 @@ class HuggingFaceWav2Vec2(nn.Module):
         # conv extractor's parameters out of autograd (``wav2vec2.py:715-722``)
         self.freeze = freeze
         self.freeze_feature_extractor = freeze_feature_extractor
+        self.fused_frontend = fused_frontend
         self.encoder = Wav2Vec2Encoder(config)
         if freeze_feature_extractor:
             self.encoder.feature_extractor.requires_grad_(False)
@@ -756,7 +761,8 @@ class HuggingFaceWav2Vec2(nn.Module):
         # a frozen extractor takes no gradient, so the fused frontend
         # kernel serves training steps too (``wav2vec2.py:741-742``)
         out = self.encoder(
-            wav, (not train) or self.freeze_feature_extractor,
+            wav, self.fused_frontend and ((not train)
+                                          or self.freeze_feature_extractor),
             num_frames=num_frames, rng=rng, train=train,
             true_samples=true_samples)
         if self.output_norm:
@@ -767,3 +773,37 @@ class HuggingFaceWav2Vec2(nn.Module):
                                [None, :] < num_frames[:, None])
                 out = per_item_masked_layer_norm(out, frame_valid)
         return out
+
+
+class Wav2Vec2CTCEncoder(nn.Module):
+    """Waveforms → per-frame CTC log-posteriors: the bridge, the
+    ``ctc_lin`` head and a log-softmax — the ``encoder`` of SpeechBrain's
+    wav2vec2 ``EncoderASR`` models (their yaml's ``LengthsCapableSequential``
+    of ``wav2vec2``, ``enc``, ``ctc_lin`` and ``log_softmax``) without the
+    ``enc`` DNN between bridge and head. Here the relative
+    ``lengths`` reach the bridge as its ``wav_lens``, so that each row is
+    normalized over its own samples and its padded frames are masked (the
+    batch-1 result, whatever the batch).
+
+    Example
+    -------
+    >>> import torch
+    >>> cfg = Wav2Vec2Config(hidden_size=32, num_layers=1, num_heads=4,
+    ...                      ffn_size=64, conv_dim=(16,) * 7,
+    ...                      num_conv_pos_embeddings=16,
+    ...                      num_conv_pos_embedding_groups=4)
+    >>> enc = Wav2Vec2CTCEncoder(HuggingFaceWav2Vec2(config=cfg),
+    ...                          Linear(5, 32))
+    >>> lp = enc(torch.ones(2, 3200), lengths=torch.tensor([1.0, 0.5]))
+    >>> lp.shape, bool(lp.exp().sum(-1).sub(1).abs().max() < 1e-5)
+    (torch.Size([2, 9, 5]), True)
+    """
+
+    def __init__(self, wav2vec2, ctc_lin):
+        super().__init__()
+        self.wav2vec2 = wav2vec2
+        self.ctc_lin = ctc_lin
+
+    def forward(self, wavs, lengths=None):
+        feats = self.wav2vec2(wavs, wav_lens=lengths)
+        return torch.log_softmax(self.ctc_lin(feats), dim=-1)

@@ -6,7 +6,9 @@ _WHERE = {"fetch": "fetching", "Pretrained": "interfaces",
           "SingingTranscriber": "interfaces", "EncoderClassifier":
           "interfaces", "SpeakerRecognition": "interfaces",
           "SepformerSeparation": "interfaces",
-          "SpectralMaskEnhancement": "interfaces"}
+          "SpectralMaskEnhancement": "interfaces",
+          "EncoderASR": "interfaces", "EncoderDecoderASR": "interfaces",
+          "VAD": "interfaces"}
 __all__ = sorted(_WHERE)
 
 

@@ -16,12 +16,19 @@ exports, fetched from a local directory).
 models: each runs its modules (and the hparams' feature modules) on its
 ``device``, CUDA unless the caller names another, in eval and without
 autograd, and keeps the JAX interface's host reads (the numpy score and
-argmax of ``classify_batch``, the cosine of ``verify_batch``). The ASR
-interfaces and ``VAD`` wait for ROADMAP.md queue 1 item 20.
+argmax of ``classify_batch``, the cosine of ``verify_batch``).
+
+``EncoderASR`` (CTC), ``EncoderDecoderASR`` (an encoder and a searcher)
+and ``VAD`` serve the speech recognizers and the voice activity detector
+the same way. ``VAD`` normalizes its features with the stored statistics
+of its ``mean_var_norm`` and leaves them as they were (the JAX ``VAD``
+updates them at every call, ROADMAP.md queue 3); its thresholds and
+boundaries are computed on the host from posteriors read once a call.
 """
 from __future__ import annotations
 
 import functools
+import logging
 import os
 import pathlib
 from types import SimpleNamespace
@@ -33,12 +40,16 @@ from svt_speechbrain_tpu_torch import resolve_device
 from svt_speechbrain_tpu_torch.config import load_hyperyaml
 from svt_speechbrain_tpu_torch.convert_jax import init_modules
 from svt_speechbrain_tpu_torch.dataio.dataio import read_audio, write_audio
+from svt_speechbrain_tpu_torch.decoders.seq2seq import S2SBaseSearcher
 from svt_speechbrain_tpu_torch.inference import (BatchedAMTTranscriber,
                                                  StreamingAMTTranscriber,
                                                  StreamingServer)
 from svt_speechbrain_tpu_torch.models.quantize import quantize_wav2vec2
 from svt_speechbrain_tpu_torch.models.separation import separate
 from svt_speechbrain_tpu_torch.pretrained.fetching import fetch
+from svt_speechbrain_tpu_torch.processing.features import InputNormalization
+
+logger = logging.getLogger(__name__)
 
 
 class Pretrained:
@@ -106,6 +117,7 @@ class Pretrained:
         for module in vars(instance.mods).values():
             if device is not None and isinstance(module, torch.nn.Module):
                 module.to(device)
+        logger.info(f"{cls.__name__} loaded from {source}")
         return instance
 
 
@@ -216,17 +228,18 @@ class SingingTranscriber(Pretrained):
 
 def _to_device(objects, device):
     """Move every ``nn.Module`` of ``objects`` (and those bound in a
-    ``functools.partial``'s arguments) to ``device``."""
+    ``functools.partial``'s arguments) to ``device``, in eval mode."""
     for obj in objects:
         if isinstance(obj, torch.nn.Module):
-            obj.to(device)
+            obj.to(device).eval()
         elif isinstance(obj, functools.partial):
             _to_device(list(obj.args) + list(obj.keywords.values()), device)
 
 
 class _DeviceInterface(Pretrained):
     """An interface whose modules run on its ``device`` (CUDA unless the
-    caller names another)."""
+    caller names another), in eval mode, as the reference's ``Pretrained``
+    puts them."""
 
     def __init__(self, *args, device=None, **kwargs):
         super().__init__(*args, **kwargs)
@@ -238,6 +251,283 @@ class _DeviceInterface(Pretrained):
         if isinstance(x, np.ndarray):
             x = np.ascontiguousarray(x)
         return None if x is None else torch.as_tensor(x, device=self.device)
+
+    def _wavs_and_lens(self, wavs, wav_lens):
+        """The waveforms on the device, and their relative lengths there
+        (ones when None)."""
+        wavs = self._tensor(wavs)
+        if wav_lens is None:
+            return wavs, torch.ones(wavs.shape[0], device=self.device)
+        return wavs, self._tensor(wav_lens)
+
+
+def _words(tokenizer, hyps):
+    """Each hypothesis's token ids decoded to text by ``decode_ids``
+    (a SentencePiece processor) or ``decode``."""
+    decode = getattr(tokenizer, "decode_ids", None) or tokenizer.decode
+    return [decode(list(map(int, h))) for h in hyps]
+
+
+class EncoderDecoderASR(_DeviceInterface):
+    """Encoder + autoregressive-decoder ASR (``interfaces.py:208``): the
+    ``encoder`` module (features, normalization and the acoustic encoder,
+    called with the relative lengths as ``lengths``), then a searcher as
+    ``decoder`` (``S2STransformerBeamSearch`` and the other searchers of
+    ``decoders.seq2seq``, whose modules the interface moves to its device
+    through the searcher's ``to``); the token ids are decoded to words by
+    ``hparams['tokenizer']``.
+
+    Example
+    -------
+    >>> import torch
+    >>> class Enc(torch.nn.Module):
+    ...     def forward(self, x, lengths=None):
+    ...         return x[..., None]
+    >>> class Tok:
+    ...     def decode_ids(self, ids):
+    ...         return " ".join(chr(ord("a") + i) for i in ids)
+    >>> def search(enc_states, enc_lens):
+    ...     return [[0, 1, 2]], [0.0]
+    >>> asr = EncoderDecoderASR(modules={"encoder": Enc(), "decoder": search},
+    ...                         hparams={"tokenizer": Tok()}, device="cpu")
+    >>> asr.transcribe_batch(torch.zeros(1, 100))
+    (['a b c'], [[0, 1, 2]])
+    """
+
+    HPARAMS_NEEDED = ["tokenizer"]
+    MODULES_NEEDED = ["encoder", "decoder"]
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if isinstance(self.mods.decoder, S2SBaseSearcher):
+            self.mods.decoder.to(self.device)
+
+    def encode_batch(self, wavs, wav_lens=None):
+        """(B, T) waveforms → the encoder's states, on the device."""
+        wavs, wav_lens = self._wavs_and_lens(wavs, wav_lens)
+        with torch.no_grad():
+            return self.mods.encoder(wavs, lengths=wav_lens)
+
+    def transcribe_batch(self, wavs, wav_lens=None):
+        """Waveforms → (the words of each row, its token ids)."""
+        wavs, wav_lens = self._wavs_and_lens(wavs, wav_lens)
+        enc = self.encode_batch(wavs, wav_lens)
+        hyps, _scores = self.mods.decoder(enc, wav_lens)
+        return _words(self.hparams.tokenizer, hyps), hyps
+
+    def transcribe_file(self, path):
+        """The words of one audio file, read by ``dataio``."""
+        words, _ = self.transcribe_batch(np.asarray(read_audio(path))[None])
+        return words[0]
+
+
+class EncoderASR(_DeviceInterface):
+    """Encoder-only (CTC) ASR (``interfaces.py:246``): the ``encoder``
+    gives per-frame log-posteriors of the waveforms (called with their
+    relative lengths as ``lengths``), ``hparams['decoding_function']``
+    (``decoders.ctc_greedy_decode`` with its blank, say) maps them and the
+    lengths to token sequences, and ``hparams['tokenizer']`` to words.
+
+    Example
+    -------
+    >>> import functools, torch
+    >>> from svt_speechbrain_tpu_torch.decoders.ctc import ctc_greedy_decode
+    >>> post = torch.full((1, 4, 4), -10.0)
+    >>> post[0, [0, 1, 2, 3], [1, 1, 3, 2]] = 0.0   # 1 1 blank 2
+    >>> class Enc(torch.nn.Module):
+    ...     def forward(self, x, lengths=None):
+    ...         return post
+    >>> class Tok:
+    ...     def decode_ids(self, ids):
+    ...         return " ".join(chr(ord("a") + i) for i in ids)
+    >>> asr = EncoderASR(modules={"encoder": Enc()}, hparams={
+    ...     "tokenizer": Tok(), "decoding_function": functools.partial(
+    ...         ctc_greedy_decode, blank_id=3)}, device="cpu")
+    >>> asr.transcribe_batch(torch.zeros(1, 100))
+    (['b c'], [[1, 2]])
+    """
+
+    HPARAMS_NEEDED = ["tokenizer", "decoding_function"]
+    MODULES_NEEDED = ["encoder"]
+
+    def encode_batch(self, wavs, wav_lens=None):
+        """(B, T) waveforms → the encoder's (B, frames, V) log-posteriors,
+        on the device."""
+        wavs, wav_lens = self._wavs_and_lens(wavs, wav_lens)
+        with torch.no_grad():
+            return self.mods.encoder(wavs, lengths=wav_lens)
+
+    def transcribe_batch(self, wavs, wav_lens=None):
+        """Waveforms → (the words of each row, its token ids)."""
+        wavs, wav_lens = self._wavs_and_lens(wavs, wav_lens)
+        enc = self.encode_batch(wavs, wav_lens)
+        hyps = self.hparams.decoding_function(enc, wav_lens)
+        return _words(self.hparams.tokenizer, hyps), hyps
+
+    def transcribe_file(self, path):
+        """The words of one audio file, read by ``dataio``."""
+        words, _ = self.transcribe_batch(np.asarray(read_audio(path))[None])
+        return words[0]
+
+
+class VAD(_DeviceInterface):
+    """Voice activity detection (``interfaces.py:303``): features → the
+    ``mean_var_norm`` normalization with its stored statistics (an
+    ``InputNormalization`` is called with ``train=False`` and keeps them)
+    → the frame classifier ``model`` → sigmoid speech posteriors, on the
+    device; the hysteresis, boundaries and segment rules run on the host
+    in numpy. Long audio is passed whole, as in the JAX interface.
+
+    Example
+    -------
+    >>> import numpy as np, torch
+    >>> from svt_speechbrain_tpu_torch.models.features import Fbank
+    >>> from svt_speechbrain_tpu_torch.nnet.linear import Linear
+    >>> vad = VAD(modules={"compute_features": Fbank(n_mels=8),
+    ...                    "mean_var_norm": InputNormalization(),
+    ...                    "model": Linear(1, 8)},
+    ...           hparams={"sample_rate": 16000, "time_resolution": 0.01},
+    ...           device="cpu")
+    >>> _ = vad.init_params()
+    >>> vad.get_speech_prob_chunk(np.zeros((1, 16000), np.float32)).shape
+    torch.Size([1, 101, 1])
+    >>> p = np.array([[[0.3], [0.6], [0.3], [0.2], [0.3]]])
+    >>> vad.apply_threshold(p)[0, :, 0].tolist()
+    [0.0, 1.0, 1.0, 0.0, 0.0]
+    >>> vad.get_boundaries(np.array([[0., 1., 1., 0., 1.]]))
+    array([[0.01, 0.03],
+           [0.04, 0.05]])
+    """
+
+    HPARAMS_NEEDED = ["sample_rate", "time_resolution"]
+    MODULES_NEEDED = ["compute_features", "mean_var_norm", "model"]
+
+    def get_speech_prob_chunk(self, wavs, wav_lens=None):
+        """(B, T) waveforms → (B, frames, 1) speech posteriors, on the
+        device."""
+        wavs, wav_lens = self._wavs_and_lens(wavs, wav_lens)
+        norm = self.mods.mean_var_norm
+        with torch.no_grad():
+            feats = self.mods.compute_features(wavs)
+            if isinstance(norm, InputNormalization):
+                feats = norm(feats, wav_lens, train=False)
+            else:
+                feats = norm(feats, wav_lens)
+            out = self.mods.model(feats)
+            if isinstance(out, tuple):
+                out = out[0]
+            return torch.sigmoid(out)
+
+    @staticmethod
+    def _host(x):
+        return x.detach().cpu().numpy() if torch.is_tensor(x) \
+            else np.asarray(x)
+
+    def apply_threshold(self, vad_prob, activation_th=0.5,
+                        deactivation_th=0.25):
+        """Double-threshold hysteresis (``interfaces.py:337``): switch on
+        above ``activation_th``, off below ``deactivation_th``."""
+        p = self._host(vad_prob)
+        out = np.zeros_like(p)
+        for b in range(p.shape[0]):
+            active = False
+            for t in range(p.shape[1]):
+                v = p[b, t, 0] if p.ndim == 3 else p[b, t]
+                if active:
+                    active = v > deactivation_th
+                else:
+                    active = v > activation_th
+                if p.ndim == 3:
+                    out[b, t, 0] = float(active)
+                else:
+                    out[b, t] = float(active)
+        return out
+
+    def get_boundaries(self, prob_th, output_value="seconds"):
+        """Binary frame decisions of the first row → (N, 2) [start, end]
+        boundaries in seconds (or frames) at ``time_resolution``
+        (``interfaces.py:356``)."""
+        p = self._host(prob_th)
+        if p.ndim == 3:
+            p = p[0, :, 0]
+        elif p.ndim == 2:
+            p = p[0]
+        diff = np.diff(np.concatenate([[0.0], p, [0.0]]))
+        starts = np.nonzero(diff == 1)[0]
+        ends = np.nonzero(diff == -1)[0]
+        bounds = np.stack([starts, ends], axis=-1).astype(np.float64)
+        if output_value == "seconds":
+            bounds = bounds * float(self.hparams.time_resolution)
+        return bounds
+
+    def energy_VAD(self, wavs, activation_th=0.5, deactivation_th=0.0,
+                   eps=1e-6):
+        """Energy-based decisions (``interfaces.py:374``): per-chunk log
+        energies min-max normalized, then double-thresholded."""
+        wavs = self._host(wavs)
+        chunk = int(self.hparams.sample_rate * self.hparams.time_resolution)
+        n = wavs.shape[1] // chunk
+        frames = wavs[:, :n * chunk].reshape(wavs.shape[0], n, chunk)
+        energy = np.log(np.mean(frames.astype(np.float64) ** 2, axis=-1)
+                        + eps)
+        emin = energy.min(-1, keepdims=True)
+        emax = energy.max(-1, keepdims=True)
+        norm = (energy - emin) / np.maximum(emax - emin, eps)
+        return self.apply_threshold(norm[..., None], activation_th,
+                                    deactivation_th)
+
+    @staticmethod
+    def merge_close_segments(boundaries, close_th=0.25):
+        """Merge segments separated by less than ``close_th`` seconds."""
+        if len(boundaries) == 0:
+            return boundaries
+        merged = [list(boundaries[0])]
+        for seg in boundaries[1:]:
+            if seg[0] - merged[-1][1] < close_th:
+                merged[-1][1] = seg[1]
+            else:
+                merged.append(list(seg))
+        return np.asarray(merged)
+
+    @staticmethod
+    def remove_short_segments(boundaries, len_th=0.25):
+        """Drop segments shorter than ``len_th`` seconds."""
+        boundaries = np.asarray(boundaries)
+        if len(boundaries) == 0:
+            return boundaries
+        return boundaries[(boundaries[:, 1] - boundaries[:, 0]) >= len_th]
+
+    def double_check_speech_segments(self, boundaries, wavs, speech_th=0.5):
+        """Re-score each candidate segment with the model and keep those
+        whose mean posterior exceeds ``speech_th`` (``interfaces.py:408``;
+        one host read a segment)."""
+        sr = self.hparams.sample_rate
+        keep = []
+        for seg in np.asarray(boundaries):
+            lo, hi = int(seg[0] * sr), int(seg[1] * sr)
+            if hi - lo < int(sr * self.hparams.time_resolution):
+                continue
+            prob = self.get_speech_prob_chunk(wavs[:, lo:hi])
+            if float(prob.mean()) > speech_th:
+                keep.append(seg)
+        return np.asarray(keep) if keep else np.zeros((0, 2))
+
+    def get_speech_segments(self, wavs, activation_th=0.5,
+                            deactivation_th=0.25, close_th=0.25, len_th=0.25,
+                            double_check=True, speech_th=0.5):
+        """Posteriors (read to the host once) → hysteresis → boundaries →
+        merge and minimum length → the optional double check
+        (``interfaces.py:425``)."""
+        wavs = self._tensor(wavs)
+        prob = self._host(self.get_speech_prob_chunk(wavs))
+        prob_th = self.apply_threshold(prob, activation_th, deactivation_th)
+        bounds = self.get_boundaries(prob_th)
+        bounds = self.merge_close_segments(bounds, close_th)
+        bounds = self.remove_short_segments(bounds, len_th)
+        if double_check and len(bounds):
+            bounds = self.double_check_speech_segments(bounds, wavs,
+                                                       speech_th)
+        return bounds
 
 
 class EncoderClassifier(_DeviceInterface):

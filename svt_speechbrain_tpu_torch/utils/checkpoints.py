@@ -136,11 +136,19 @@ def _read_yaml_file(path):
 
 
 def _load_obj(obj, path, end_of_epoch, modules=None):
-    """Recover ``obj`` from ``path``: through its ``ckpt_load``, or by the
-    file's format (``_file_format``). ``modules`` (name → module) place an
-    optimizer's JAX state on their parameters."""
+    """Recover ``obj`` from ``path``: through its ``ckpt_load``, a
+    SentencePiece processor through its ``load`` (SpeechBrain's default
+    hook for tokenizers), or by the file's format (``_file_format``).
+    ``modules`` (name → module) place an optimizer's JAX state on their
+    parameters."""
     if hasattr(obj, "ckpt_load"):
         obj.ckpt_load(path, end_of_epoch=end_of_epoch)
+        return
+    from svt_speechbrain_tpu_torch.tokenizers.spm_lite import (
+        SentencePieceProcessor)
+
+    if isinstance(obj, SentencePieceProcessor):
+        obj.load(str(path))             # a tokenizer's .model file
         return
     if not hasattr(obj, "load_state_dict"):
         raise TypeError(f"Don't know how to recover {type(obj)}")

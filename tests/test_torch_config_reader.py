@@ -1,6 +1,7 @@
 """The port's own YAML reader (``svt_speechbrain_tpu_torch/config.py``,
-``_Reader``) against PyYAML: every yaml file of both packages' recipes read
-unresolved by both, structures and types equal; the override strings the
+``_Reader``) against PyYAML: every yaml file of both packages' recipes, of
+the port's interface exports and of the test fixtures read unresolved by
+both, structures and types equal; the override strings the
 command line builds; PyYAML's YAML 1.1 scalar rules; each construct the
 reader does not read raising ``LoadError`` with its line; and
 ``load_hyperyaml`` on a recipe yaml resolving as the PyYAML-based reader of
@@ -24,6 +25,8 @@ YAMLS = sorted(
               recursive=True)
     + glob.glob(os.path.join(REPO_ROOT, "svt_speechbrain_tpu_torch",
                              "recipes", "**", "*.yaml"), recursive=True)
+    + glob.glob(os.path.join(REPO_ROOT, "svt_speechbrain_tpu_torch",
+                             "pretrained", "hparams", "*.yaml"))
     + glob.glob(os.path.join(REPO_ROOT, "tests", "fixtures", "*.yaml")))
 
 
@@ -78,7 +81,7 @@ def _same(text):
 
 
 def test_there_are_fourteen_recipe_yamls():
-    assert len([p for p in YAMLS if "fixtures" not in p]) == 14
+    assert len([p for p in YAMLS if "recipes" in p]) == 14
 
 
 @pytest.mark.parametrize("path", YAMLS,

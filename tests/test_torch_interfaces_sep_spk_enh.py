@@ -220,7 +220,8 @@ def test_public_names_of_the_slice(rel):
     """Every public name of the eight modules exists in the port; of
     ``convert_sb`` the three speaker and separation converters and
     ``_conv1d``; of ``pretrained/interfaces.py`` the four interfaces (the
-    ASR ones and ``VAD`` are ROADMAP.md queue 1 item 20's)."""
+    ASR ones and ``VAD`` are held by ``tests/test_torch_isolation.py::
+    test_public_names_of_item20``)."""
     import pathlib
 
     repo = pathlib.Path(__file__).resolve().parents[1]

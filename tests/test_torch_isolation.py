@@ -344,6 +344,84 @@ def test_pretraining_and_parallel_modules_run_without_loading_jax():
     assert "LOADED []" in res.stdout, res.stdout
 
 
+_ITEM20_PROBE = """
+import sys
+import tempfile
+import numpy as np
+import torch
+from svt_speechbrain_tpu_torch.alignment import aligner, ctc_segmentation
+from svt_speechbrain_tpu_torch.convert_jax import init_modules
+from svt_speechbrain_tpu_torch.dataio.dataio import merge_char, split_word
+from svt_speechbrain_tpu_torch.decoders.ctc import ctc_greedy_decode
+from svt_speechbrain_tpu_torch.lm import arpa, counting, ngram
+from svt_speechbrain_tpu_torch.models.beamform_multimic import (
+    DelaySum_Beamformer)
+from svt_speechbrain_tpu_torch.models.wav2vec2 import (
+    TINY_ARCH, HuggingFaceWav2Vec2, Wav2Vec2Config, Wav2Vec2CTCEncoder)
+from svt_speechbrain_tpu_torch.nnet.linear import Linear
+from svt_speechbrain_tpu_torch.pretrained.interfaces import (
+    VAD, EncoderASR, EncoderDecoderASR)
+from svt_speechbrain_tpu_torch.processing import (
+    decomposition, diarization, multi_mic, nmf, plda_lda)
+from svt_speechbrain_tpu_torch.tokenizers import (
+    sentence_piece, spm_lite, spm_proto)
+path = tempfile.mkdtemp() + "/tok.model"
+pieces = [("<unk>", 0.0, 2)] + [(c, -2.0, 1) for c in "▁abc"]
+open(path, "wb").write(spm_proto.write_model(pieces, unk_id=0))
+tok = spm_lite.SentencePieceProcessor()
+tok.load(path)
+enc = Wav2Vec2CTCEncoder(HuggingFaceWav2Vec2(config=Wav2Vec2Config(
+    **TINY_ARCH)), Linear(len(pieces), TINY_ARCH["hidden_size"]))
+init_modules({"encoder": enc}, 0)
+import functools
+asr = EncoderASR(modules={"encoder": enc}, hparams={
+    "tokenizer": tok, "decoding_function": functools.partial(
+        ctc_greedy_decode, blank_id=0)}, device="cpu")
+words, hyps = asr.transcribe_batch(np.zeros((2, 8000), np.float32),
+                                   np.array([1.0, 0.5], np.float32))
+assert len(words) == len(hyps) == 2
+wav = torch.randn(1, 4000, 3)
+assert DelaySum_Beamformer(16000, tdoa_max=8)(wav).shape == (1, 4000)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "svt_speechbrain_tpu" or m.startswith("svt_speechbrain_tpu."))
+print("LOADED", bad)
+"""
+
+
+def test_item20_slice_runs_without_loading_jax():
+    """The tokenizers, language models, alignment, multi-mic and speaker
+    back-ends and the ASR and VAD interfaces import, and a TINY
+    ``EncoderASR.transcribe_batch`` and a ``DelaySum_Beamformer`` call run
+    on the CPU, without loading JAX or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    res = subprocess.run([sys.executable, "-c", _ITEM20_PROBE],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "LOADED []" in res.stdout, res.stdout
+
+
+ITEM20 = ["processing/multi_mic.py", "processing/decomposition.py",
+          "processing/nmf.py", "processing/plda_lda.py",
+          "processing/diarization.py", "models/beamform_multimic.py",
+          "alignment/aligner.py", "alignment/ctc_segmentation.py",
+          "lm/arpa.py", "lm/counting.py", "lm/ngram.py",
+          "tokenizers/sentence_piece.py", "tokenizers/spm_lite.py",
+          "tokenizers/spm_proto.py", "pretrained/interfaces.py"]
+
+
+@pytest.mark.parametrize("rel", ITEM20)
+def test_public_names_of_item20(rel):
+    """Every public name of the fifteen JAX modules of ROADMAP.md item 20
+    exists in the port's module (``pretrained/interfaces.py`` with its
+    three ASR and VAD interfaces, so all of it)."""
+    want = _public_names(REPO / "svt_speechbrain_tpu" / rel)
+    got = _public_names(PORT / rel)
+    assert sorted(want - got) == []
+
+
 def _public_names(path):
     """Top-level public classes, functions and assignments of a file, read
     with ``ast`` (no import)."""
