@@ -21,7 +21,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    segmentation's (1, 16, 499, 64) with key length 499 and at the video
    recipe's evaluation shapes (1, 16, T, 64), T 250-400, every frame
    attended (``lengths=None``), and the int8 kernel at int8 AV-HuBERT's
-   shapes for T 250 (post_extract_proj's (250, 2048, 1024) among them);
+   shapes for T 250 (post_extract_proj's (250, 2048, 1024) among them) and
+   with ``out_dtype=torch.float32`` on bf16 input at (1992, 1024, 4096);
 3. serve wav2vec2-large-lv60 AMT (24 layers, 1024 wide, 16 heads, seeded
    random weights) through ``BatchedAMTTranscriber`` at 5 s chunks, batch 8,
    bf16, on synthetic songs, counting kernel launches; and compare one
@@ -331,8 +332,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 A card-vs-CPU reading that is not finite (a NaN or an inf on either side)
 fails its check.
 
+28. bucketed training from WAV files: ``AudioAMT`` at lv60 full width and
+    depth (f32, TF32 off, the recipe's hyperparameters, seeded weights) on
+    32 whole songs of 21-30 s written as WAV files (16-bit PCM, one 32-bit
+    float, one 24-bit PCM) and read by the native reader
+    (``native.get_lib()`` asserted), batched by ``DynamicBatchSampler``
+    (240 s and 8 songs a batch, 4 buckets, seeded shuffle: 4 batches)
+    through ``Brain.make_dataloader`` with 2 workers and
+    ``prefetch_batches`` 4: one epoch of 4 ``fit_batch`` steps timed by
+    ``profiling.StepTimer`` with the card synchronized (ms, ``flops.mfu``
+    against the f32 peak, peak memory, 24 launches each of 3b, 4a and 4b a
+    step and no other kernel), an intra-epoch checkpoint after step 2 that
+    a fresh brain recovers (the same batch ids and losses for steps 3-4,
+    bit for bit or within ``TOL_STEP["loss_rel"]``), one step under
+    ``profiling.profile`` with ``annotate("fit_batch")`` (the trace names
+    the range and kernels 3b, 4a, 4b), and ``evaluate`` of two 8-10 s
+    songs at batch 1 (7 + 24 launches an utterance).
+
 Phases run in the order 1-5, 8, 9, 6, 7, 10-15, 19, 17, 18, 16, 20, 21,
-22, 23, 24, 25, 26, 27.
+22, 23, 24, 25, 26, 27, 28.
 
 Phases 2 and 5 also hold and time the two RNN-T kernels (the lattice on
 alpha and on beta panels, the gradient) against their plain versions at the
@@ -362,6 +380,7 @@ import functools
 import gc
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -487,19 +506,26 @@ from svt_speechbrain_tpu_torch.processing.multi_mic import (  # noqa: E402
     Covariance, DelaySum, GccPhat, Gev, Music, Mvdr, SrpPhat)
 from svt_speechbrain_tpu_torch.tokenizers import (  # noqa: E402
     spm_lite, spm_proto)
+from svt_speechbrain_tpu_torch import native  # noqa: E402
+from svt_speechbrain_tpu_torch.dataio.dataset import (  # noqa: E402
+    DynamicItemDataset)
+from svt_speechbrain_tpu_torch.dataio.sampler import (  # noqa: E402
+    DynamicBatchSampler)
+from svt_speechbrain_tpu_torch.utils import flops, profiling  # noqa: E402
 
 SEED = 0
 SR = 16000
-# H100 SXM published peaks (dense): bf16 tensor-core FLOP/s, f32 FLOP/s
-# outside the tensor cores, TF32 tensor-core FLOP/s, HBM bytes/s
-PEAK_BF16 = 989e12
-PEAK_F32 = 67e12
-PEAK_TF32 = 495e12
+# H100 SXM published peaks (dense), from ``utils/flops.py``: bf16
+# tensor-core FLOP/s, f32 FLOP/s outside the tensor cores, TF32
+# tensor-core FLOP/s, int8 tensor-core operations a second, HBM bytes/s
+PEAK_BF16 = flops.PEAK_FLOPS["bf16"]
+PEAK_F32 = flops.PEAK_FLOPS["f32"]
+PEAK_TF32 = flops.PEAK_FLOPS["tf32"]
 # the f32 training kernels (3b, 4a, 4b) run each product as three TF32
 # products
 TF32_PRODUCTS = 3
-PEAK_INT8 = 1979e12
-PEAK_BYTES = 3.35e12
+PEAK_INT8 = flops.PEAK_FLOPS["int8"]
+PEAK_BYTES = flops.PEAK_BYTES
 # kernel vs plain tolerances (max abs error), with their reasons:
 #  f32 frontend: sums over K = 1536 in another order, erff vs exact erf,
 #    values after LayerNorm + GELU of unit scale;
@@ -953,20 +979,23 @@ def _max_abs(got, want):
     return (got.float() - want.float()).abs().max().item()
 
 
-def check_training_kernels(gen, errs):
+def check_training_kernels(gen, errs, cases=None, dtypes=tuple(DTYPES)):
     """3b (forward + L + dropout), 4a (dQ) and 4b (dK, dV) against their
-    plain versions, rate 0.1, at the 30 s training shape without lengths
-    and with lengths [1499, 700, 0], and at phase 26's pretraining shape
-    (batch 4 of 25 s, T 1249: 33 keys past the last full tile of 64)
-    without lengths, as ``Wav2Vec2Pretrain`` calls them. The gradients are
-    held to their error over the plain version's peak magnitude; rows of
-    length 0 and keys past the length must give exact zeros; ``errs`` keeps
-    each kernel's largest max abs error per dtype."""
-    pretrain = cf.output_frames(int(PRETRAIN_SECONDS * SR))
-    for shape, lengths in (((8, 16, 1499, 64), None),
-                           ((3, 16, 1499, 64), LONG_LENGTHS),
-                           ((PRETRAIN_BATCH, 16, pretrain, 64), None)):
-        for tag, dtype in DTYPES.items():
+    plain versions, rate 0.1, at each (shape, key lengths) of ``cases``:
+    by default the 30 s training shape without lengths and with lengths
+    [1499, 700, 0], and phase 26's pretraining shape (batch 4 of 25 s, T
+    1249: 33 keys past the last full tile of 64) without lengths, as
+    ``Wav2Vec2Pretrain`` calls them. The gradients are held to their error
+    over the plain version's peak magnitude; rows of length 0 and keys past
+    the length must give exact zeros; ``errs`` keeps each kernel's largest
+    max abs error per dtype."""
+    if cases is None:
+        pretrain = cf.output_frames(int(PRETRAIN_SECONDS * SR))
+        cases = (((8, 16, 1499, 64), None), ((3, 16, 1499, 64), LONG_LENGTHS),
+                 ((PRETRAIN_BATCH, 16, pretrain, 64), None))
+    for shape, lengths in cases:
+        for tag in dtypes:
+            dtype = DTYPES[tag]
             q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
                              .to(dtype) for _ in range(4))
             lens = (None if lengths is None else
@@ -1062,12 +1091,33 @@ def hold_int8(m, k, n, tag, dtype, gen, where=""):
     return err.max().item()
 
 
+def hold_int8_f32_out(m, k, n, gen):
+    """Kernel 5 on bf16 input writing f32 (``out_dtype``) from its f32
+    epilogue, against the plain version's f32 result, within the f32
+    tolerance: a bf16 write cast afterwards would miss it by bf16's ulp."""
+    x, w8, ws = int8_inputs(m, k, n, torch.bfloat16, gen)
+    out = quant.int8_matmul(x, w8, ws, quant.pack_weight(w8),
+                            out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    want = quant.int8_matmul_plain(x, w8, ws, out_dtype=torch.float32)
+    err = (out - want).abs()
+    ok = (out.dtype == torch.float32
+          and (err <= INT8_RTOL["f32"] * want.abs()).all().item())
+    log(f"  int8_matmul bf16 in, f32 out M={m} K={k} N={n}: "
+        f"max_abs_err={err.max().item():.3e} (rel tol "
+        f"{INT8_RTOL['f32']:.1e}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"int8_matmul(out_dtype=float32) on bf16 input "
+                             f"disagrees with its plain version: {out.dtype}")
+
+
 def check_int8(gen, errs):
     for m, k, n in INT8_SHAPES:
         for tag, dtype in DTYPES.items():
             err = hold_int8(m, k, n, tag, dtype, gen)
             if (m, k, n) == INT8_ROW:
                 errs[("int8_matmul", tag)] = err
+    hold_int8_f32_out(*INT8_ROW, gen)
 
 
 # ---------------------------------------------------------------- phase 3/4
@@ -7440,6 +7490,346 @@ def interfaces_phase(rng):
     return counts, summary
 
 
+# ---------------------------------------------------------------- phase 28
+BUCKET_TRAIN = 32                     # train songs of 21-30 s, whole
+BUCKET_SECONDS = (21.0, 30.0)
+BUCKET_VALID = (8.4, 9.6)             # valid songs (5 s utterances)
+BUCKET_BATCH_SECONDS = 240.0          # 8 x 30 s, as phase 6
+BUCKET_MAX_EX = 8
+BUCKET_COUNT = 4
+BUCKET_STEPS = 4                      # one epoch: 4 batches of 8
+BUCKET_SAVE_AFTER = 2                 # the intra-epoch checkpoint
+
+
+def write_wav_24(path, sig):
+    """``sig`` in [-1, 1] as 24-bit PCM (``wave`` writes WAVE_FORMAT_PCM)."""
+    import wave
+
+    pcm = np.clip(np.round(sig.astype(np.float64) * 8388607.0), -8388608,
+                  8388607).astype("<i4")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(3)
+        w.setframerate(SR)
+        w.writeframes(pcm.view(np.uint8).reshape(-1, 4)[:, :3].tobytes())
+
+
+def make_bucket_set(root, rng):
+    """``BUCKET_TRAIN`` noise songs of 21-30 s as WAVs under
+    ``root/bucket``: 16-bit PCM, but one 32-bit float and one 24-bit PCM
+    file. Returns ({id: {"wav", "duration"}}, {file format: count})."""
+    from scipy.io import wavfile
+
+    folder = os.path.join(root, "bucket")
+    os.makedirs(folder)
+    data, formats = {}, {}
+    durations = np.round(rng.uniform(*BUCKET_SECONDS, BUCKET_TRAIN), 2)
+    for i, duration in enumerate(durations):
+        path = os.path.join(folder, f"song{i:02d}.wav")
+        sig = (0.1 * rng.standard_normal(int(duration * SR))).astype(
+            np.float32)
+        if i == 0:
+            wavfile.write(path, SR, sig)           # IEEE float
+            kind = "float32"
+        elif i == 1:
+            write_wav_24(path, sig)
+            kind = "pcm24"
+        else:
+            write_audio(path, sig, SR)
+            kind = "pcm16"
+        formats[kind] = formats.get(kind, 0) + 1
+        data[f"song{i:02d}"] = {"wav": path, "duration": float(duration)}
+    return data, formats
+
+
+def bucket_dataset(data):
+    """Whole songs read by ``read_audio`` (the native reader) with labels
+    made as ``train_batch`` makes them, from a generator seeded by the
+    song's index, so that every run and worker draws the same ones."""
+    ds = DynamicItemDataset(data)
+
+    def labels(id, duration):
+        r = np.random.default_rng(SEED + 28 + int(id[4:]))
+        frames = int(round(duration * FRAME_RATE))
+        return np.stack([r.random(frames) < 0.05, r.random(frames) < 0.05,
+                         r.integers(0, 5, frames), r.integers(0, 13, frames)],
+                        axis=-1).astype(np.float32)
+
+    ds.add_dynamic_item(read_audio, takes="wav", provides="sig")
+    ds.add_dynamic_item(labels, takes=["id", "duration"], provides="anno")
+    ds.set_output_keys(["id", "sig", "anno"])
+    return ds
+
+
+def bucket_brain(root, csvs, tree, data):
+    """(brain, hparams, recipe sets, train loader): the recipe's brain over
+    ``tree``'s weights and the recipe's checkpointer, fed whole songs
+    through ``Brain.make_dataloader`` with a ``DynamicBatchSampler``, 2
+    workers and ``prefetch_batches`` 4; then ``on_fit_start`` (the
+    optimizers, and the newest checkpoint if there is one) and the epoch's
+    start, as ``fit`` runs them."""
+    brain, hp, sets = recipe_brain(root, csvs, {}, tree, "cuda",
+                                   linear_prob_epochs=0)
+    sampler = DynamicBatchSampler(
+        None, BUCKET_BATCH_SECONDS, num_buckets=BUCKET_COUNT,
+        lengths_list=[d["duration"] for d in data.values()],
+        max_batch_ex=BUCKET_MAX_EX, shuffle=True, seed=SEED + 28)
+    loader = brain.make_dataloader(bucket_dataset(data), Stage.TRAIN,
+                                   batch_sampler=sampler, num_workers=2,
+                                   prefetch_batches=4)
+    brain.on_fit_start()
+    brain.on_stage_start(Stage.TRAIN, 1)
+    brain.train_sampler.set_epoch(1)
+    return brain, hp, sets, loader
+
+
+def bucket_step(brain, batch, timer, n_layers, config):
+    """``fit_batch`` on ``batch`` as ``fit`` steps, timed by ``StepTimer``
+    with the card synchronized, the counts set to 0 just before and read
+    just after; returns (ids, loss, ms, counts, MFU against the f32
+    peak)."""
+    ops.reset_launch_counts()
+    brain.step += 1
+    with timer.measure(device="cuda"):
+        loss = brain.fit_batch(batch)
+    counts = ops.launch_counts()
+    ms = (timer.times or [timer.first_time])[-1] * 1e3
+    rows, samples = batch["sig"].data.shape
+    used = flops.mfu(rows * flops.amt_train_flops(config, samples),
+                     1e3 / ms, dtype="f32")
+    audio_s = float(batch["sig"].lengths.sum()) * samples / SR
+    log(f"  step {brain.step}: {rows} songs padded to {samples / SR:.2f} s "
+        f"({audio_s:.1f} s of audio), loss={loss:.6f} {ms:.1f} ms, MFU "
+        f"{100 * used:.2f}% of f32, launches="
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if not np.isfinite(loss):
+        raise AssertionError(f"nonfinite training loss {loss}")
+    expect_counts(counts, {name: n_layers for name in TRAIN_KERNELS},
+                  "bucketed training step")
+    return list(batch.id), loss, ms, counts, used
+
+
+def count_native_reads():
+    """(shared count, restore): ``native.wav_read`` replaced by a wrapper
+    that adds one to the count for each file it decodes. Forked loader
+    workers inherit the wrapper and the shared count; a read that falls
+    back to scipy, or never reaches the native reader, is not counted."""
+    reads = multiprocessing.Value("i", 0)
+    wav_read = native.wav_read
+
+    def counted(*args, **kwargs):
+        out = wav_read(*args, **kwargs)
+        if out is not None:
+            with reads.get_lock():
+                reads.value += 1
+        return out
+
+    native.wav_read = counted
+    return reads, lambda: setattr(native, "wav_read", wav_read)
+
+
+def expect_reads(reads, want, what):
+    got, reads.value = reads.value, 0
+    log(f"  {what}: {got} files decoded by the native reader (want {want})")
+    if got != want:
+        raise AssertionError(f"{what}: {got} native reads, want {want}")
+
+
+def record_attention(brain, config):
+    """(calls, hook): the first layer's attention records, once a step, the
+    (B, H, T, Dh) shape and the key lengths it is given."""
+    calls = {}
+
+    def record(module, args, kwargs):
+        x, lens = args[0], kwargs.get("key_lengths")
+        calls.setdefault(brain.step, (
+            (x.shape[0], config.num_heads, x.shape[1],
+             x.shape[2] // config.num_heads),
+            None if lens is None else lens.detach().clone()))
+
+    attn = brain.modules.wav2vec2.encoder.layers[0].attn
+    return calls, attn.register_forward_pre_hook(record, with_kwargs=True)
+
+
+def check_trace(path):
+    """The profiler's trace names the ``annotate`` range and the device
+    kernels of 3b, 4a and 4b."""
+    with open(path) as f:
+        trace = f.read()
+    names = {"range fit_batch": '"fit_batch"', "3b": "flash_fwd_kernel",
+             "4a": "flash_bwd_dq_kernel", "4b": "flash_bwd_dkv_kernel"}
+    found = {k: v in trace for k, v in names.items()}
+    log(f"  profiled step: {os.path.basename(path)} of "
+        f"{len(trace) / 2 ** 20:.1f} MiB names {found}")
+    if not all(found.values()):
+        raise AssertionError(f"the profiler trace lacks {found}")
+
+
+def bucketed_training_phase(gen, errs):
+    """Phase 28: ``AudioAMT`` at lv60 full width and depth (f32, TF32 off,
+    the recipe's hyperparameters, seeded weights) trained on whole songs
+    read from WAV files by the native reader and batched in length buckets
+    (``DynamicBatchSampler`` through ``Brain.make_dataloader``); 3b, 4a
+    and 4b held against their plain versions at each step's attention
+    shape and key lengths; an intra-epoch checkpoint after step 2
+    recovered by a fresh brain; one step under ``profiling.profile``;
+    ``evaluate`` of a valid set at batch 1. The songs come from the
+    phase's own generator, so the batches' shapes do not depend on the
+    phases before. Returns (launches of the phase, summary)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    if os.environ.get("SVT_NATIVE", "1") == "0":
+        raise AssertionError("SVT_NATIVE=0 turns the native WAV reader off")
+    if native.get_lib() is None:
+        raise AssertionError("the native WAV reader did not build")
+    rng = np.random.default_rng(SEED + 28)
+    root = tempfile.mkdtemp(prefix="chip_smoke_bucketed_")
+    reads, restore_reads = count_native_reads()
+    phase_counts = dict.fromkeys(ops.launch_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            phase_counts[k] += v
+
+    try:
+        data, formats = make_bucket_set(root, rng)
+        valid = make_recipe_set(root, rng, {"valid": BUCKET_VALID})["valid"]
+        csvs = {"train": valid, "valid": valid, "test": valid}
+        tree = init_params(Wav2Vec2Config(),
+                           torch.Generator().manual_seed(SEED + 28),
+                           HEAD_OUTPUTS)
+        brain, hp, sets, loader = bucket_brain(root, csvs, tree, data)
+        config = brain.modules.wav2vec2.config
+        n_layers = config.num_layers
+        total_s = sum(d["duration"] for d in data.values())
+        log(f"  {len(data)} songs of {BUCKET_SECONDS[0]:.0f}-"
+            f"{BUCKET_SECONDS[1]:.0f} s ({total_s:.1f} s) as WAV files "
+            f"{formats}, read by the native reader; DynamicBatchSampler at "
+            f"{BUCKET_BATCH_SECONDS:.0f} s and {BUCKET_MAX_EX} songs a "
+            f"batch, {BUCKET_COUNT} buckets, seeded shuffle: {len(loader)} "
+            f"batches; 2 loader workers, prefetch_batches 4; {n_layers} "
+            f"layers, f32, dropouts 0.1")
+        timer = profiling.StepTimer("bucketed step")
+        calls, hook = record_attention(brain, config)
+        reads.value = 0
+        torch.cuda.reset_peak_memory_stats()
+        steps, save_s = [], None
+        t_epoch = time.perf_counter()
+        frames = []
+        for batch in loader:
+            steps.append(bucket_step(brain, batch, timer, n_layers, config))
+            samples = batch["sig"].data.shape[1]
+            frames.append([config.output_length(int(round(float(rel) *
+                                                          samples)))
+                           for rel in batch["sig"].lengths])
+            if brain.step == BUCKET_SAVE_AFTER:
+                t0 = time.perf_counter()
+                brain._save_intra_epoch_ckpt()
+                save_s = time.perf_counter() - t0
+                log(f"  intra-epoch checkpoint after step {brain.step} in "
+                    f"{save_s:.2f} s; loader state {loader.state_dict()}")
+        epoch_s = time.perf_counter() - t_epoch
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        hook.remove()
+        for *_, counts, _ in steps:
+            add(counts)
+        if len(steps) != BUCKET_STEPS or save_s is None:
+            raise AssertionError(f"{len(steps)} batches, want "
+                                 f"{BUCKET_STEPS}")
+        expect_reads(reads, sum(len(s[0]) for s in steps), "the epoch")
+        # training attends the padding (``tasks/amt.py``), so the kernels
+        # get no key lengths; they are held as called and, at the same
+        # shapes, with the rows' true frame counts
+        cases = [(shape, None if lens is None else lens.tolist())
+                 for shape, lens in (calls[k] for k in sorted(calls))]
+        if len(cases) != BUCKET_STEPS:
+            raise AssertionError(f"the steps' attention calls: {cases}")
+        log(f"  3b, 4a, 4b against their plain versions at the steps' "
+            f"attention shapes {[c[0] for c in cases]} as called (key "
+            f"lengths {[c[1] for c in cases]}) and with the rows' frame "
+            f"counts, on random q, k, v")
+        check_training_kernels(
+            gen, errs, cases + [(shape, n) for (shape, _), n in
+                                zip(cases, frames)], dtypes=("f32",))
+
+        logdir = os.path.join(root, "profile")
+        ops.reset_launch_counts()
+        with profiling.profile(logdir):
+            with profiling.annotate("fit_batch"):
+                brain.fit_batch(batch)
+            torch.cuda.synchronize()
+        add(ops.launch_counts())
+        check_trace(os.path.join(logdir, profiling.TRACE_FILE))
+
+        saved, brain.checkpointer = brain.checkpointer, None
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        brain.evaluate(sets[1], test_loader_kwargs=hp["test_dataloader_opts"])
+        eval_s = time.perf_counter() - t0
+        brain.checkpointer = saved
+        expect_reads(reads, len(brain.evals), "evaluate")
+        add(ops.launch_counts())
+        for ev in brain.evals:
+            expect_counts(ev["counts"], {"conv_frontend": 7,
+                                         "flash_attention_short": n_layers},
+                          f"evaluation of {ev['id']}")
+        log(f"  evaluate: {len(brain.evals)} utterances of "
+            f"{len(BUCKET_VALID)} songs at batch 1 in {eval_s:.2f} s "
+            f"({[round(e['wall'] * 1e3, 1) for e in brain.evals]} ms each)")
+        del brain, loader, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        fresh, _, _, loader = bucket_brain(root, csvs, tree, data)
+        recover_s = time.perf_counter() - t0
+        if fresh.step != BUCKET_SAVE_AFTER:
+            raise AssertionError(f"recovered at step {fresh.step}, want "
+                                 f"{BUCKET_SAVE_AFTER}")
+        resumed = [bucket_step(fresh, batch, profiling.StepTimer(), n_layers,
+                               config) for batch in loader]
+        expect_reads(reads, sum(len(r[0]) for r in resumed),
+                     "the recovered epoch (the consumed batches unread)")
+        for *_, counts, _ in resumed:
+            add(counts)
+        tail = steps[BUCKET_SAVE_AFTER:]
+        ids_equal = [r[0] for r in resumed] == [t[0] for t in tail]
+        losses = [(r[1], t[1]) for r, t in zip(resumed, tail)]
+        bitwise = len(resumed) == len(tail) and all(a == b
+                                                    for a, b in losses)
+        rel = max(abs(a - b) / abs(b) for a, b in losses)
+        log(f"  recovered by a fresh brain in {recover_s:.2f} s: batch ids "
+            f"equal {ids_equal}; losses (recovered, uninterrupted) {losses}: "
+            f"bit for bit {bitwise}, max rel {rel:.3e} (tol "
+            f"{TOL_STEP['loss_rel']:.0e})")
+        if not ids_equal or len(resumed) != len(tail) or \
+                rel > TOL_STEP["loss_rel"]:
+            raise AssertionError(f"the recovered run left the uninterrupted "
+                                 f"one: {resumed} against {tail}")
+        del fresh, loader
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        restore_reads()
+        shutil.rmtree(root)
+    summary = timer.summary()
+    mfus = [s[4] for s in steps]
+    summary.update(
+        step_ms=[round(s[2], 1) for s in steps],
+        mfu_f32=[round(m, 5) for m in mfus], peak_gb=peak_gb,
+        epoch_s=epoch_s, save_s=save_s, recover_s=recover_s, eval_s=eval_s,
+        recovery=("bit for bit" if bitwise
+                  else f"within loss_rel ({rel:.3e})"),
+        formats=formats, attention=[[list(c[0]), c[1], n]
+                                    for c, n in zip(cases, frames)],
+        phase_s=time.perf_counter() - t_phase)
+    log(f"  steps {summary['step_ms']} ms (StepTimer, card synchronized), "
+        f"MFU {[f'{100 * m:.2f}%' for m in mfus]} of the f32 peak; peak "
+        f"memory {peak_gb:.2f} GiB; phase {summary['phase_s']:.1f} s")
+    return phase_counts, summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7674,6 +8064,14 @@ def main():
     interface_counts, interface_summary = interfaces_phase(rng)
     log(f"  phase 27 summary: {json.dumps(interface_summary)}")
 
+    log("phase 28: bucketed training from WAV files: AudioAMT at lv60 full "
+        "width and depth, f32, whole songs of 21-30 s read by the native "
+        "reader, DynamicBatchSampler through Brain.make_dataloader (2 "
+        "workers, prefetch_batches 4), a mid-epoch recovery, a profiled "
+        "step, evaluate at batch 1")
+    bucket_counts, bucket_summary = bucketed_training_phase(gen, errs)
+    log(f"  phase 28 summary: {json.dumps(bucket_summary)}")
+
     kernels = []
     for key, r in rows.items():
         if not isinstance(key, tuple) and key not in SOURCES:
@@ -7682,7 +8080,8 @@ def main():
             name, tag = key
             if tag != "f32":
                 continue
-            launches = train_counts[name] + pretrain_counts[name]
+            launches = (train_counts[name] + pretrain_counts[name]
+                        + bucket_counts[name])
         else:
             name = key
             tag = "f32" if name.startswith("rnnt_") else "bf16"
@@ -7694,6 +8093,7 @@ def main():
             if name == "conv_frontend":
                 launches += pretrain_counts[name]
             launches += interface_counts.get(name, 0)
+            launches += bucket_counts.get(name, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches,

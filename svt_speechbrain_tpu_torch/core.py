@@ -104,6 +104,7 @@ from svt_speechbrain_tpu_torch.utils.logger import (
 
 logger = logging.getLogger(__name__)
 
+DEFAULT_LOG_CONFIG = None
 INTRA_EPOCH_CKPT_FLAG = "brain_intra_epoch_ckpt"
 
 
@@ -116,11 +117,13 @@ class Stage(Enum):
 
 
 def create_experiment_directory(experiment_directory, hyperparams_to_save=None,
-                                overrides={}, save_env_desc=True):
+                                overrides={}, log_config=DEFAULT_LOG_CONFIG,
+                                save_env_desc=True):
     """Create the experiment folder (``core.py:85``), on the main process:
     the hyperparameter file with a header naming it and the overrides, a
     copy of the calling script, ``log.txt`` (logging is set up to it) and
-    ``env.log``."""
+    ``env.log``. ``log_config`` is accepted and unused, as in the JAX
+    package: logging is always ``utils.logger.setup_logging``'s."""
     caller = inspect.getmodule(inspect.currentframe().f_back)
 
     def _create():
@@ -538,9 +541,15 @@ class Brain:
         """A loader with the stage's defaults (``core.py:479``): a seeded
         ``ReproducibleRandomSampler`` for a shuffled train set, pinned
         batches on CUDA, and the position checkpointed as
-        ``<ckpt_prefix><STAGE>``."""
+        ``<ckpt_prefix><STAGE>``. A train ``batch_sampler`` is handed to the
+        loader as it is, with no sampler beside it (each rank then draws
+        every batch, as in the JAX package), and ``fit``'s ``set_epoch``
+        reaches it."""
         loader_kwargs = dict(loader_kwargs)
-        if stage == Stage.TRAIN:
+        if stage == Stage.TRAIN and \
+                loader_kwargs.get("batch_sampler") is not None:
+            self.train_sampler = loader_kwargs["batch_sampler"]
+        elif stage == Stage.TRAIN:
             if loader_kwargs.pop("shuffle", False) and \
                     loader_kwargs.get("sampler") is None:
                 loader_kwargs["sampler"] = ReproducibleRandomSampler(

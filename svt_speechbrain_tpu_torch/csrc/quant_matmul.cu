@@ -4,7 +4,10 @@
 //   scale[m] = max(amax[m], 1e-8) / 127                  (true f32 division)
 //   x8[m, k] = clip(rint(float(x[m, k]) / scale[m]), -127, 127)
 //              (true division, round half to even)
-//   out[m, n] = T((float(sum_k x8[m, k] * w8[k, n]) * scale[m]) * w_scale[n])
+//   out[m, n] = O((float(sum_k x8[m, k] * w8[k, n]) * scale[m]) * w_scale[n])
+//
+// x is T, out is O (float or bfloat16 each): the epilogue is in f32 and
+// writes O directly, so an f32 result of bf16 input is never rounded to bf16.
 //
 // Replaces the TPU kernel svt_speechbrain_tpu/ops/quant.py `int8_matmul_fused`
 // (`_qmm_kernel`, `pallas_call` at `:168`). That kernel's grid runs in order:
@@ -305,12 +308,12 @@ __device__ __forceinline__ void fetch_x(unsigned char* st,
 // xq is the scratch of the int8 rows: for each group of column tiles that a
 // cluster covers, row block and 128-k slab, the slab's 128 rows x 128 bytes
 // in the ring's swizzle, so that one straight copy of 16 KB stages it.
-template <typename T>
+template <typename T, typename O>
 __global__ void __launch_bounds__(kThreads, 2)
     int8_matmul_wgmma_kernel(const T* __restrict__ x,
                              const int8_t* __restrict__ w8t,
                              const void* __restrict__ ws, int ws_bf16,
-                             T* __restrict__ out, int8_t* __restrict__ x8_out,
+                             O* __restrict__ out, int8_t* __restrict__ x8_out,
                              float* __restrict__ xs_out,
                              int8_t* __restrict__ xq, int M, int K, int N) {
   trace(0);
@@ -495,7 +498,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   trace(2);
 
   // ---- epilogue in f32, in the reference's order: (acc * x_scale) * w_scale
-  constexpr int kLd = staged_row_bytes<T>();
+  constexpr int kLd = staged_row_bytes<O>();
   static_assert(8 * 16 * kLd <= kStages * kSlab, "staging");
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -506,16 +509,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int j = 0; j < kBN / 8; ++j) {
     const int c = 8 * j + 2 * tq;
     const float2 w = *reinterpret_cast<const float2*>(wscale + c);
-    Vec<T>::store2(stage + g * kLd + c * (int)sizeof(T),
+    Vec<O>::store2(stage + g * kLd + c * (int)sizeof(O),
                    (__int2float_rn(acc[j][0]) * xs0) * w.x,
                    (__int2float_rn(acc[j][1]) * xs0) * w.y);
-    Vec<T>::store2(stage + (g + 8) * kLd + c * (int)sizeof(T),
+    Vec<O>::store2(stage + (g + 8) * kLd + c * (int)sizeof(O),
                    (__int2float_rn(acc[j][2]) * xs1) * w.x,
                    (__int2float_rn(acc[j][3]) * xs1) * w.y);
   }
   __syncwarp();
   // 16-byte stores, whole rows of the tile
-  constexpr int kChunks = kBN * (int)sizeof(T) / 16;  // a row's
+  constexpr int kChunks = kBN * (int)sizeof(O) / 16;  // a row's
 #pragma unroll 4
   for (int i = lane; i < 16 * kChunks; i += 32) {
     const int r = i / kChunks, c = i % kChunks;
@@ -545,21 +548,21 @@ cudaLaunchConfig_t launch_config(dim3 grid, int cluster, cudaStream_t stream,
   return cfg;
 }
 
-template <typename T>
+template <typename T, typename O>
 cudaError_t launch(const void* x, const void* w8t, const void* ws,
                    int ws_bf16, void* out, void* x8_out, void* xs_out,
                    void* xq, int m, int k, int n, int cluster,
                    cudaStream_t stream) {
   static bool configured = false;
   const cudaError_t err =
-      svt::allow_smem(int8_matmul_wgmma_kernel<T>, kSmem, configured);
+      svt::allow_smem(int8_matmul_wgmma_kernel<T, O>, kSmem, configured);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(
       dim3(n / kBN, (m + kBM - 1) / kBM, 1), cluster, stream, &attr);
   const cudaError_t launched = cudaLaunchKernelEx(
-      &cfg, int8_matmul_wgmma_kernel<T>, static_cast<const T*>(x),
-      static_cast<const int8_t*>(w8t), ws, ws_bf16, static_cast<T*>(out),
+      &cfg, int8_matmul_wgmma_kernel<T, O>, static_cast<const T*>(x),
+      static_cast<const int8_t*>(w8t), ws, ws_bf16, static_cast<O*>(out),
       static_cast<int8_t*>(x8_out), static_cast<float*>(xs_out),
       static_cast<int8_t*>(xq), m, k, n);
   return launched != cudaSuccess ? launched : cudaGetLastError();
@@ -567,7 +570,7 @@ cudaError_t launch(const void* x, const void* w8t, const void* ws,
 
 template <typename T>
 cudaError_t attributes(int cluster, int* out) {
-  auto kernel = int8_matmul_wgmma_kernel<T>;
+  auto kernel = int8_matmul_wgmma_kernel<T, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   cudaFuncAttributes a;
@@ -593,7 +596,8 @@ cudaError_t attributes(int cluster, int* out) {
 
 }  // namespace
 
-// dtype (x and out) and ws_dtype (w_scale): 0 = float32, 1 = bfloat16.
+// dtype (x), ws_dtype (w_scale) and out_dtype (out): 0 = float32,
+// 1 = bfloat16.
 // cluster 1, 2, 4 or 8 dividing N / 128; xq the scratch of xq_bytes, at
 // least N / 128 / cluster x ceil(M / 128) x 128 x K int8 (one copy of the
 // int8 rows, in slabs, for each group of column tiles). x8_out (M, K) int8
@@ -603,7 +607,8 @@ cudaError_t attributes(int cluster, int* out) {
 // cudaErrorInvalidValue for what the kernel does not take.
 extern "C" int svt_int8_matmul(int dtype, const void* x, const void* w8t,
                                const void* ws, int ws_dtype, void* out,
-                               void* x8_out, void* xs_out, void* xq,
+                               int out_dtype, void* x8_out, void* xs_out,
+                               void* xq,
                                long long xq_bytes, int m, int k, int n,
                                int cluster, void* stream) {
   if (m <= 0 || k <= 0 || n <= 0 || k % kBK || k > kMaxK || n % kBN ||
@@ -613,15 +618,23 @@ extern "C" int svt_int8_matmul(int dtype, const void* x, const void* w8t,
       xq_bytes < (long long)(n / kBN / cluster) * ((m + kBM - 1) / kBM) *
                      kBM * k ||
       (ws_dtype != 0 && ws_dtype != 1) ||
+      (out_dtype != 0 && out_dtype != 1) ||
       (x8_out == nullptr) != (xs_out == nullptr))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch<float>(x, w8t, ws, ws_dtype, out, x8_out, xs_out, xq,
-                              m, k, n, cluster, st);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, w8t, ws, ws_dtype, out, x8_out,
-                                      xs_out, xq, m, k, n, cluster, st);
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0 && out_dtype == 0)
+    return (int)launch<float, float>(x, w8t, ws, ws_dtype, out, x8_out,
+                                     xs_out, xq, m, k, n, cluster, st);
+  if (dtype == 0 && out_dtype == 1)
+    return (int)launch<float, bf16>(x, w8t, ws, ws_dtype, out, x8_out,
+                                    xs_out, xq, m, k, n, cluster, st);
+  if (dtype == 1 && out_dtype == 0)
+    return (int)launch<bf16, float>(x, w8t, ws, ws_dtype, out, x8_out,
+                                    xs_out, xq, m, k, n, cluster, st);
+  if (dtype == 1 && out_dtype == 1)
+    return (int)launch<bf16, bf16>(x, w8t, ws, ws_dtype, out, x8_out,
+                                   xs_out, xq, m, k, n, cluster, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -117,3 +117,39 @@ class PaddedBatch:
                 val = val.pin_memory()
             setattr(self, key, val)
         return self
+
+
+class BatchsizeGuesser:
+    """The batch size of any batch object, never raising
+    (``batch.py:127``): ``batchsize``, a leading dimension, the first value
+    of a dict or the first item of a sequence; 1 when none applies.
+
+    Example
+    -------
+    >>> import torch
+    >>> guess = BatchsizeGuesser()
+    >>> guess(torch.zeros(3, 5)), guess({"x": [torch.zeros(4, 2)]}), guess(7)
+    (3, 4, 1)
+    """
+
+    def guess(self, batch):
+        try:
+            if hasattr(batch, "batchsize"):
+                return batch.batchsize
+            if hasattr(batch, "shape"):
+                return batch.shape[0]
+            if isinstance(batch, dict) and batch:
+                return self.guess(next(iter(batch.values())))
+            if isinstance(batch, (list, tuple)) and batch:
+                first = batch[0]
+                if hasattr(first, "shape"):
+                    return first.shape[0]
+                if isinstance(first, (int, float, str)):
+                    return len(batch)
+                return self.guess(first)
+        except Exception:
+            pass
+        return 1
+
+    def __call__(self, batch):
+        return self.guess(batch)

@@ -14,6 +14,7 @@ CPU and never touch CUDA; the loader pins batches in the parent process.
 from __future__ import annotations
 
 import functools
+import inspect
 import itertools
 
 from torch.utils.data import BatchSampler, DataLoader, Sampler
@@ -34,27 +35,39 @@ def make_dataloader(dataset, looped_nominal_epoch=None, **loader_kwargs):
 
 
 class _SkippingBatchSampler(Sampler):
-    """Batches of a sampler; the first ``skip`` batches of the next
-    iteration are drawn and dropped (their items are never loaded)."""
+    """The batches of a batch sampler, the first ``skip`` of them drawn and
+    dropped (their items are never loaded). The loader sets ``skip`` back
+    to 0 once its iterator holds the batches: a worker iterator asks for
+    them twice as it starts."""
 
-    def __init__(self, sampler, batch_size, drop_last):
-        self.batches = BatchSampler(sampler, batch_size, drop_last)
+    def __init__(self, batches):
+        self.batches = batches
         self.skip = 0
 
     def __iter__(self):
-        skip, self.skip = self.skip, 0
-        return itertools.islice(iter(self.batches), skip, None)
+        return itertools.islice(iter(self.batches), self.skip, None)
 
     def __len__(self):
         return len(self.batches)
 
 
+_LOADER_KEYS = frozenset(inspect.signature(DataLoader.__init__).parameters)
+
+
 class SaveableDataLoader(DataLoader):
     """A ``DataLoader`` of ``PaddedBatch``es with a checkpointable position
     (``dataloader.py:32``): ``state_dict()`` holds the number of batches
-    delivered in the epoch under way (None between epochs), and
-    ``load_state_dict(..., end_of_epoch=False)`` makes the next iteration
-    resume after them.
+    delivered in the epoch under way (None before the first and after the
+    last), and ``load_state_dict(..., end_of_epoch=False)`` makes the next
+    iteration resume after them.
+
+    The signature is the JAX loader's: a ``batch_sampler`` gives the batches
+    (and wins over ``sampler``), ``set_epoch`` reaches it, and
+    ``prefetch_batches`` bounds the batches in flight across the worker
+    processes (it has no effect without workers; left out, torch's own
+    per-worker default stands). Keys that neither that
+    loader nor ``torch.utils.data.DataLoader`` knows are dropped, as the
+    JAX loader drops them.
 
     Example
     -------
@@ -71,43 +84,59 @@ class SaveableDataLoader(DataLoader):
     >>> resumed.load_state_dict(dl.state_dict(), end_of_epoch=False)
     >>> [b.id for b in resumed]                   # skips the consumed batch
     [['u2', 'u3']]
+    >>> [b.id for b in SaveableDataLoader(data, batch_sampler=[[3], [0, 2]])]
+    [['u3'], ['u0', 'u2']]
     """
 
     def __init__(self, dataset, batch_size=1, shuffle=False, sampler=None,
-                 collate_fn=None, drop_last=False, num_workers=0,
-                 pin_memory=False, pad_multiples=None, padded_keys=None,
-                 non_padded_keys=(), seed=563375142, **loader_kwargs):
-        if sampler is None:
-            sampler = (ReproducibleRandomSampler(dataset, seed=seed)
-                       if shuffle else SequentialSampler(dataset))
+                 batch_sampler=None, collate_fn=None, drop_last=False,
+                 num_workers=0, prefetch_batches=None, pin_memory=False,
+                 pad_multiples=None, padded_keys=None, non_padded_keys=(),
+                 seed=563375142, **loader_kwargs):
+        if batch_sampler is None:
+            if sampler is None:
+                sampler = (ReproducibleRandomSampler(dataset, seed=seed)
+                           if shuffle else SequentialSampler(dataset))
+            batch_sampler = BatchSampler(sampler, batch_size, drop_last)
+            self.item_sampler = sampler
+        else:
+            self.item_sampler = None
         if collate_fn is None:
             collate_fn = functools.partial(
                 PaddedBatch, pad_multiples=pad_multiples,
                 padded_keys=padded_keys, non_padded_keys=non_padded_keys)
+        loader_kwargs = {k: v for k, v in loader_kwargs.items()
+                         if k in _LOADER_KEYS}
         if num_workers > 0:
             loader_kwargs.setdefault("multiprocessing_context", "fork")
+        if num_workers > 0 and prefetch_batches is not None:
+            # torch counts prefetched batches per worker
+            loader_kwargs.setdefault(
+                "prefetch_factor",
+                max(1, -(-max(prefetch_batches, 1) // num_workers)))
         super().__init__(
-            dataset, batch_sampler=_SkippingBatchSampler(
-                sampler, batch_size, drop_last),
+            dataset, batch_sampler=_SkippingBatchSampler(batch_sampler),
             collate_fn=collate_fn, num_workers=num_workers,
             pin_memory=pin_memory, **loader_kwargs)
-        self.item_sampler = sampler
-        self._iterator = None
-        self._skipped = 0
+        self._iterator_position = None
 
     def __iter__(self):
-        self._skipped = self.batch_sampler.skip
-        self._iterator = super().__iter__()
-        return self._iterator
+        skip = self.batch_sampler.skip
+        batches = super().__iter__()
+        self.batch_sampler.skip = 0
+        return self._counted(batches, skip)
 
-    def _position(self):
-        if self._iterator is None:
-            return None
-        pos = self._skipped + self._iterator._num_yielded
-        return pos if 0 < pos < len(self) else None
+    def _counted(self, batches, skip):
+        # counted before the yield: a batch the consumer holds is consumed
+        # for recovery (the JAX loader's order)
+        self._iterator_position = skip
+        for batch in batches:
+            self._iterator_position += 1
+            yield batch
+        self._iterator_position = None
 
     def state_dict(self):
-        return {"iterator_position": self._position()}
+        return {"iterator_position": self._iterator_position}
 
     def load_state_dict(self, data, end_of_epoch=True):
         pos = data.get("iterator_position")
@@ -115,8 +144,10 @@ class SaveableDataLoader(DataLoader):
             self.batch_sampler.skip = pos
 
     def set_epoch(self, epoch):
-        if hasattr(self.item_sampler, "set_epoch"):
-            self.item_sampler.set_epoch(epoch)
+        target = (self.item_sampler if self.item_sampler is not None
+                  else self.batch_sampler.batches)
+        if hasattr(target, "set_epoch"):
+            target.set_epoch(epoch)
 
 
 class LoopedLoader:

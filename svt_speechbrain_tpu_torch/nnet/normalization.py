@@ -52,11 +52,11 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.scale, self.bias, eps=self.eps)
 
 
-def layer_norm(x, scale=None, bias=None, eps=1e-5, dim=-1):
-    """Functional layer norm over ``dim`` (``normalization.py:59``)."""
+def layer_norm(x, scale=None, bias=None, eps=1e-5, axis=-1):
+    """Functional layer norm over ``axis`` (``normalization.py:59``)."""
     x32 = wide(x)
-    mean = x32.mean(dim=dim, keepdim=True)
-    var = (x32 - mean).square().mean(dim=dim, keepdim=True)
+    mean = x32.mean(dim=axis, keepdim=True)
+    var = (x32 - mean).square().mean(dim=axis, keepdim=True)
     y = (x32 - mean) * torch.rsqrt(var + eps)
     if scale is not None:
         y = y * scale

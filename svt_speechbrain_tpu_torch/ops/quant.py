@@ -52,9 +52,9 @@ SHARED_BYTES = 1024 + 3 * (BLOCK_M + BLOCK_N) * BLOCK_K \
 _SIGNATURES = {
     "svt_int8_matmul": [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "svt_int8_matmul_attributes": [ctypes.c_int, ctypes.c_int,
                                    ctypes.POINTER(ctypes.c_int)]}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -96,16 +96,17 @@ def quantize_activation(x, eps=1e-8):
     return x8, scale
 
 
-def int8_matmul_plain(x, w8, w_scale):
+def int8_matmul_plain(x, w8, w_scale, out_dtype=None):
     """The plain version: quantize, an exact integer product, the
     epilogue in f32 in the order ``(acc * x_scale) * w_scale``, one cast to
-    ``x.dtype``. The product runs in float64, which holds every partial sum
-    exactly on both devices (|sum| ≤ 127·127·K < 2^53; an f32 product is
-    not exact past K = 1040, and integer matmul does not exist on CUDA)."""
+    ``out_dtype`` (default ``x.dtype``). The product runs in float64, which
+    holds every partial sum exactly on both devices (|sum| ≤ 127·127·K <
+    2^53; an f32 product is not exact past K = 1040, and integer matmul does
+    not exist on CUDA)."""
     x8, x_scale = quantize_activation(x)
     acc = torch.matmul(x8.double(), w8.double())
     y = (acc.float() * x_scale) * w_scale.float()
-    return y.to(x.dtype)
+    return y.to(out_dtype or x.dtype)
 
 
 def pack_weight(w8):
@@ -207,14 +208,18 @@ def _check(x, w8, w_scale):
         raise ValueError("x, w8 and w_scale must lie on one device")
 
 
-def _launch(x, w8, w_scale, w8t, debug, lib=None, plan=None):
+def _launch(x, w8, w_scale, w8t, debug, lib=None, plan=None,
+            out_dtype=None):
     k, n = w8.shape
     if k % ALIGN or n % ALIGN:
         raise ValueError(f"the int8 kernel needs K and N to be multiples of "
                          f"{ALIGN}; got K={k}, N={n}")
-    if x.dtype not in _DTYPE_CODES or w_scale.dtype not in _DTYPE_CODES:
-        raise ValueError(f"the int8 kernel takes f32 or bf16 activations and "
-                         f"scales, not {x.dtype} / {w_scale.dtype}")
+    out_dtype = out_dtype or x.dtype
+    if (x.dtype not in _DTYPE_CODES or w_scale.dtype not in _DTYPE_CODES
+            or out_dtype not in _DTYPE_CODES):
+        raise ValueError(f"the int8 kernel takes f32 or bf16 activations, "
+                         f"scales and outputs, not {x.dtype} / "
+                         f"{w_scale.dtype} / {out_dtype}")
     if not x.is_contiguous() or not w_scale.is_contiguous():
         raise ValueError("the int8 kernel needs contiguous x and w_scale")
     if w8t is None:
@@ -225,7 +230,7 @@ def _launch(x, w8, w_scale, w8t, debug, lib=None, plan=None):
     if x.data_ptr() % 16 or w8t.data_ptr() % 16:
         raise ValueError("the int8 kernel needs 16-byte aligned operands")
     m = x.numel() // k
-    out = torch.empty(*x.shape[:-1], n, device=x.device, dtype=x.dtype)
+    out = torch.empty(*x.shape[:-1], n, device=x.device, dtype=out_dtype)
     x8 = xs = None
     if debug:
         x8 = torch.empty(x.shape, device=x.device, dtype=torch.int8)
@@ -240,6 +245,7 @@ def _launch(x, w8, w_scale, w8t, debug, lib=None, plan=None):
     err = lib.svt_int8_matmul(
         _DTYPE_CODES[x.dtype], x.data_ptr(), w8t.data_ptr(),
         w_scale.data_ptr(), _DTYPE_CODES[w_scale.dtype], out.data_ptr(),
+        _DTYPE_CODES[out_dtype],
         x8.data_ptr() if debug else None, xs.data_ptr() if debug else None,
         scratch.data_ptr(), scratch.numel(), m, k, n, plan.cluster,
         _build.stream_handle())
@@ -248,19 +254,21 @@ def _launch(x, w8, w_scale, w8t, debug, lib=None, plan=None):
     return out, x8, xs
 
 
-def _dispatch(x, w8, w_scale, w8t, debug):
+def _dispatch(x, w8, w_scale, w8t, debug, out_dtype=None):
     _check(x, w8, w_scale)
     if x.device.type == "cpu":
-        out = int8_matmul_plain(x, w8, w_scale)
+        out = int8_matmul_plain(x, w8, w_scale, out_dtype)
         return (out, *quantize_activation(x)) if debug else (out, None, None)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    return _launch(x, w8, w_scale, w8t, debug)
+    return _launch(x, w8, w_scale, w8t, debug, out_dtype=out_dtype)
 
 
-def int8_matmul(x, w8, w_scale, w8t=None):
+def int8_matmul(x, w8, w_scale, w8t=None, out_dtype=None):
     """``x @ dequant(w8)`` through int8: x float (any leading axes,
-    contraction over the last), w8 (K, N) int8, w_scale (N,) → x.dtype.
+    contraction over the last), w8 (K, N) int8, w_scale (N,) →
+    ``out_dtype`` (default x.dtype; the kernel writes it from its f32
+    epilogue, so bf16 input can give an f32 result never rounded to bf16).
 
     CUDA tensor: one kernel launch (``int8_matmul.launches`` counts it) when
     K and N are multiples of 128, else ``ValueError``; ``w8t`` is
@@ -278,7 +286,7 @@ def int8_matmul(x, w8, w_scale, w8t=None):
     >>> bool(err / (x @ w).std() < 0.1)
     True
     """
-    return _dispatch(x, w8, w_scale, w8t, debug=False)[0]
+    return _dispatch(x, w8, w_scale, w8t, debug=False, out_dtype=out_dtype)[0]
 
 
 int8_matmul.launches = 0

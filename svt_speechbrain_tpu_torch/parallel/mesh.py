@@ -48,24 +48,34 @@ def _device_type():
     return "cuda" if _dist().get_backend() == "nccl" else "cpu"
 
 
-def make_mesh(n_devices=None, axis_names=("data",), shape=None):
+def make_mesh(n_devices=None, axis_names=("data",), shape=None,
+              devices=None):
     """A ``DeviceMesh`` over the process group's ranks (``mesh.py:25``):
     1-D over all of them by default, or of ``shape`` with ``axis_names``,
-    e.g. ``shape=(2, 2), axis_names=("data", "model")``. The mesh covers
-    every rank: ``n_devices``, when given, must be the world size."""
-    from torch.distributed.device_mesh import init_device_mesh
+    e.g. ``shape=(2, 2), axis_names=("data", "model")``. ``devices`` is a
+    list of ranks, laid out in that order; by default the mesh covers every
+    rank, and ``n_devices``, when given, must be the world size."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
     world = _dist().get_world_size()
-    if n_devices is not None and n_devices != world:
+    if devices is None and n_devices is not None and n_devices != world:
         raise ValueError(f"a mesh covers every rank: {n_devices} devices "
                          f"asked, world size {world}")
+    count = world if devices is None else len(devices)
     if shape is None:
         if len(axis_names) != 1:
             raise ValueError("Provide shape for multi-axis meshes")
-        shape = (world,)
-    if int(np.prod(shape)) != world:
+        shape = (count,)
+    if int(np.prod(shape)) != count:
         raise ValueError(f"mesh shape {tuple(shape)} does not cover the "
-                         f"{world} ranks")
+                         f"{count} ranks")
+    if devices is not None:
+        if not set(devices) <= set(range(world)):
+            raise ValueError(f"ranks {list(devices)} outside the world "
+                             f"size {world}")
+        return DeviceMesh(_device_type(),
+                          torch.tensor(list(devices)).reshape(tuple(shape)),
+                          mesh_dim_names=tuple(axis_names))
     return init_device_mesh(_device_type(), tuple(shape),
                             mesh_dim_names=tuple(axis_names))
 

@@ -27,12 +27,13 @@ def _is_remote(source):
 
 
 def fetch(filename, source, savedir="./pretrained_model_checkpoints",
-          overwrite=False, save_filename=None):
+          overwrite=False, save_filename=None, use_auth_token=False):
     """``savedir/save_filename`` (default ``filename``) as a symlink to
     ``source/filename`` (``fetching.py:20``): an existing destination is
     reused unless ``overwrite``; a local directory's file is (re)linked; a
     missing directory or file raises ``FileNotFoundError``; a URL or hub id
-    raises ``ValueError``.
+    raises ``ValueError``. ``use_auth_token`` is accepted and unused:
+    nothing is downloaded.
 
     Example
     -------

@@ -412,11 +412,16 @@ def average_state_dicts(state_dicts):
     return out
 
 
-def average_checkpoints(checkpoint_list, recoverable_name):
+def average_checkpoints(checkpoint_list, recoverable_name,
+                        parameter_loader=None, averager=None):
     """The mean of one recoverable's saved state dicts across checkpoints
-    (``checkpoints.py:321``)."""
-    return average_state_dicts(_torch_load(ckpt.paramfiles[recoverable_name])
-                               for ckpt in checkpoint_list)
+    (``checkpoints.py:321``). ``parameter_loader(path)`` reads a state dict
+    (``torch.load`` by default) and ``averager(state_dicts)`` combines them
+    (``average_state_dicts`` by default)."""
+    parameter_loader = parameter_loader or _torch_load
+    averager = averager or average_state_dicts
+    return averager(parameter_loader(ckpt.paramfiles[recoverable_name])
+                    for ckpt in checkpoint_list)
 
 
 # --------------------------------------------------------------------------
@@ -443,6 +448,21 @@ def mark_as_transfer(method):
     """Mark ``method(self, path)`` as the parameter-transfer hook."""
     method._speechbrain_transfer = True
     return method
+
+
+def get_default_hook(obj, default_hooks):
+    """The hook of ``obj``'s class or its nearest base in ``default_hooks``,
+    or None (``checkpoints.py:397``).
+
+    Example
+    -------
+    >>> get_default_hook(True, {int: "int hook"})
+    'int hook'
+    """
+    for cls in type(obj).__mro__:
+        if cls in default_hooks:
+            return default_hooks[cls]
+    return None
 
 
 def register_checkpoint_hooks(cls):

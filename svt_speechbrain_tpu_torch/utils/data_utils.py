@@ -1,12 +1,16 @@
-"""Padding helpers of the data loaders (port of the part of
-``svt_speechbrain_tpu/utils/data_utils.py`` that ``PaddedBatch`` and
-``ErrorRateStats`` need).
+"""Data helpers (port of ``svt_speechbrain_tpu/utils/data_utils.py``):
+padding for the loaders, file listing, list splitting, nested-dict walks,
+``recursive_to`` over tensors and a tolerant collate.
 
-They work on numpy arrays, in the loader's worker processes; ``PaddedBatch``
-turns their results into tensors. ``download_file`` is not ported: nothing
-is downloaded.
+The padding helpers work on numpy arrays, in the loader's worker
+processes; ``PaddedBatch`` turns their results into tensors.
+``download_file`` is not ported: nothing is downloaded
+(``docs/PORT_MAP.md``).
 """
 from __future__ import annotations
+
+import collections.abc
+import os
 
 import numpy as np
 
@@ -82,3 +86,143 @@ def batch_pad_right(arrays, mode="constant", value=0, target_len=None):
 def round_up(x, multiple):
     """Smallest multiple of ``multiple`` ≥ x (``pad_multiples`` bucketing)."""
     return int(-(-x // multiple) * multiple)
+
+
+def recursive_to(data, fn):
+    """Every tensor or numpy array of a nested structure through ``fn``
+    (``data_utils.py:86``): a callable, or a ``torch.device`` (or its name)
+    that the leaves are moved to, numpy arrays as tensors.
+
+    Example
+    -------
+    >>> import torch
+    >>> out = recursive_to({"a": [torch.ones(2)], "b": "x"}, "cpu")
+    >>> out["a"][0].device.type, out["b"]
+    ('cpu', 'x')
+    """
+    import torch
+
+    if isinstance(data, (torch.Tensor, np.ndarray)):
+        if callable(fn):
+            return fn(data)
+        return torch.as_tensor(data).to(fn)
+    if isinstance(data, collections.abc.Mapping):
+        return {k: recursive_to(v, fn) for k, v in data.items()}
+    if isinstance(data, tuple) and hasattr(data, "_fields"):  # namedtuple
+        return type(data)(*(recursive_to(v, fn) for v in data))
+    if isinstance(data, collections.abc.Sequence) and not isinstance(
+            data, str):
+        return [recursive_to(v, fn) for v in data]
+    return data
+
+
+def recursive_update(d, u, must_match=False):
+    """Update the nested dict ``d`` with ``u`` (``data_utils.py:100``);
+    with ``must_match`` a key of ``u`` that ``d`` lacks raises."""
+    for k, v in u.items():
+        if isinstance(v, collections.abc.Mapping) and k in d:
+            recursive_update(d.get(k, {}), v, must_match=must_match)
+        elif must_match and k not in d:
+            raise KeyError(f"Override '{k}' not found in: "
+                           f"{[key for key in d.keys()]}")
+        else:
+            d[k] = v
+
+
+def split_path(path):
+    """[folder or source, file name] (``data_utils.py:130``).
+
+    Example
+    -------
+    >>> split_path("a/b/c.ckpt"), split_path("c.ckpt")
+    (['a/b', 'c.ckpt'], ('./', 'c.ckpt'))
+    """
+    if "/" in path:
+        return path.rsplit("/", maxsplit=1)
+    return "./", path
+
+
+def get_all_files(dirName, match_and=None, match_or=None, exclude_and=None,
+                  exclude_or=None):
+    """The files under ``dirName``, recursively, filtered by substrings
+    (``data_utils.py:138``)."""
+    allFiles = []
+    for entry in os.listdir(dirName):
+        fullPath = os.path.join(dirName, entry)
+        if os.path.isdir(fullPath):
+            allFiles += get_all_files(fullPath, match_and, match_or,
+                                      exclude_and, exclude_or)
+        else:
+            if match_and and not all(s in fullPath for s in match_and):
+                continue
+            if match_or and not any(s in fullPath for s in match_or):
+                continue
+            if exclude_and and all(s in fullPath for s in exclude_and):
+                continue
+            if exclude_or and any(s in fullPath for s in exclude_or):
+                continue
+            allFiles.append(fullPath)
+    return allFiles
+
+
+def mod_default_collate(batch):
+    """Stack a list of batch values where it can, never raising
+    (``data_utils.py:159``): equal-shape tensors into a tensor, equal-shape
+    arrays into a numpy array, Python numbers into a numpy array; anything
+    else comes back unchanged."""
+    import torch
+
+    elem = batch[0]
+    if isinstance(elem, torch.Tensor):
+        try:
+            return torch.stack(batch, 0)
+        except Exception:
+            return batch
+    if isinstance(elem, np.ndarray) or hasattr(elem, "__array__"):
+        try:
+            arrs = [np.asarray(b) for b in batch]
+            if (len({a.shape for a in arrs}) == 1
+                    and arrs[0].dtype.kind not in "OUS"):
+                return np.stack(arrs, 0)
+        except Exception:
+            pass
+        return batch
+    if isinstance(elem, float):
+        return np.asarray(batch, dtype=np.float64)
+    if isinstance(elem, bool):
+        return np.asarray(batch, dtype=bool)
+    if isinstance(elem, int):
+        return np.asarray(batch)
+    return batch
+
+
+def split_by_whitespace(text):
+    """``text.split()`` as a pipeline function (``data_utils.py:183``)."""
+    return text.split()
+
+
+def split_list(seq, num):
+    """``seq`` in ``num`` nearly equal chunks (``data_utils.py:189``).
+
+    Example
+    -------
+    >>> split_list(range(5), 2)
+    [[0, 1], [2, 3, 4]]
+    """
+    seq = list(seq)
+    avg = len(seq) / float(num)
+    out, last = [], 0.0
+    while last < len(seq):
+        out.append(seq[int(last):int(last + avg)])
+        last += avg
+    return out
+
+
+def recursive_items(dictionary):
+    """(key, value) of every leaf of a nested dict, depth first
+    (``data_utils.py:201``)."""
+    for key, value in dictionary.items():
+        if isinstance(value, dict):
+            yield from recursive_items(value)
+        else:
+            yield (key, value)

@@ -39,8 +39,9 @@ def setup_logging(log_file=None, console_level=logging.INFO,
     logging.getLogger("torch").setLevel(logging.WARNING)
 
 
-def format_order_of_magnitude(number):
-    """3.5M-style formatting (``logger.py:42``).
+def format_order_of_magnitude(number, abbreviate=True):
+    """3.5M-style formatting (``logger.py:42``); ``abbreviate`` is accepted
+    and, as in the JAX package, the abbreviations are always used.
 
     Example
     -------
@@ -77,3 +78,19 @@ def get_environment_description():
         "Platform:\n" + platform.platform() + "\n",
         f"PyTorch {torch.__version__}, CUDA {torch.version.cuda}; CUDA "
         f"devices:\n{devices}\n"])
+
+
+class TqdmCompatibleStreamHandler(logging.StreamHandler):
+    """A stream handler that writes through ``tqdm.write`` so progress bars
+    survive log lines (``logger.py:88``); a plain emit without tqdm."""
+
+    def emit(self, record):
+        try:
+            from tqdm import tqdm
+
+            tqdm.write(self.format(record), file=self.stream)
+            self.flush()
+        except ImportError:
+            super().emit(record)
+        except Exception:
+            self.handleError(record)

@@ -23,6 +23,7 @@ from svt_speechbrain_tpu_torch.models import augment as taug
 from svt_speechbrain_tpu_torch.nnet.dropout import StepRNG
 from svt_speechbrain_tpu_torch.nnet.loss import stoi_loss as tstoi
 from svt_speechbrain_tpu_torch.processing import speech_augmentation as tsa
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 # f32 on both sides, waveforms of order 1: a product or a 101-tap
 # convolution in another order; the resampler's taps sum ~14-40 products

@@ -32,7 +32,7 @@ from svt_speechbrain_tpu_torch.models import avhubert_asr as tasr
 from svt_speechbrain_tpu_torch.models import convert_fairseq
 from svt_speechbrain_tpu_torch.models import seq2seq_decoder as tdec
 
-from tests.test_torch_video_models import _fairseq_sd
+from tests.test_torch_video_avhubert import _fairseq_sd
 from tests.torch_threads import two_torch_threads  # noqa: F401
 
 ATOL = 1e-5

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from svt_speechbrain_tpu_torch.ops import conv_frontend as cf
 from tests.test_torch_flash_backward_tf32x3 import (FACTOR, matmul, mm3,
                                                     tf32_once)
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 TOL_F32 = 1e-3   # TOL[("conv_frontend", "f32")] in chip_smoke.py
 C = 512          # lv60

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from svt_speechbrain_tpu_torch.ops import flash_attention as fa
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 TRAIN_TOL_F32 = 1e-4    # tests/test_torch_kernels_card.py, chip_smoke.py
 # 3xTF32 keeps about 21 of f32's 24 mantissa bits per operand and drops

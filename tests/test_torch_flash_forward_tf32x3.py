@@ -28,6 +28,7 @@ import torch
 from svt_speechbrain_tpu_torch.ops import flash_attention as fa
 from tests.test_torch_flash_backward_tf32x3 import (FACTOR, TRAIN_TOL_F32,
                                                     matmul, mm3, tf32_once)
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 SEED = 2 ** 31 - 2
 

@@ -30,6 +30,7 @@ from svt_speechbrain_tpu_torch.models import quantize as tquantize
 from svt_speechbrain_tpu_torch.nnet.attention import MultiheadAttention
 from svt_speechbrain_tpu_torch.nnet.linear import Linear
 from svt_speechbrain_tpu_torch.ops import quant as tq
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}

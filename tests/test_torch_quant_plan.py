@@ -51,10 +51,11 @@ def test_launch_plan_owns_every_tile_once(no_card, m, k, n, dtype):
     out, _, _ = tq._launch(x, w8, ws, None, False, lib=lib)
     assert tq.int8_matmul.launches == before + 1
     (args,) = lib.calls
-    (code, x_ptr, _, ws_ptr, ws_code, out_ptr, x8, xs, xq, xq_bytes,
-     m_, k_, n_, cluster, _) = args
+    (code, x_ptr, _, ws_ptr, ws_code, out_ptr, out_code, x8, xs, xq,
+     xq_bytes, m_, k_, n_, cluster, _) = args
     plan = tq.launch_plan(m, k, n)
-    assert (code, ws_code) == (tq._DTYPE_CODES[dtype], 0)
+    assert (code, ws_code, out_code) == (tq._DTYPE_CODES[dtype], 0,
+                                         tq._DTYPE_CODES[dtype])
     assert (x_ptr, ws_ptr, out_ptr) == (x.data_ptr(), ws.data_ptr(),
                                         out.data_ptr())
     assert x8 is None and xs is None and xq % 16 == 0

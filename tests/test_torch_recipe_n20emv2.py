@@ -62,6 +62,7 @@ from svt_speechbrain_tpu_torch.recipes.N20EMv2.audio_visual import (
 from svt_speechbrain_tpu_torch.tasks import amt
 from tests.conftest import REPO_ROOT
 from tests.test_recipe_mir_st500 import _make_note_track
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 JAX_RECIPES = os.path.join(REPO_ROOT, "recipes")
 PORT_RECIPES = os.path.join(REPO_ROOT, "svt_speechbrain_tpu_torch", "recipes")

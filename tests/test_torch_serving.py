@@ -38,6 +38,7 @@ from svt_speechbrain_tpu_torch.pretrained.interfaces import (
     Pretrained, SingingTranscriber)
 from svt_speechbrain_tpu_torch.utils import amt as tamt
 from svt_speechbrain_tpu_torch.utils import transcription_eval as teval
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 HP = {"frame_rate": 49.8, "onset_threshold": 0.4, "offset_threshold": 0.5}
 SR = 16000

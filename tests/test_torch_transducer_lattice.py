@@ -1,7 +1,8 @@
 """Port parity, RNN-T lattice and fused loss: the port's
 ``ops/transducer_lattice.py`` (on the CPU: the kernels' plain versions)
 against the JAX package's Pallas kernel in interpret mode, its ``lax.scan``
-lattice and its fused losses, on the same numpy inputs, in f32."""
+lattice and its fused losses, on the same numpy inputs, in f32 (the
+lattice's alpha and beta panels: ``test_torch_lattice_panels.py``)."""
 import numpy as np
 import pytest
 
@@ -17,6 +18,7 @@ from svt_speechbrain_tpu_torch import ops
 from svt_speechbrain_tpu_torch.nnet.loss.transducer_loss import (
     TransducerLoss, transducer_forward_score, transducer_loss)
 from svt_speechbrain_tpu_torch.ops import transducer_lattice as tl
+from tests.torch_threads import two_torch_threads  # noqa: F401
 
 BLANK = 0
 
@@ -76,51 +78,6 @@ def _t(*arrays):
     return [torch.from_numpy(np.asarray(a)) for a in arrays]
 
 
-@pytest.mark.parametrize("name", PROBLEMS)
-def test_lattice_plain_matches_pallas_kernel_and_scan_on_alpha(name):
-    """``lattice_plain`` against ``_run_lattice(interpret=True)`` through
-    ``_skew``/``_unskew`` and against ``_lattice_scan``, alpha panels, the
-    whole grid (alpha runs unmasked). atol 1e-5, rtol 1e-6: f32 logaddexp
-    chains in three orders of evaluation."""
-    (skip, emit_pad, seed), _, _, _ = _panels(*_problem(0, **PROBLEMS[name]))
-    b, t, u1 = skip.shape
-    got = tl.lattice_plain(*_t(skip, emit_pad, seed)).numpy()
-    d_total = t + u1 - 1
-    seed_s = jnp.full((b, d_total, u1), jtl.NEG_INF).at[:, 0, 0].set(0.0)
-    pallas = jtl._unskew(jtl._run_lattice(
-        jtl._skew(jnp.asarray(skip), d_total),
-        jtl._skew(jnp.asarray(emit_pad), d_total), seed_s, interpret=True), t)
-    scan = jtl._lattice_scan(jnp.asarray(skip), jnp.asarray(emit_pad),
-                             jnp.asarray(seed), finite_b=True)
-    np.testing.assert_allclose(got, np.asarray(pallas), atol=1e-5, rtol=1e-6)
-    np.testing.assert_allclose(got, np.asarray(scan), atol=1e-5, rtol=1e-6)
-    assert got[:, 0, 0].tolist() == [0.0] * b
-
-
-@pytest.mark.parametrize("name", PROBLEMS)
-def test_lattice_plain_matches_pallas_kernel_and_scan_on_beta(name):
-    """The reverse lattice (the plain version's flips) against the JAX
-    ``_beta`` through the interpret-mode kernel and through the scan, on the
-    masked panels, held on each row's valid region (outside it everything is
-    about -1e30 on every side, to no fixed bit pattern)."""
-    _, (skip_m, emit_m, seed_tu), t_len, u_len = _panels(
-        *_problem(1, **PROBLEMS[name]))
-    got = tl.lattice_plain(*_t(skip_m, emit_m, seed_tu), reverse=True).numpy()
-    live = _valid(t_len, u_len, got.shape[1], got.shape[2], extra_row=1)
-    for lattice in ("pallas", "scan"):
-        want = np.asarray(jtl._beta(jnp.asarray(skip_m), jnp.asarray(emit_m),
-                                    jnp.asarray(seed_tu), True, lattice))
-        np.testing.assert_allclose(got[live], want[live], atol=1e-5,
-                                   rtol=1e-6)
-        assert (got[~live] < -1e29).all() and (want[~live] < -1e29).all()
-    assert np.isfinite(got).all()
-    # the wrapper on CPU tensors is the plain version and counts nothing
-    before = tl.rnnt_lattice.launches
-    same = tl.rnnt_lattice(*_t(skip_m, emit_m, seed_tu), reverse=True)
-    assert np.array_equal(same.numpy(), got)
-    assert tl.rnnt_lattice.launches == before
-
-
 LOSS_PROBLEMS = dict(PROBLEMS, blank_target=dict(
     b=3, t=9, u=4, v=6, t_lens=[9, 7, 5], u_lens=[4, 3, 0],
     blank_target=True))
@@ -147,9 +104,10 @@ def test_fused_loss_and_gradient_match_jax(name, fn, from_log_probs):
                                 jnp.asarray(u_rel), BLANK, reduction="none",
                                 from_log_probs=from_log_probs)
 
-    want = np.asarray(j_loss(jnp.asarray(logits)))
-    want_grad = np.asarray(jax.grad(
-        lambda l: (j_loss(l) * weights).sum())(jnp.asarray(logits)))
+    # jitted: op by op the JAX side took most of this test's time
+    want = np.asarray(jax.jit(j_loss)(jnp.asarray(logits)))
+    want_grad = np.asarray(jax.jit(jax.grad(
+        lambda l: (j_loss(l) * weights).sum()))(jnp.asarray(logits)))
 
     got, grads = {}, {}
     for key, loss_fn in (("fused", getattr(tl, fn)), ("oracle",
